@@ -1,22 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Builds the hand-written Hopper Legendre-pair kernels from this checkout, holds each
-against its plain torch version, and drives the port's main path — the idealized
-full-sky parameter file through the staged driver's functions (filtering, batched ptt and
-p_p QEs, split-half mean fields, dd/ds/ss spectra) at LMAX_IVF = LMAX_QLM = 2048 with 8
-simulations, float32 QEs on cuda:0 — counting kernel launches on the way. Phases:
+Builds the hand-written Hopper Legendre kernels from this checkout, holds each against its
+plain torch version, and drives the port's two paths, counting kernel launches on the way:
+the main path — the idealized full-sky parameter file through the staged driver's
+functions (filtering, batched ptt and p_p QEs, split-half mean fields, dd/ds/ss spectra)
+at LMAX_IVF = LMAX_QLM = 2048 with 8 simulations, float32 QEs on cuda:0 — and the HEALPix
+entry path at Planck's nside 2048. Phases:
 
   0 device      CUDA present (no CPU path), card name and power limit, TF32 off
-  1 build       nvcc build of csrc/legendre_pair.cu (timed; register report)
-  2 kernels     kernel vs plain version: spins 0-3, odd/even rings, lmax 256, f32
+  1 build       nvcc build of csrc/legendre_pair.cu, all four kernels (timed; registers)
+  2 kernels     K1/K2 vs plain version: spins 0-3, odd/even rings, lmax 256, f32
                 (<= 1e-5 of max) and f64 (<= 1e-12 of max); lmax 2048 on the 3073-ring
                 QE grid, spin 1, f32, batch 4 and 8 (<= 1e-5 of max), times, and the
                 analysis bitwise equal from run to run
+  2b plain      K3/K4 vs plain version at lmax 256 on 201 and 202 random rings (one within
+                1e-3 of each pole) and the 255 rings of HEALPix nside 64, n = -3..3,
+                mmax = lmax and mmax < lmax, f32 (<= 1e-5) and f64 (<= 1e-12 of max);
+                lmax 2048 on the 2047 north-cap rings of nside 2048, n = -2, f32, batch 4
+                and 8 (<= 1e-5 of max), K4 bitwise equal from run to run; times on all
+                8191 rings at batch 4
   3 sht         SHT round trips at lmax 2048, spin 0 and 2, f32 (<= 1e-4 of max)
-  4 main path   the slice at lmax 2048: finite outputs of the expected shapes, both
-                kernels launched, f32 vs f64 qlm of sim 4 (ptt, relative rms <= 1e-3),
-                and the CUDA path against the CPU plain path on a small input (<= 1e-10)
+  4 main path   the slice at lmax 2048: finite outputs of the expected shapes, K1/K2
+                launched, f32 vs f64 qlm of sim 4 (ptt, relative rms <= 1e-3), and the
+                CUDA path against the CPU plain path on a small input (<= 1e-10)
+  5a pixwin     exact pixel window of nside 128 (T and pol, f64, 256 x 3 K4 calls) against
+                the shipped tables (<= 1e-10 of max)
+  5b healpix    HEALPix entry path, nside 2048, lmax 2048, f64 transforms: sims 0-3 ->
+                alm2map(_spin) (K3) -> map2alm(_spin) iter 3 (K4, K3) -> FITS alms ->
+                ExternalAlmLib -> IVFSepTP -> QELib ptt/p_p in f32; K3/K4 launched, alm
+                round trip (relative rms <= 1e-6) and qlm against phase 4's (<= 1e-5);
+                the nside-2048 ring weights timed. examples/profile_healpix_torch.py
+                traces the same path and splits its time
+
+Phases 4 and 5b each start with an empty recursion-table cache, so each path's times and
+peak memory are its own, cold.
 
 Any failure raises (non-zero exit). The line before the last is a JSON object with one
 entry per kernel; the last line is {"ok": true, "device": {...}}.
@@ -27,13 +45,22 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 LMAX = 2048
 NSIMS = 8
 KEYS = ('ptt', 'p_p')
 SRC = 'plancklens_tpu_torch/ops/sht/csrc/legendre_pair.cu'
 REPLACES = {'synth_pair': 'plancklens_tpu/ops/sht/pallas_kernel.py:497',
-            'anal_pair': 'plancklens_tpu/ops/sht/pallas_kernel.py:641'}
+            'anal_pair': 'plancklens_tpu/ops/sht/pallas_kernel.py:641',
+            'synth': 'plancklens_tpu/ops/sht/pallas_kernel.py:131',
+            'anal': 'plancklens_tpu/ops/sht/pallas_kernel.py:267'}
+NSIDE = 2048
+HP_SIMS = [0, 1, 2, 3]
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 and FP64 outside the
+# tensor cores, flop/s
+PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
 
 
 def check(cond, msg):
@@ -47,6 +74,28 @@ def phase(n, msg):
 
 def rel_max(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def rel_rms(a, b):
+    return ((a - b).abs().pow(2).sum() / b.abs().pow(2).sum()).sqrt().item()
+
+
+def bound(l0, L, rows, nrec, nacc, B, f64_data, nbytes):
+    """(bound_ms, bound_by) of one Legendre call: the larger of the bytes it must move
+    over HBM's rate and its operations over the peak rate of their type. Points are the
+    (l >= l0(m), ring, m) triples this call's tables need; per point each recursion is 5
+    f64 flops ((a x + b) d - g d_prev) and each accumulator a complex-by-real multiply-add
+    of 4 flops per map in the data type."""
+    points = float(rows) * float(np.maximum(L - np.asarray(l0, dtype=np.int64), 0).sum())
+    rec = points * nrec * 5.
+    acc = points * nacc * B * 4.
+    t_ops = (rec + acc) / PEAK_F64 if f64_data else max(rec / PEAK_F64, acc / PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes else 'bytes')
+
+
+def table_bytes(t):
+    return sum(v.numel() * v.element_size() for k, v in t.items() if k != 'S')
 
 
 def cuda_ms(fn, reps):
@@ -66,7 +115,6 @@ def main():
     visible = os.environ.get('CUDA_VISIBLE_DEVICES')
     card = '0' if visible is None else visible.split(',')[0]
     os.environ['CUDA_VISIBLE_DEVICES'] = card
-    import numpy as np
     import torch
     check(torch.cuda.is_available(), 'no CUDA device: this script measures the GPU port')
     check(torch.cuda.device_count() == 1, 'the run must see exactly one card')
@@ -76,8 +124,11 @@ def main():
           == os.path.join(HERE, 'plancklens_tpu_torch'),
           'plancklens_tpu_torch must come from this checkout')
     from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk, SHT
+    from plancklens_tpu_torch.ops.sht import HealpixGeometry
     from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
+    from plancklens_tpu_torch.ops.sht.pixwin import pixwin_exact, _ring_Gm
     from plancklens_tpu_torch.utils import alm as ualm
+    from plancklens_tpu_torch import DATAPATH
     check('jax' not in sys.modules, 'the port must not import jax')
 
     # ---------------------------------------------------------------- 0 device
@@ -166,6 +217,103 @@ def main():
               % (nr, geom.nphi, B, ms_s, pms_s, es, ms_a, pms_a, ea))
         del C, Cm, Fp, Fm, Qp, Qm, A, Bc, A0, B0, Pp, Pm, PA, PB
     torch.cuda.empty_cache()
+    # bounds at the batch-8 shapes timed above: both recursions on the 1537 northern
+    # rings, four accumulators (north/south of each leg) per map
+    B, L, nh = 8, LMAX + 1, (nr + 1) // 2
+    l0 = t_m['l0'].cpu().numpy()
+    tb = table_bytes(t_m) + table_bytes(t_p)
+    io = 2 * B * L * L * 8 + 2 * B * nr * L * 8
+    stats[8]['synth'] += bound(l0, L, nh, 2, 4, B, False, io + tb)
+    stats[8]['anal'] += bound(l0, L, nh, 2, 4, B, False, io + tb)
+    del t_m, t_p
+
+    # ---------------------------------------------------------------- 2b plain kernels
+    rng = np.random.RandomState(256)
+    grids = []
+    for nrand in (201, 202):
+        th = np.sort(rng.uniform(0., np.pi, nrand))
+        th[0], th[-1] = 4e-4, np.pi - 7e-4          # within 1e-3 of each pole
+        grids.append(('%d random' % nrand, th))
+    grids.append(('HEALPix nside 64', HealpixGeometry(64).theta))
+    worst_p = {'synth': 0., 'anal': 0.}
+    lp = 256
+    for label, th in grids:
+        R = len(th)
+        for cdt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
+            for n in range(-3, 4):
+                for M in (lp + 1, lp // 2 + 1):
+                    t = core.full_tables(lp, M - 1, n, th, None, dev)
+                    C = crandn((3, lp + 1, M), cdt)
+                    Q = crandn((3, R, M), cdt)
+                    es = rel_max(lk.synth(C, R, t), core.legendre_synth_plain(C, t))
+                    ea = rel_max(lk.anal(Q, lp, t), core.legendre_anal_plain(Q, lp, t))
+                    check(es <= tol and ea <= tol, 'K3/K4 vs plain at lmax %d, %s rings, %s, '
+                          'n %d, mmax %d: synth %.2e anal %.2e > %.0e'
+                          % (lp, label, cdt, n, M - 1, es, ea, tol))
+                    worst_p['synth'] = max(worst_p['synth'], es)
+                    worst_p['anal'] = max(worst_p['anal'], ea)
+    phase(2, '(2b) K3/K4 vs plain at lmax 256 on 201/202 random rings and HEALPix nside 64, '
+             'n -3..3, mmax 256/128, f32 and f64: worst synth %.2e, anal %.2e of max'
+          % (worst_p['synth'], worst_p['anal']))
+
+    hgeom = HealpixGeometry(NSIDE)
+    ncap = NSIDE - 1                           # the north cap's rings: 2047 at nside 2048
+    th_cap = hgeom.theta[:ncap]
+    t = core.full_tables(LMAX, LMAX, -2, th_cap, None, dev)
+    for B in (4, 8):
+        C = crandn((B, LMAX + 1, LMAX + 1), torch.complex64)
+        lk.synth(C, ncap, t)                                                 # warm-up
+        ms_s, G = cuda_ms(lambda: lk.synth(C, ncap, t), 3)
+        A0 = lk.anal(G, LMAX, t)
+        ms_a, A = cuda_ms(lambda: lk.anal(G, LMAX, t), 3)
+        check(torch.equal(A0, A), 'K4 anal is not deterministic')
+        pms_s, PG = cuda_ms(lambda: core.legendre_synth_plain(C, t), 1)
+        pms_a, PA = cuda_ms(lambda: core.legendre_anal_plain(G, LMAX, t), 1)
+        es, ea = rel_max(G, PG), rel_max(A, PA)
+        check(es <= 1e-5 and ea <= 1e-5, 'K3/K4 vs plain at lmax 2048 on %d cap rings, batch '
+              '%d: synth %.2e anal %.2e of max > 1e-5' % (ncap, B, es, ea))
+        phase(2, '(2b) lmax 2048, %d north-cap rings of nside %d, n -2, f32, batch %d: synth '
+                 '%.3f ms (plain %.1f ms, %.2e of max), anal %.3f ms (plain %.1f ms, %.2e of '
+                 'max)' % (ncap, NSIDE, B, ms_s, pms_s, es, ms_a, pms_a, ea))
+        del C, G, A0, A, PG, PA
+    del t
+    # all 8191 rings, batch 4, n = -2: phase 5b's shape (uncached, as phase 5b builds its own)
+    R, B, L = hgeom.nrings, 4, LMAX + 1
+    t = core.full_tables(LMAX, LMAX, -2, hgeom.theta, None, dev)
+    full = {}
+    for cdt in (torch.complex64, torch.complex128):
+        C = crandn((B, L, L), cdt)
+        lk.synth(C, R, t)
+        ms_s, G = cuda_ms(lambda: lk.synth(C, R, t), 2)
+        lk.anal(G, LMAX, t)
+        ms_a, A = cuda_ms(lambda: lk.anal(G, LMAX, t), 2)
+        full[cdt] = (ms_s, ms_a)
+        phase(2, '(2b) lmax 2048, all %d rings of nside %d, n -2, %s, batch %d: synth %.3f ms, '
+                 'anal %.3f ms' % (R, NSIDE, cdt, B, ms_s, ms_a))
+    # phase 5b's shape (f64): the kernels against their plain versions, timed
+    pms_s, PG = cuda_ms(lambda: core.legendre_synth_plain(C, t), 1)
+    pms_a, PA = cuda_ms(lambda: core.legendre_anal_plain(G, LMAX, t), 1)
+    check(rel_max(G, PG) <= 1e-12 and rel_max(A, PA) <= 1e-12,
+          'K3/K4 vs plain on all %d rings, f64: %.2e / %.2e' % (R, rel_max(G, PG), rel_max(A, PA)))
+    l0 = t['l0'].cpu().numpy()
+    io = B * L * L * 16 + B * R * L * 16
+    stats_p = {'synth': (full[torch.complex128][0], pms_s, (G - PG).abs().max().item())
+                        + bound(l0, L, R, 1, 1, B, True, io + table_bytes(t)),
+               'anal': (full[torch.complex128][1], pms_a, (A - PA).abs().max().item())
+                       + bound(l0, L, R, 1, 1, B, True, io + table_bytes(t))}
+    phase(2, '(2b) the same in f64: plain synth %.1f ms, plain anal %.1f ms, %.2e / %.2e of max'
+          % (pms_s, pms_a, rel_max(G, PG), rel_max(A, PA)))
+    del C, G, A, PG, PA, t
+    # the exact pixel window's shape: 48 node rings, 64 pixel shapes, lmax 512 (nside 128)
+    Gm, th_pw, _ = _ring_Gm(128, 128, 512)
+    Gm = torch.as_tensor(Gm, device=dev)
+    t = core.full_tables(512, 512, 2, th_pw, None, dev)
+    lk.anal(Gm, 512, t)
+    ms_pw, _ = cuda_ms(lambda: lk.anal(Gm, 512, t), 5)
+    phase(2, '(2b) pixel-window shape, %d node rings x %d shapes, lmax 512, f64: anal %.3f ms'
+          % (len(th_pw), Gm.shape[0], ms_pw))
+    del Gm, t
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 3 sht
     sht = SHT(gl_geometry(LMAX), LMAX, dtype=torch.float32, device=dev)
@@ -193,9 +341,12 @@ def main():
     os.environ.pop('PLK_CACHE_DIR', None)
     sys.path.insert(0, os.path.join(HERE, 'examples'))
     import run_qlms_torch as drv
+    from profile_healpix_torch import healpix_path
     par = drv.load_parfile(os.path.join(HERE, 'params', 'idealized_example_torch.py'), dev)
     check(par.QE_DTYPE == torch.float32, 'production QEs run in float32 on the card')
     idxs = list(range(NSIMS))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     lk.reset_launches()
@@ -212,8 +363,8 @@ def main():
           'qcl(sims %s) %.3fs; %.1fs wall; peak memory %.2f GiB; launches %s'
           % (LMAX, NSIMS, '/'.join(KEYS), s_filt, s_qe, s_mf,
              ','.join(map(str, par.mc_sims_var)), s_qcl, t_main, peak, launches))
-    for name, n in launches.items():
-        check(n > 0, 'kernel %s was not launched by the main path' % name)
+    for name in ('synth_pair', 'anal_pair'):
+        check(launches[name] > 0, 'kernel %s was not launched by the main path' % name)
     nalm = ualm.getsize(LMAX)
     for x in teb:
         check(tuple(x.shape) == (NSIMS, nalm) and bool(torch.isfinite(x).all()), 'filt output')
@@ -256,12 +407,87 @@ def main():
     phase(4, 'QE ptt/p_p at lmax 64, f64: CUDA kernel path vs CPU plain path %.2e of max'
           % max(small))
 
+    del q64, a64, a32
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 5a pixwin
+    torch.cuda.synchronize()
+    n0 = lk.launches['anal']
+    t0 = time.perf_counter()
+    wt, wp = pixwin_exact(128, pol=True, device=dev)
+    s_pw = time.perf_counter() - t0
+    shipped = np.load(os.path.join(DATAPATH, 'pixwin', 'pixwin_n0128_pol.npy'))
+    e_pw = max(np.abs(wt - shipped[0]).max() / np.abs(shipped[0]).max(),
+               np.abs(wp - shipped[1]).max() / np.abs(shipped[1]).max())
+    check(e_pw <= 1e-10, 'exact pixel window of nside 128 vs shipped table: %.2e' % e_pw)
+    phase(5, '(5a) pixwin_exact(128, pol=True), f64: %.2fs, %d K4 calls, %.2e of max from '
+             'the shipped tables' % (s_pw, lk.launches['anal'] - n0, e_pw))
+
+    # ---------------------------------------------------------------- 5b healpix path
+    import tempfile
+    obs = par.sims.get_sim_teblm_batch(HP_SIMS)                 # (4, nalm) complex128 each
+    ref_q = {k: par.qlms_dd.get_sim_qlm_batch(k, HP_SIMS) for k in KEYS}   # phase 4's
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_launches()
+    t_hp = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tdir:
+        (tmap, qmap, umap), (tlm, elm, blm), hq, secs = healpix_path(
+            par, obs, HP_SIMS, KEYS, tdir, NSIDE, LMAX, dev)
+    torch.cuda.synchronize()
+    t_hp = time.perf_counter() - t_hp
+    hp_launches = dict(lk.launches)
+    peak_hp = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase(5, '(5b) HEALPix path, nside %d, lmax %d, sims %s, f64 transforms, cold: %s; %.1fs '
+             'wall; peak memory %.2f GiB; launches %s'
+          % (NSIDE, LMAX, HP_SIMS, ', '.join('%s %.3fs' % kv for kv in secs.items()), t_hp,
+             peak_hp, hp_launches))
+    for name in ('synth', 'anal'):
+        check(hp_launches[name] > 0, 'kernel %s was not launched by the HEALPix path' % name)
+    npix = 12 * NSIDE ** 2
+    for x in (tmap, qmap, umap):
+        check(tuple(x.shape) == (len(HP_SIMS), npix) and bool(torch.isfinite(x).all()),
+              'HEALPix maps')
+    for x in (tlm, elm, blm):
+        check(tuple(x.shape) == (len(HP_SIMS), nalm) and bool(torch.isfinite(x).all()),
+              'HEALPix alms')
+    # the round trip, T at all l and E/B at l >= 2 (a spin-2 map carries no l < 2 modes)
+    hi = ualm._dev_index(LMAX, dev, 'l') >= 2
+    rt = [rel_rms(tlm, obs[0]), rel_rms(elm[:, hi], obs[1][:, hi]),
+          rel_rms(blm[:, hi], obs[2][:, hi])]
+    gaps = {k: rel_rms(hq[k].to(torch.complex128), ref_q[k].to(torch.complex128)) for k in KEYS}
+    phase(5, '(5b) alm round trip (relative rms, T / E / B): %.3e / %.3e / %.3e; qlm vs the '
+             'harmonic route of phase 4: %s'
+          % (*rt, ', '.join('%s %.3e' % kv for kv in gaps.items())))
+    check(max(rt) <= 1e-6, 'HEALPix alm round trip %s > 1e-6' % rt)
+    for k in KEYS:
+        check(tuple(hq[k].shape) == (len(HP_SIMS), nalm) and bool(torch.isfinite(hq[k]).all()),
+              'HEALPix qlm %s' % k)
+        check(gaps[k] <= 1e-5, 'HEALPix qlm %s vs harmonic route: %.3e > 1e-5' % (k, gaps[k]))
+    del obs, tmap, qmap, umap, tlm, elm, blm, hq
+    # the default analysis weights: a (3 nside + 1) x (4 nside - 1) least-norm solve,
+    # QR on the card
+    t0 = time.perf_counter()
+    w = hgeom.ring_weights(device=dev)
+    s_w = time.perf_counter() - t0
+    check(bool(np.isfinite(w).all()) and abs(np.dot(w, hgeom.nphi) / (4. * np.pi) - 1.) < 1e-10,
+          'HEALPix ring weights')
+    phase(5, '(5b) ring weights of nside %d (QR of %d x %d on the card): %.2fs'
+          % (NSIDE, 3 * NSIDE + 1, hgeom.nrings, s_w))
+
     kernels = []
-    for name in ('synth_pair', 'anal_pair'):
-        ms_k, ms_p, err_abs, _ = stats[8]['synth' if name == 'synth_pair' else 'anal']
+    for name, st, n in (('synth_pair', stats[8]['synth'], launches['synth_pair']),
+                        ('anal_pair', stats[8]['anal'], launches['anal_pair']),
+                        ('synth', stats_p['synth'], hp_launches['synth']),
+                        ('anal', stats_p['anal'], hp_launches['anal'])):
+        ms_k, ms_p, err_abs = st[:3]
+        bound_ms, bound_by = st[-2:]
         kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
-                        'replaces': REPLACES[name], 'launches': launches[name],
-                        'max_abs_err': err_abs, 'ms': ms_k, 'plain_ms': ms_p})
+                        'replaces': REPLACES[name], 'launches': n,
+                        'max_abs_err': err_abs, 'ms': ms_k, 'plain_ms': ms_p,
+                        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None})
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

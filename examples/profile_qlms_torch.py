@@ -51,13 +51,14 @@ def union_seconds(intervals):
     return busy / 1e6
 
 
-def summarize(events):
-    """Busy/idle, per-name device times and table-build seconds of a Chrome trace."""
+def summarize(events, window='main_path'):
+    """Busy/idle, per-name device times and table-build seconds of a Chrome trace, inside
+    the one profiler range named `window`."""
     spans = [e for e in events if e.get('ph') == 'X' and 'dur' in e]
-    win = [e for e in spans if e.get('name') == 'main_path'
+    win = [e for e in spans if e.get('name') == window
            and e.get('cat') == 'user_annotation']
     if len(win) != 1:
-        raise RuntimeError('expected one main_path range in the trace, found %d' % len(win))
+        raise RuntimeError('expected one %s range in the trace, found %d' % (window, len(win)))
     w0, w1 = win[0]['ts'], win[0]['ts'] + win[0]['dur']
     dev = [e for e in spans if e.get('cat') in DEVICE_CATS]
     clipped = [(max(e['ts'], w0), min(e['ts'] + e['dur'], w1)) for e in dev]

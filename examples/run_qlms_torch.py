@@ -108,8 +108,12 @@ def main():
     p.add_argument('-imax', type=int, default=15)
     p.add_argument('-k', dest='keys', nargs='+', default=['ptt'], help='QE keys to compute')
     p.add_argument('--stages', default='filt,qe,mf', help='comma list of: filt, qe, mf, qcl')
-    p.add_argument('--device', default='cpu', help="torch device, e.g. 'cuda' or 'cpu'")
+    p.add_argument('--device', default='cuda',
+                   help="torch device (default 'cuda'; 'cpu' runs the plain torch path)")
     args = p.parse_args()
+    if torch.device(args.device).type == 'cuda' and not torch.cuda.is_available():
+        p.error("no CUDA device is available for --device %s; pass --device cpu to run "
+                "on the CPU" % args.device)
 
     par = load_parfile(args.parfile, args.device)
     idxs = np.arange(args.imin, args.imax + 1)

@@ -7,9 +7,10 @@ globals follow the reference's parameter-file contract; drive the file with
 examples/run_qlms_torch.py.
 
 Environment: PLK_LMAX_IVF, PLK_LMAX_QLM, PLK_NSIMS as in the reference parfile, and
-PLK_DEVICE (default 'cpu'). Simulations and filtering run in float64 on that device; the
-QEs run in float32 on a CUDA device (the production precision, Hopper kernels) and in
-float64 on the CPU.
+PLK_DEVICE (default 'cuda'; without a card the file raises, and PLK_DEVICE=cpu runs the
+plain torch path on the CPU). Simulations and filtering run in float64 on that device;
+the QEs run in float32 on a CUDA device (the production precision, Hopper kernels) and
+in float64 on the CPU.
 """
 import os
 import numpy as np
@@ -28,7 +29,10 @@ LMIN_IVF = 10
 NLEV_T = 35.
 NLEV_P = 35. * np.sqrt(2.)
 NSIMS = int(os.environ.get('PLK_NSIMS', 64))
-DEVICE = torch.device(os.environ.get('PLK_DEVICE', 'cpu'))
+DEVICE = torch.device(os.environ.get('PLK_DEVICE', 'cuda'))
+if DEVICE.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError("PLK_DEVICE is '%s' but no CUDA device is available; set "
+                       "PLK_DEVICE=cpu to run on the CPU" % DEVICE)
 QE_DTYPE = torch.float32 if DEVICE.type == 'cuda' else None
 
 # optional persistent product store (PLK_CACHE_DIR), namespaced by configuration so that

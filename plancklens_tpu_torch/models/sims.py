@@ -1,15 +1,18 @@
 r"""Simulation libraries: reproducible Gaussian CMB + noise skies in harmonic space.
 
-Port of plancklens_tpu/models/sims.py:22-194 (`unit_phases`, `cls_to_coloring`,
-`CMBUnlLib`, `MapsNlevLib`). Determinism comes from one `torch.Generator` per
-(library seed, simulation index), seeded through numpy's SeedSequence; the streams differ
-from the reference's `jax.random` draws. For parity tests each library also takes
-`phases=`, a callable idx -> numpy (nfields, nalm) complex unit phases (e.g. the
-reference's own, through `compat.phases_from_numpy`), which replaces the generator.
+Port of plancklens_tpu/models/sims.py:22-194 and 343-389 (`unit_phases`,
+`cls_to_coloring`, `CMBUnlLib`, `MapsNlevLib`, `ExternalAlmLib`). Determinism comes from
+one `torch.Generator` per (library seed, simulation index), seeded through numpy's
+SeedSequence; the streams differ from the reference's `jax.random` draws. For parity
+tests each library also takes `phases=`, a callable idx -> numpy (nfields, nalm) complex
+unit phases (e.g. the reference's own, through `compat.phases_from_numpy`), which
+replaces the generator.
 
 Correlated fields are coloured by a per-multipole eigen-decomposition of the N_f x N_f
 spectral matrix, as in the reference (reference: plancklens/sims/cmbs.py:25-101).
 """
+import os
+
 import numpy as np
 import torch
 
@@ -190,3 +193,53 @@ class MapsNlevLib:
         """3-tuple of (nsims, nalm) observed alms."""
         obs = [self._obs(int(i)) for i in np.atleast_1d(idxs)]
         return tuple(torch.stack([o[f] for o in obs]) for f in range(3))
+
+
+class ExternalAlmLib:
+    """Simulation library backed by on-disk alm files, the role of the reference's
+    NERSC FFP10 loaders (reference: plancklens/sims/planck2018_sims.py): idx >= 0 loads
+    '<prefix>_<field>lm_%04d.<ext>', idx == -1 the data files '<prefix>_<field>lm_dat.<ext>'.
+
+    ext='fits' reads healpy-format alm FITS files directly (utils.fitsio); ext='npy'
+    reads raw triangular-layout arrays. Alms come back as complex128 tensors on `device`.
+    """
+
+    def __init__(self, tdir, prefix='sim', fields=('t', 'e', 'b'), ext='npy', *, device):
+        assert ext in ('npy', 'fits'), ext
+        self.tdir = tdir
+        self.prefix = prefix
+        self.fields = fields
+        self.ext = ext
+        self.device = torch.device(device)
+
+    def hashdict(self):
+        return {'tdir': self.tdir, 'prefix': self.prefix, 'fields': ''.join(self.fields)}
+
+    def _fn(self, f, idx):
+        tag = 'dat' if idx == -1 else '%04d' % idx
+        return os.path.join(self.tdir, '%s_%slm_%s.%s' % (self.prefix, f, tag, self.ext))
+
+    def _get(self, f, idx):
+        if self.ext == 'fits':
+            from ..utils.fitsio import read_alm
+            a = read_alm(self._fn(f, idx))
+        else:
+            a = np.load(self._fn(f, idx))
+        return torch.as_tensor(a).to(device=self.device, dtype=torch.complex128)
+
+    def get_sim_tlm(self, idx):
+        return self._get('t', idx)
+
+    def get_sim_elm(self, idx):
+        return self._get('e', idx)
+
+    def get_sim_blm(self, idx):
+        return self._get('b', idx)
+
+    def get_sim_plm(self, idx):
+        return self._get('p', idx)
+
+    def get_sim_teblm_batch(self, idxs):
+        """3-tuple of (nsims, nalm) alms."""
+        idxs = [int(i) for i in np.atleast_1d(idxs)]
+        return tuple(torch.stack([self._get(f, i) for i in idxs]) for f in 'teb')

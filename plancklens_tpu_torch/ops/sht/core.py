@@ -1,23 +1,31 @@
-r"""Spin-weighted Legendre engine: recursion tables, the plain torch NS-pair engine and
-the device dispatch of the fused north-south pair transforms.
+r"""Spin-weighted Legendre engine: recursion tables, the plain torch engines and the
+device dispatch of the Legendre transforms.
 
-For all m >= 0 and the rings theta_j of a north-south symmetric grid,
+For all m >= 0 and the rings theta_j of a north-south symmetric grid, the fused pair
 
     synthesis:  F^{-s}_{jm} = sum_l Cp_{lm} d^l_{m,-s}(theta_j),  F^{+s} likewise from Cm
     analysis:   A_{lm} = sum_j Qp_{jm} d^l_{m,-s}(theta_j),       B from Qm with d^l_{m,+s}
 
-computed on the northern half only: the mirror identity
+is computed on the northern half only: the mirror identity
 d^l_{m n}(pi - t) = (-1)^{l+m} d^l_{m,-n}(t) gives the southern values of each transform
-from the other recursion (spin 0: from its own). Numerical stability at high m follows
-libsharp: the recursion carries a per-(ring, m) power-of-2^S exponent k, so the
-sin^m(theta/2)-type underflow of the seed is represented exactly (the "scaled recursion";
-JAX reference: plancklens_tpu/ops/sht/core.py).
+from the other recursion (spin 0: from its own). On any other grid (HEALPix through
+HealpixSHT, the exact pixel window's node grids, asymmetric ring sets) the plain
+transforms run one recursion over every ring:
 
-`legendre_synth_pair`/`legendre_anal_pair` keep the contract of the reference's
-core.legendre_synth_pair/legendre_anal_pair and dispatch on the input tensor's device:
-a CUDA tensor goes to the hand-written Hopper kernels (legendre_kernels.py), a CPU tensor
-to the plain torch engine below. The plain engine is also the reference the kernels are
-held against, on the card, by the tests and by chip_smoke.py.
+    synthesis:  G_{jm} = sum_l C_{lm} d^l_{m,n}(theta_j)
+    analysis:   A_{lm} = sum_j Q_{jm} d^l_{m,n}(theta_j)
+
+Numerical stability at high m follows libsharp: the recursion carries a per-(ring, m)
+power-of-2^S exponent k, so the sin^m(theta/2)-type underflow of the seed is represented
+exactly (the "scaled recursion"; JAX reference: plancklens_tpu/ops/sht/core.py).
+
+`legendre_synth_pair`/`legendre_anal_pair` and `legendre_synth`/`legendre_anal` keep the
+contracts of the reference's functions of the same names and dispatch on the input
+tensor's device: a CUDA tensor goes to the hand-written Hopper kernels
+(legendre_kernels.py), a CPU tensor to the plain torch engines below. The plain engines
+are also the references the kernels are held against, on the card, by the tests and by
+chip_smoke.py. On an asymmetric grid the pair functions make two plain calls, as the
+reference does.
 
 Precision: the recursion always runs in f64 (S = 256); the accumulation runs in the data
 type (f32 in production on the card, f64 in the tests). The reference's f32 engine runs
@@ -95,7 +103,9 @@ def tables_to_device(tab, device):
 class _TableCache:
     """LRU of f64 device table sets keyed by (lmax, mmax, n, grid token, device). A QE at
     one band limit touches ~7 sets (spins 0..3 of the legs, the output spin); one set at
-    lmax 2048 on the 3073-ring QE grid is ~150 MB."""
+    lmax 2048 on the 3073-ring QE grid is ~150 MB, one on all 8191 rings of HEALPix
+    nside 2048 ~300 MB. The token says which rings a set covers: ('ns', grid) the
+    northern half of a pair grid, ('full', grid) every ring of a plain one."""
 
     def __init__(self, maxsize=16):
         self.maxsize = maxsize
@@ -116,6 +126,10 @@ class _TableCache:
                 self._d.popitem(last=False)
         return tab
 
+    def clear(self):
+        """Drop every cached set, so that the next path builds its own tables cold."""
+        self._d.clear()
+
 
 TABLES = _TableCache()
 
@@ -130,6 +144,12 @@ def pair_tables(lmax, mmax, spin, theta, grid_token, device):
     t_m = TABLES.get(lmax, mmax, -spin, th, tok, device)
     t_p = t_m if spin == 0 else TABLES.get(lmax, mmax, spin, th, tok, device)
     return t_m, t_p
+
+
+def full_tables(lmax, mmax, n, theta, grid_token, device):
+    """f64 device tables of d^l_{m,n} on every ring of `theta` (the plain transforms)."""
+    tok = None if grid_token is None else ('full', grid_token)
+    return TABLES.get(lmax, mmax, n, np.asarray(theta), tok, device)
 
 
 def is_symmetric(theta):
@@ -233,6 +253,45 @@ def _fold(Q, nh, n_s, sgn_m):
     return Qn, Qs
 
 
+def _plain(mode, data, t, lmax):
+    """l-loop of the plain engine: one recursion over every ring, no mirror."""
+    S = t['S']
+    rdt = t['seed_v'].dtype
+    adt = data.real.dtype
+    dev = data.device
+    B, M = data.shape[0], data.shape[-1]
+    xc = t['x'][:, None]
+    thresh = torch.tensor(2.0 ** (S // 2), dtype=rdt, device=dev)
+    down = torch.tensor(2.0 ** (-S), dtype=rdt, device=dev)
+    st = _init_state(t)
+    if mode == 'synth':
+        out = torch.zeros((B, len(t['x']), M), dtype=data.dtype, device=dev)
+    else:
+        out = torch.zeros((B, lmax + 1, M), dtype=data.dtype, device=dev)
+    for l in range(lmax + 1):
+        d = _deff(st, S, adt)
+        if mode == 'synth':
+            out += data[:, l, None, :] * d
+        else:
+            out[:, l] = (data * d).sum(1)
+        st = _rec_step(l, st, t['alpha'][l], t['beta'][l], t['gamma'][l], xc, t['l0'],
+                       t['seed_v'], t['seed_k'], thresh, down)
+    return out
+
+
+def legendre_synth_plain(C, t):
+    """Plain torch synthesis G_jm = sum_l C_lm d^l_{m,n}(theta_j) (twin of kernel K3, any
+    device). C: (B, lmax+1, M) complex; t: device tables of d_{m,n} on all rings.
+    Returns (B, nrings, M) complex."""
+    return _plain('synth', C, t, C.shape[-2] - 1)
+
+
+def legendre_anal_plain(Q, lmax, t):
+    """Plain torch analysis A_lm = sum_j Q_jm d^l_{m,n}(theta_j) (twin of kernel K4, any
+    device). Q: (B, nrings, M) complex, quadrature-weighted. Returns (B, lmax+1, M)."""
+    return _plain('anal', Q, t, lmax)
+
+
 def legendre_synth_pair_plain(Cp, Cm, spin, nrings, t_m, t_p):
     """Plain torch fused NS-pair synthesis (twin of kernel K1, any device).
 
@@ -250,19 +309,34 @@ def legendre_anal_pair_plain(Qp, Qm, spin, lmax, t_m, t_p):
     return _plain_pair('anal', Qp, Qm, spin, Qp.shape[1], t_m, t_p, lmax)
 
 
-# ------------------------------------------------------------------ public pair API
-def _check_sym(theta):
-    if not is_symmetric(theta):
-        raise NotImplementedError(
-            'only north-south symmetric grids are ported (the plain no-mirror '
-            'transforms, TPU kernels K3/K4, are still to be ported)')
+# ------------------------------------------------------------------ public API
+def legendre_synth(C, n, theta, grid_token=None):
+    """G_jm = sum_l C_lm d^l_{m,n}(theta_j) on any ring set; C (B, lmax+1, M) complex64
+    or complex128. CUDA tensors run kernel K3, CPU tensors the plain engine."""
+    lmax, M = C.shape[-2] - 1, C.shape[-1]
+    t = full_tables(lmax, M - 1, n, theta, grid_token, C.device)
+    if C.is_cuda:
+        return legendre_kernels.synth(C, len(theta), t)
+    return legendre_synth_plain(C, t)
+
+
+def legendre_anal(Q, n, theta, lmax, grid_token=None):
+    """A_lm = sum_j Q_jm d^l_{m,n}(theta_j); Q (B, nrings, M) complex, quadrature-
+    weighted. CUDA tensors run kernel K4, CPU tensors the plain engine."""
+    t = full_tables(lmax, Q.shape[-1] - 1, n, theta, grid_token, Q.device)
+    if Q.is_cuda:
+        return legendre_kernels.anal(Q, lmax, t)
+    return legendre_anal_plain(Q, lmax, t)
 
 
 def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None):
-    """(Fp, Fm) = (sum_l Cp d^l_{m,-spin}, sum_l Cm d^l_{m,+spin}) on the rings `theta`
-    (symmetric grid); Cm may be None (then Fm is None). Cp (B, lmax+1, M)
-    complex64 or complex128. CUDA tensors run kernel K1, CPU tensors the plain engine."""
-    _check_sym(theta)
+    """(Fp, Fm) = (sum_l Cp d^l_{m,-spin}, sum_l Cm d^l_{m,+spin}) on the rings `theta`;
+    Cm may be None (then Fm is None). Cp (B, lmax+1, M) complex64 or complex128. On a
+    symmetric grid CUDA tensors run kernel K1, CPU tensors the plain pair engine; on any
+    other grid it makes two plain calls (reference: core.py:704-710)."""
+    if not is_symmetric(theta):
+        Fp = legendre_synth(Cp, -spin, theta, grid_token)
+        return Fp, (None if Cm is None else legendre_synth(Cm, spin, theta, grid_token))
     lmax, M = Cp.shape[-2] - 1, Cp.shape[-1]
     t_m, t_p = pair_tables(lmax, M - 1, spin, theta, grid_token, Cp.device)
     if Cp.is_cuda:
@@ -272,9 +346,11 @@ def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None):
 
 def legendre_anal_pair(Qp, Qm, spin, theta, lmax, grid_token=None):
     """(A, Bc) = (sum_j Qp d^l_{m,-spin}, sum_j Qm d^l_{m,+spin}); Qm may be None. Qp
-    (B, nrings, M) complex, quadrature-weighted. CUDA tensors run kernel K2, CPU tensors
-    the plain engine."""
-    _check_sym(theta)
+    (B, nrings, M) complex, quadrature-weighted. On a symmetric grid CUDA tensors run
+    kernel K2, CPU tensors the plain pair engine; on any other grid two plain calls."""
+    if not is_symmetric(theta):
+        A = legendre_anal(Qp, -spin, theta, lmax, grid_token)
+        return A, (None if Qm is None else legendre_anal(Qm, spin, theta, lmax, grid_token))
     M = Qp.shape[-1]
     t_m, t_p = pair_tables(lmax, M - 1, spin, theta, grid_token, Qp.device)
     if Qp.is_cuda:

@@ -1,11 +1,16 @@
-"""Build, bind and launch the hand-written Hopper Legendre-pair kernels.
+"""Build, bind and launch the hand-written Hopper Legendre kernels.
 
-K1 `synth_pair` and K2 `anal_pair` (csrc/legendre_pair.cu) replace the TPU kernels
-`_synth_pair_pallas` and `_anal_pair_pallas` of plancklens_tpu/ops/sht/pallas_kernel.py.
-Their plain torch twins are `core.legendre_synth_pair_plain`/`legendre_anal_pair_plain`;
-the public `core.legendre_synth_pair`/`legendre_anal_pair` run these wrappers for CUDA
-tensors and the twins for CPU tensors. The wrappers here take CUDA tensors only: anything
-else raises, and so does a failed build or launch.
+csrc/legendre_pair.cu holds all four, replacing the TPU kernels of
+plancklens_tpu/ops/sht/pallas_kernel.py:
+  K1 `synth_pair`, K2 `anal_pair`: the fused north-south pair transforms
+     (`_synth_pair_pallas`, `_anal_pair_pallas`);
+  K3 `synth`, K4 `anal`: the plain transforms of one recursion over every ring of any
+     grid (`_synth_pallas`, `_anal_pallas`), the pair kernels' no-mirror mode.
+Their plain torch twins are `core.legendre_synth_pair_plain`/`legendre_anal_pair_plain`
+and `core.legendre_synth_plain`/`legendre_anal_plain`; the public `core.legendre_*`
+functions run these wrappers for CUDA tensors and the twins for CPU tensors. The
+wrappers here take CUDA tensors only: anything else raises, and so does a failed build
+or launch.
 
 The shared library is compiled by nvcc from the checkout's sources at first use into
 `plancklens_tpu_torch/_build/`, named by a hash of the source and flags (both dtypes are
@@ -30,7 +35,7 @@ DTYPES = ('f32', 'f64')
 
 # kernel launches since the last reset, one count per kernel (chip_smoke.py reads them to
 # show that the main path went through the kernels)
-launches = {'synth_pair': 0, 'anal_pair': 0}
+launches = {'synth_pair': 0, 'anal_pair': 0, 'synth': 0, 'anal': 0}
 
 _lib = None
 
@@ -89,6 +94,10 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 6 + [p]
             fn.restype = i
+        for name in ('plk_synth_f32', 'plk_synth_f64', 'plk_anal_f32', 'plk_anal_f64'):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * 2 + [p] * 6 + [p] + [i] * 5 + [p]
+            fn.restype = i
         _lib = lib
     return _lib
 
@@ -113,9 +122,11 @@ def _check_data(name, t, ref, shape):
         raise ValueError('%s must be contiguous' % name)
 
 
-def _check_tables(t, device, L, M, nh):
+def _check_tables(t, device, L, M, nrows):
+    """An f64 table set on `nrows` rings: the northern half of a pair grid, or every
+    ring of a plain one."""
     want = {'alpha': (L, M), 'beta': (L, M), 'gamma': (L, M), 'l0': (M,),
-            'seed_v': (nh, M), 'seed_k': (nh, M), 'x': (nh,)}
+            'seed_v': (nrows, M), 'seed_k': (nrows, M), 'x': (nrows,)}
     for k, shape in want.items():
         v = t[k]
         dt = torch.int32 if k in ('l0', 'seed_k') else torch.float64
@@ -135,15 +146,19 @@ def _mode(spin, has_second):
     return 1 if has_second else (0 if spin == 0 else 2)
 
 
-def _launch(kind, a_p, a_m, o_p, o_m, t_m, t_p, B, L, M, R, mode, dev):
-    suffix = 'f32' if a_p.dtype == torch.complex64 else 'f64'
+def _launch(kind, dtype, dev, *args):
+    suffix = 'f32' if dtype == torch.complex64 else 'f64'
     fn = getattr(_load(), 'plk_%s_%s' % (kind, suffix))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(_ptr(a_p), _ptr(a_m), _ptr(o_p), _ptr(o_m), *_tab_args(t_m), *_tab_args(t_p),
-            _ptr(t_m['x']), B, L, M, R, mode, dev.index, ctypes.c_void_p(stream))
+    rc = fn(*args, dev.index, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError('%s kernel launch failed: CUDA error %d' % (kind, rc))
     launches[kind] += 1
+
+
+def _launch_pair(kind, a_p, a_m, o_p, o_m, t_m, t_p, B, L, M, R, mode, dev):
+    _launch(kind, a_p.dtype, dev, _ptr(a_p), _ptr(a_m), _ptr(o_p), _ptr(o_m),
+            *_tab_args(t_m), *_tab_args(t_p), _ptr(t_m['x']), B, L, M, R, mode)
 
 
 def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
@@ -162,8 +177,8 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
         _check_tables(t, dev, L, M, nh)
     Fp = torch.empty((B, nrings, M), dtype=Cp.dtype, device=dev)
     Fm = None if Cm is None else torch.empty_like(Fp)
-    _launch('synth_pair', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings,
-            _mode(spin, Cm is not None), dev)
+    _launch_pair('synth_pair', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings,
+                 _mode(spin, Cm is not None), dev)
     return Fp, Fm
 
 
@@ -183,6 +198,38 @@ def anal_pair(Qp, Qm, spin, lmax, t_m, t_p):
         _check_tables(t, dev, L, M, (R + 1) // 2)
     A = torch.empty((B, L, M), dtype=Qp.dtype, device=dev)
     Bc = None if Qm is None else torch.empty_like(A)
-    _launch('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R,
-            _mode(spin, Qm is not None), dev)
+    _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R,
+                 _mode(spin, Qm is not None), dev)
     return A, Bc
+
+
+def synth(C, nrings, t):
+    """K3: G = sum_l C_lm d^l_{m,n}(theta_j) on every ring j of any grid (no mirror).
+
+    C: (B, lmax+1, M) complex64/128 contiguous CUDA tensor; t: the f64 device table set
+    of d^l_{m,n} on all `nrings` rings. Returns (B, nrings, M) complex."""
+    B, L, M = C.shape
+    _check_data('C', C, None, (B, L, M))
+    dev = C.device
+    _check_tables(t, dev, L, M, nrings)
+    G = torch.empty((B, nrings, M), dtype=C.dtype, device=dev)
+    _launch('synth', C.dtype, dev, _ptr(C), _ptr(G), *_tab_args(t), _ptr(t['x']),
+            B, L, M, nrings)
+    return G
+
+
+def anal(Q, lmax, t):
+    """K4: A_lm = sum_j Q_jm d^l_{m,n}(theta_j) over every ring j of any grid (no mirror).
+
+    Q: (B, nrings, M) complex64/128 contiguous CUDA tensor, quadrature-weighted; t: the
+    f64 device table set on all rings. Returns (B, lmax+1, M) complex. Deterministic: the
+    ring sums are reduced in a fixed order."""
+    B, R, M = Q.shape
+    L = lmax + 1
+    _check_data('Q', Q, None, (B, R, M))
+    dev = Q.device
+    _check_tables(t, dev, L, M, R)
+    A = torch.empty((B, L, M), dtype=Q.dtype, device=dev)
+    _launch('anal', Q.dtype, dev, _ptr(Q), _ptr(A), *_tab_args(t), _ptr(t['x']),
+            B, L, M, R)
+    return A

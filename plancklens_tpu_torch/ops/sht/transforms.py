@@ -2,7 +2,8 @@ r"""Spin-s spherical harmonic transforms on iso-latitude ring geometries, in tor
 
 Port of plancklens_tpu/ops/sht/transforms.py (SHT, transforms.py:80-288), two phases:
   (1) Legendre phase: the fused north-south pair transforms of core.py (the Hopper
-      kernels for CUDA tensors, the plain torch engine for CPU tensors);
+      kernels for CUDA tensors, the plain torch engine for CPU tensors); on a grid that
+      is not north-south symmetric, two plain transforms, as in the reference;
   (2) longitude phase: one batched FFT over rings (torch.fft, cuFFT on the card).
 
 Conventions (healpy's, as relied on by the reference's spin algebra,
@@ -70,6 +71,23 @@ def _from_rings(maps, mmax, phi0):
     return Gp, Gm
 
 
+def _resolve_device(device):
+    """torch.device with the current card's index made explicit for 'cuda'."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def _on_device(x, device):
+    """numpy input -> tensor on `device`; a tensor on another device raises."""
+    if not isinstance(x, torch.Tensor):
+        return torch.as_tensor(np.asarray(x), device=device)
+    if x.device != device:
+        raise ValueError('input on %s, transform on %s' % (x.device, device))
+    return x
+
+
 class SHT:
     """Spin-s synthesis/analysis bound to a geometry, band limit, dtype and device.
 
@@ -90,9 +108,7 @@ class SHT:
         self.mmax = lmax if mmax is None else mmax
         self.dtype = dtype
         self.cdtype = _CDTYPE[dtype]
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and self.device.index is None:
-            self.device = torch.device('cuda', torch.cuda.current_device())
+        self.device = _resolve_device(device)
         self._fac = torch.as_tensor(_facl(lmax), dtype=dtype, device=self.device)[:, None]
         self._w = torch.as_tensor(self.geom.weight, dtype=dtype, device=self.device)[:, None]
 
@@ -114,11 +130,7 @@ class SHT:
         return A * self._fac, ((-1.) ** spin) * torch.conj(Bc) * self._fac
 
     def _on_device(self, x):
-        if not isinstance(x, torch.Tensor):
-            return torch.as_tensor(np.asarray(x), device=self.device)
-        if x.device != self.device:
-            raise ValueError('input on %s, transform on %s' % (x.device, self.device))
-        return x
+        return _on_device(x, self.device)
 
     def _to_grid(self, alm):
         """Full-layout triangular alm -> (lmax+1, mmax+1) dense grid (an mmax < lmax

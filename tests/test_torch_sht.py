@@ -6,7 +6,8 @@
   max|ref|; against the reference's Pallas pair kernels in interpret mode at f32:
   <= 1e-5 of max (the port runs the recursion in f64 for f32 data too, so the difference
   is the reference's own f32 recursion error: up to 6e-6 of max at lmax 24, 8e-6 at 32);
-* SHT transforms and round trips against the reference SHT at f64: <= 1e-12 of max.
+* SHT transforms and round trips against the reference SHT at f64: <= 1e-12 of max, on
+  the GL grid and on an asymmetric ring set (two plain transforms per pair call).
 Spins 0-3, single transforms (Cm/Qm None), odd and even ring counts, mmax < lmax, batch 1
 and 3. The kernel wrappers refuse CPU tensors; the kernels themselves are held against
 the plain engine on a CUDA device by the `cuda`-marked test (and by chip_smoke.py).
@@ -183,10 +184,32 @@ def test_sht_refuses_tensors_on_another_device():
 
 
 def test_asymmetric_grid_not_ported():
-    theta = np.linspace(0.1, 2.0, 9)
-    with pytest.raises(NotImplementedError):
-        pcore.legendre_synth_pair(torch.zeros((1, 5, 5), dtype=torch.complex128), None, 0,
-                                  theta)
+    """SHT on a ring set that is not north-south symmetric (it raised before the plain
+    transforms were ported; the name is kept): the pair calls fall back to two plain
+    transforms, and every entry point agrees with the reference's SHT at f64 to <= 1e-12
+    of max."""
+    from plancklens_tpu.ops.sht.geometry import RingGeometry as RRing
+    from plancklens_tpu_torch.ops.sht import RingGeometry as PRing
+    lmax, nphi = 16, 40
+    rng = np.random.RandomState(7)
+    theta = np.sort(rng.uniform(0.05, np.pi - 0.05, 23))
+    theta[0], theta[-1] = 8e-4, np.pi - 6e-4
+    weight = rng.uniform(0.5, 1.5, 23) * 2. / 23
+    rs = RSHT(RRing('asym', theta, weight, nphi), lmax)
+    ps = PSHT(PRing('asym', theta, weight, nphi), lmax, device='cpu')
+    assert not pcore.is_symmetric(theta)
+    g = _alms(rng, (2,), lmax)
+    m = np.asarray(rs.alm2map(g))
+    assert _err(ps.alm2map(_t(g)), m) <= 1e-12
+    assert _err(ps.map2alm(_t(m)), rs.map2alm(m)) <= 1e-12
+    for spin in (1, 2):
+        g, c = _alms(rng, (2,), lmax, spin), _alms(rng, (2,), lmax, spin)
+        q, u = rs.alm2map_spin((g, c), spin)
+        pq, pu = ps.alm2map_spin((_t(g), _t(c)), spin)
+        assert _err(pq, q) <= 1e-12 and _err(pu, u) <= 1e-12
+        G, C = rs.map2alm_spin((q, u), spin)
+        PG, PC = ps.map2alm_spin((_t(np.asarray(q)), _t(np.asarray(u))), spin)
+        assert _err(PG, G) <= 1e-12 and _err(PC, C) <= 1e-12
 
 
 @pytest.fixture
