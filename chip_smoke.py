@@ -11,15 +11,18 @@ entry path at Planck's nside 2048. Phases:
   0 device      CUDA present (no CPU path), card name and power limit, TF32 off
   1 build       nvcc build of csrc/legendre_pair.cu, all four kernels (timed; registers)
   2 kernels     K1/K2 vs plain version: spins 0-3, odd/even rings, lmax 256, f32
-                (<= 1e-5 of max) and f64 (<= 1e-12 of max); lmax 2048 on the 3073-ring
-                QE grid, spin 1, f32, batch 4 and 8 (<= 1e-5 of max), times, and the
-                analysis bitwise equal from run to run
+                (<= 1e-5 of max) and f64 (<= 1e-12 of max), the analysis with its ring sum
+                split into segments (NS > 1, as the planner has it there) and forced into
+                one (NS = 1); lmax 2048 on the 3073-ring QE grid, spin 1, f32, batch 4 and
+                8 (<= 1e-5 of max), times with NS, blocks and workspace, the batch-4 to
+                batch-8 time ratio of K2, and the analysis bitwise equal from run to run
   2b plain      K3/K4 vs plain version at lmax 256 on 201 and 202 random rings (one within
                 1e-3 of each pole) and the 255 rings of HEALPix nside 64, n = -3..3,
-                mmax = lmax and mmax < lmax, f32 (<= 1e-5) and f64 (<= 1e-12 of max);
-                lmax 2048 on the 2047 north-cap rings of nside 2048, n = -2, f32, batch 4
-                and 8 (<= 1e-5 of max), K4 bitwise equal from run to run; times on all
-                8191 rings at batch 4
+                mmax = lmax and mmax < lmax, f32 (<= 1e-5) and f64 (<= 1e-12 of max), K4
+                with NS > 1 and NS = 1; lmax 2048 on the 2047 north-cap rings of nside
+                2048, n = -2, f32, batch 4 and 8 (<= 1e-5 of max), K4 bitwise equal from
+                run to run; times on all 8191 rings at batch 4, K4 bitwise equal from run
+                to run there too
   3 sht         SHT round trips at lmax 2048, spin 0 and 2, f32 (<= 1e-4 of max)
   4 main path   the slice at lmax 2048: finite outputs of the expected shapes, K1/K2
                 launched, f32 vs f64 qlm of sim 4 (ptt, relative rms <= 1e-3), and the
@@ -160,7 +163,14 @@ def main():
     def crandn(shape, cdt):
         return torch.randn(shape, generator=gen, device=dev, dtype=cdt)
 
+    def split(kind):
+        """The last call's ring split, for the phase lines."""
+        pl = lk.last_plan[kind]
+        return 'NS %d, %d blocks, workspace %.0f MiB' % (pl.nseg, pl.blocks,
+                                                          pl.workspace_bytes / 2 ** 20)
+
     worst = {'synth_pair': 0., 'anal_pair': 0.}
+    nsegs = set()
     for lmax, nrings in ((256, 257), (256, 258)):
         theta = gl_geometry(nrings - 1).theta
         for cdt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
@@ -174,18 +184,25 @@ def main():
                 for cm, qm in ((Cm, Qm), (None, None)):
                     ks = lk.synth_pair(C, cm, spin, nrings, t_m, t_p)
                     ps = core.legendre_synth_pair_plain(C, cm, spin, nrings, t_m, t_p)
-                    ka = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p)
                     pa = core.legendre_anal_pair_plain(Q, qm, spin, lmax, t_m, t_p)
+                    ea = 0.
+                    for nseg in (None, 1):     # the planner's segments (6 there), and one
+                        ka = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p, nseg=nseg)
+                        check((lk.last_plan['anal_pair'].nseg == 1) == (nseg == 1),
+                              'K2 segments at %d rings: %s' % (nrings, split('anal_pair')))
+                        nsegs.add(lk.last_plan['anal_pair'].nseg)
+                        ea = max([ea] + [rel_max(a, b) for a, b in zip(ka, pa)
+                                         if b is not None])
                     torch.cuda.synchronize()
                     es = max(rel_max(a, b) for a, b in zip(ks, ps) if b is not None)
-                    ea = max(rel_max(a, b) for a, b in zip(ka, pa) if b is not None)
                     check(es <= tol and ea <= tol, 'kernel vs plain at lmax %d, %d rings, '
                           '%s, spin %d: synth %.2e anal %.2e > %.0e'
                           % (lmax, nrings, cdt, spin, es, ea, tol))
                     worst['synth_pair'] = max(worst['synth_pair'], es)
                     worst['anal_pair'] = max(worst['anal_pair'], ea)
-    phase(2, 'kernel vs plain at lmax 256, spins 0-3, 257/258 rings, f32 and f64: '
-             'worst synth %.2e, anal %.2e of max' % (worst['synth_pair'], worst['anal_pair']))
+    phase(2, 'kernel vs plain at lmax 256, spins 0-3, 257/258 rings, f32 and f64, K2 in %s '
+             'ring segments: worst synth %.2e, anal %.2e of max'
+          % ('/'.join(map(str, sorted(nsegs))), worst['synth_pair'], worst['anal_pair']))
 
     geom = gl_geometry(3 * LMAX // 2)          # the QE grid of lmax 2048: 3073 x 6250
     nr = geom.nrings
@@ -213,10 +230,12 @@ def main():
               '%.2e anal %.2e of max > 1e-5' % (B, es, ea))
         stats[B] = dict(synth=(ms_s, pms_s, abs_s, es), anal=(ms_a, pms_a, abs_a, ea))
         phase(2, 'lmax 2048, %d x %d grid, spin 1, f32, batch %d: synth %.3f ms (plain '
-              '%.1f ms, %.2e of max), anal %.3f ms (plain %.1f ms, %.2e of max)'
-              % (nr, geom.nphi, B, ms_s, pms_s, es, ms_a, pms_a, ea))
+              '%.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e of max)'
+              % (nr, geom.nphi, B, ms_s, pms_s, es, ms_a, split('anal_pair'), pms_a, ea))
         del C, Cm, Fp, Fm, Qp, Qm, A, Bc, A0, B0, Pp, Pm, PA, PB
     torch.cuda.empty_cache()
+    phase(2, 'K2 anal_pair, batch 4 / batch 8 time ratio: %.4f'
+          % (stats[4]['anal'][0] / stats[8]['anal'][0]))
     # bounds at the batch-8 shapes timed above: both recursions on the 1537 northern
     # rings, four accumulators (north/south of each leg) per map
     B, L, nh = 8, LMAX + 1, (nr + 1) // 2
@@ -236,6 +255,7 @@ def main():
         grids.append(('%d random' % nrand, th))
     grids.append(('HEALPix nside 64', HealpixGeometry(64).theta))
     worst_p = {'synth': 0., 'anal': 0.}
+    nsegs = set()
     lp = 256
     for label, th in grids:
         R = len(th)
@@ -246,15 +266,22 @@ def main():
                     C = crandn((3, lp + 1, M), cdt)
                     Q = crandn((3, R, M), cdt)
                     es = rel_max(lk.synth(C, R, t), core.legendre_synth_plain(C, t))
-                    ea = rel_max(lk.anal(Q, lp, t), core.legendre_anal_plain(Q, lp, t))
+                    pa = core.legendre_anal_plain(Q, lp, t)
+                    ea = 0.
+                    for nseg in (None, 1):     # the planner's segments (4), and one
+                        ea = max(ea, rel_max(lk.anal(Q, lp, t, nseg=nseg), pa))
+                        check((lk.last_plan['anal'].nseg == 1) == (nseg == 1),
+                              'K4 segments on %s rings: %s' % (label, split('anal')))
+                        nsegs.add(lk.last_plan['anal'].nseg)
                     check(es <= tol and ea <= tol, 'K3/K4 vs plain at lmax %d, %s rings, %s, '
                           'n %d, mmax %d: synth %.2e anal %.2e > %.0e'
                           % (lp, label, cdt, n, M - 1, es, ea, tol))
                     worst_p['synth'] = max(worst_p['synth'], es)
                     worst_p['anal'] = max(worst_p['anal'], ea)
     phase(2, '(2b) K3/K4 vs plain at lmax 256 on 201/202 random rings and HEALPix nside 64, '
-             'n -3..3, mmax 256/128, f32 and f64: worst synth %.2e, anal %.2e of max'
-          % (worst_p['synth'], worst_p['anal']))
+             'n -3..3, mmax 256/128, f32 and f64, K4 in %s ring segments: worst synth %.2e, '
+             'anal %.2e of max'
+          % ('/'.join(map(str, sorted(nsegs))), worst_p['synth'], worst_p['anal']))
 
     hgeom = HealpixGeometry(NSIDE)
     ncap = NSIDE - 1                           # the north cap's rings: 2047 at nside 2048
@@ -273,8 +300,8 @@ def main():
         check(es <= 1e-5 and ea <= 1e-5, 'K3/K4 vs plain at lmax 2048 on %d cap rings, batch '
               '%d: synth %.2e anal %.2e of max > 1e-5' % (ncap, B, es, ea))
         phase(2, '(2b) lmax 2048, %d north-cap rings of nside %d, n -2, f32, batch %d: synth '
-                 '%.3f ms (plain %.1f ms, %.2e of max), anal %.3f ms (plain %.1f ms, %.2e of '
-                 'max)' % (ncap, NSIDE, B, ms_s, pms_s, es, ms_a, pms_a, ea))
+                 '%.3f ms (plain %.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e '
+                 'of max)' % (ncap, NSIDE, B, ms_s, pms_s, es, ms_a, split('anal'), pms_a, ea))
         del C, G, A0, A, PG, PA
     del t
     # all 8191 rings, batch 4, n = -2: phase 5b's shape (uncached, as phase 5b builds its own)
@@ -285,11 +312,14 @@ def main():
         C = crandn((B, L, L), cdt)
         lk.synth(C, R, t)
         ms_s, G = cuda_ms(lambda: lk.synth(C, R, t), 2)
-        lk.anal(G, LMAX, t)
+        A0 = lk.anal(G, LMAX, t)
         ms_a, A = cuda_ms(lambda: lk.anal(G, LMAX, t), 2)
+        check(torch.equal(A0, A), 'K4 anal on all %d rings is not deterministic' % R)
+        del A0
         full[cdt] = (ms_s, ms_a)
         phase(2, '(2b) lmax 2048, all %d rings of nside %d, n -2, %s, batch %d: synth %.3f ms, '
-                 'anal %.3f ms' % (R, NSIDE, cdt, B, ms_s, ms_a))
+                 'anal %.3f ms (%s), bitwise equal on a second run'
+              % (R, NSIDE, cdt, B, ms_s, ms_a, split('anal')))
     # phase 5b's shape (f64): the kernels against their plain versions, timed
     pms_s, PG = cuda_ms(lambda: core.legendre_synth_plain(C, t), 1)
     pms_a, PA = cuda_ms(lambda: core.legendre_anal_plain(G, LMAX, t), 1)
@@ -310,8 +340,8 @@ def main():
     t = core.full_tables(512, 512, 2, th_pw, None, dev)
     lk.anal(Gm, 512, t)
     ms_pw, _ = cuda_ms(lambda: lk.anal(Gm, 512, t), 5)
-    phase(2, '(2b) pixel-window shape, %d node rings x %d shapes, lmax 512, f64: anal %.3f ms'
-          % (len(th_pw), Gm.shape[0], ms_pw))
+    phase(2, '(2b) pixel-window shape, %d node rings x %d shapes, lmax 512, f64: anal %.3f ms '
+             '(%s)' % (len(th_pw), Gm.shape[0], ms_pw, split('anal')))
     del Gm, t
     torch.cuda.empty_cache()
 
@@ -358,11 +388,15 @@ def main():
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t_main
     launches = dict(lk.launches)
+    k1_shapes = dict(lk.synth_pair_shapes)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     phase(4, 'stages at lmax %d, %d sims, keys %s: filt %.3fs, qe %.3fs, mf %.3fs, '
           'qcl(sims %s) %.3fs; %.1fs wall; peak memory %.2f GiB; launches %s'
           % (LMAX, NSIMS, '/'.join(KEYS), s_filt, s_qe, s_mf,
              ','.join(map(str, par.mc_sims_var)), s_qcl, t_main, peak, launches))
+    phase(4, 'K1 synth_pair launches by (mode, batch, data type): %s'
+          % ', '.join('%s x %d' % kv for kv in sorted(k1_shapes.items())))
+    check(sum(k1_shapes.values()) == launches['synth_pair'], 'K1 launches by shape')
     for name in ('synth_pair', 'anal_pair'):
         check(launches[name] > 0, 'kernel %s was not launched by the main path' % name)
     nalm = ualm.getsize(LMAX)

@@ -1,0 +1,228 @@
+#!/usr/bin/env python
+r"""Time the Legendre analysis kernels K2 `anal_pair` and K4 `anal` alone on one CUDA device:
+
+    python examples/bench_legendre_torch.py [--reps 3] [--sweep] [--ptxas] [--json bench_legendre.json]
+
+A loop of seconds for kernel work, where chip_smoke.py takes minutes. It builds the library,
+holds K1-K4 against their plain torch twins at lmax 256 (f32 <= 1e-5, f64 <= 1e-12 of max;
+257 rings for the pair kernels, 201 random rings for the plain ones; the analysis kernels
+once with the planner's ring segments and once forced to one segment), then times, with
+CUDA events, `--reps` launches after one warm-up, without the twins (they take seconds at
+these sizes; ten times the launches at the pixel-window shape, which takes ~2 ms):
+
+  K2  spin-1 pair, f32, lmax 2048 on the 3073-ring QE grid, batch 4 and batch 8;
+  K4  n = -2, f64, lmax 2048 on all 8191 rings of HEALPix nside 2048, batch 4;
+  K4  n = 2, f64, lmax 512 on the 48 node rings of the exact pixel window of nside 128
+      against its 64 pixel shapes.
+
+Every timed shape is run twice and must be bitwise equal; where the planner splits the
+rings, the result is also held against the one-segment result (f32 <= 1e-5, f64 <= 1e-12
+of max). `--sweep` also times the two lmax-2048 shapes with the ring sum forced into 1, 2,
+4, 8 and 16 segments. One line per shape, each with the card's name and power limit; the last
+line of standard output is one JSON object with the same numbers. Raises without a card.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _REPO not in sys.path:
+    sys.path.insert(0, _REPO)
+
+import torch
+
+LMAX = 2048
+NSIDE = 2048
+
+
+def rel_max(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def event_ms(fn, reps):
+    """(mean ms, min ms, last result) of `reps` launches, each between two CUDA events."""
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sum(times) / len(times), min(times), out
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument('--reps', type=int, default=3)
+    p.add_argument('--sweep', action='store_true',
+                   help='also time the lmax-2048 shapes at forced segment counts')
+    p.add_argument('--ptxas', action='store_true',
+                   help="print the compiler's register and spill report of the analysis kernels")
+    p.add_argument('--json', default=None, help='also write the result object to this file')
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('bench_legendre_torch: needs a CUDA device')
+
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk, HealpixGeometry
+    from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
+    from plancklens_tpu_torch.ops.sht.pixwin import _ring_Gm
+    dev = torch.device('cuda:0')
+    smi = subprocess.run(['nvidia-smi', '-i', '0', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    lk.build()
+    lk._load()
+    print('built in %.1f s | %s' % (time.perf_counter() - t0, smi), flush=True)
+    if args.ptxas:
+        # one line a kernel: the mangled name's template arguments (I<type>Li<n>E...), its
+        # registers and its spills
+        with open(lk.library_path()[:-3] + '.log') as f:
+            name = None
+            for line in f:
+                if 'Compiling entry function' in line:
+                    name = line.split('anal_pair_kernel')[1].split('EEv')[0] \
+                        if 'anal_pair_kernel' in line else None
+                elif name and 'spill' in line:
+                    spills = line.strip()
+                elif name and 'registers' in line:
+                    print('    anal_pair_kernel<%s>: %s; %s'
+                          % (name, line.split(':', 1)[1].strip(), spills))
+    gen = torch.Generator(device=dev).manual_seed(256)
+
+    def crandn(shape, cdt):
+        return torch.randn(shape, generator=gen, device=dev, dtype=cdt)
+
+    def plan_of(kind):
+        pl = lk.last_plan[kind]
+        return {'nseg': pl.nseg, 'blocks': pl.blocks, 'workspace_mib': pl.workspace_bytes / 2 ** 20}
+
+    # ------------------------------------------------ the four kernels against their twins
+    lmax = 256
+    worst = {'synth_pair': 0., 'anal_pair': 0., 'synth': 0., 'anal': 0.}
+    nrings = 257
+    theta = gl_geometry(nrings - 1).theta
+    rng = np.random.RandomState(256)
+    th_r = np.sort(rng.uniform(0., np.pi, 201))
+    th_r[0], th_r[-1] = 4e-4, np.pi - 7e-4
+    segs = set()
+    for cdt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
+        for spin in (0, 1, 2, 3):
+            t_m, t_p = core.pair_tables(lmax, lmax, spin, theta, None, dev)
+            C, Cm = crandn((3, lmax + 1, lmax + 1), cdt), crandn((3, lmax + 1, lmax + 1), cdt)
+            Q, Qm = crandn((3, nrings, lmax + 1), cdt), crandn((3, nrings, lmax + 1), cdt)
+            for cm, qm in ((Cm, Qm), (None, None)):
+                ks = lk.synth_pair(C, cm, spin, nrings, t_m, t_p)
+                ps = core.legendre_synth_pair_plain(C, cm, spin, nrings, t_m, t_p)
+                worst['synth_pair'] = max([worst['synth_pair']] + [
+                    rel_max(a, b) for a, b in zip(ks, ps) if b is not None])
+                pa = core.legendre_anal_pair_plain(Q, qm, spin, lmax, t_m, t_p)
+                for nseg in (None, 1):
+                    ka = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p, nseg=nseg)
+                    segs.add(lk.last_plan['anal_pair'].nseg)
+                    worst['anal_pair'] = max([worst['anal_pair']] + [
+                        rel_max(a, b) for a, b in zip(ka, pa) if b is not None])
+        for n in range(-3, 4):
+            t = core.full_tables(lmax, lmax, n, th_r, None, dev)
+            C, Q = crandn((3, lmax + 1, lmax + 1), cdt), crandn((3, len(th_r), lmax + 1), cdt)
+            worst['synth'] = max(worst['synth'],
+                                 rel_max(lk.synth(C, len(th_r), t), core.legendre_synth_plain(C, t)))
+            pa = core.legendre_anal_plain(Q, lmax, t)
+            for nseg in (None, 1):
+                worst['anal'] = max(worst['anal'], rel_max(lk.anal(Q, lmax, t, nseg=nseg), pa))
+                segs.add(lk.last_plan['anal'].nseg)
+        torch.cuda.synchronize()
+        for k, v in worst.items():
+            if not v <= tol:
+                raise RuntimeError('%s vs its plain twin at lmax %d, %s: %.2e > %.0e'
+                                   % (k, lmax, cdt, v, tol))
+        print('lmax 256, %s: worst of max vs the twins %s (segment counts run: %s)'
+              % (cdt, ', '.join('%s %.2e' % kv for kv in worst.items()),
+                 sorted(segs)), flush=True)
+        worst = dict.fromkeys(worst, 0.)
+
+    # ------------------------------------------------------------------ the timed shapes
+    results = []
+
+    def timed(label, kind, call, tol, sweep, reps=args.reps):
+        """Warm up, time, check run-to-run equality and agreement with one segment."""
+        first = call(None)
+        mean, best, out = event_ms(lambda: call(None), reps)
+        for a, b in zip(first, out):
+            if not torch.equal(a, b):
+                raise RuntimeError('%s: two runs differ' % label)
+        row = dict(shape=label, kernel=kind, ms=mean, ms_min=best, card=smi, **plan_of(kind))
+        if row['nseg'] > 1:
+            one = call(1)
+            row['vs_one_segment'] = max(rel_max(a, b) for a, b in zip(out, one))
+            if not row['vs_one_segment'] <= tol:
+                raise RuntimeError('%s: %d segments vs one: %.2e > %.0e'
+                                   % (label, row['nseg'], row['vs_one_segment'], tol))
+            del one
+        if sweep:
+            row['sweep'] = {}
+            n = 1
+            while n <= 16:
+                call(n)
+                got = plan_of(kind)
+                row['sweep']['%d' % got['nseg']] = (event_ms(lambda: call(n), args.reps)[0],
+                                                    got['blocks'], got['workspace_mib'])
+                n *= 2
+        results.append(row)
+        print('%s: %.3f ms (min %.3f) | NS %d, %d blocks, workspace %.0f MiB%s | %s' % (
+            label, mean, best, row['nseg'], row['blocks'], row['workspace_mib'],
+            ', %.1e of max from one segment' % row['vs_one_segment']
+            if 'vs_one_segment' in row else '', smi), flush=True)
+        for k, v in row.get('sweep', {}).items():
+            print('    forced NS %s: %.3f ms, %d blocks, workspace %.0f MiB' % ((k,) + v))
+        return row
+
+    geom = gl_geometry(3 * LMAX // 2)                 # the QE grid of lmax 2048: 3073 rings
+    t_m, t_p = core.pair_tables(LMAX, LMAX, 1, geom.theta, None, dev)
+    for B in (8, 4):
+        Qp = crandn((B, geom.nrings, LMAX + 1), torch.complex64)
+        Qm = crandn((B, geom.nrings, LMAX + 1), torch.complex64)
+        timed('K2 anal_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d'
+              % (LMAX, geom.nrings, B), 'anal_pair',
+              lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p, nseg=nseg),
+              1e-5, args.sweep)
+        del Qp, Qm
+    del t_m, t_p
+    torch.cuda.empty_cache()
+
+    hgeom = HealpixGeometry(NSIDE)
+    t = core.full_tables(LMAX, LMAX, -2, hgeom.theta, None, dev)
+    Q = crandn((4, hgeom.nrings, LMAX + 1), torch.complex128)
+    timed('K4 anal, n -2, f64, lmax %d, %d rings, batch 4' % (LMAX, hgeom.nrings), 'anal',
+          lambda nseg: (lk.anal(Q, LMAX, t, nseg=nseg),), 1e-12, args.sweep)
+    del Q, t
+    torch.cuda.empty_cache()
+
+    Gm, th_pw, _ = _ring_Gm(128, 128, 512)
+    Gm = torch.as_tensor(Gm, device=dev)
+    t = core.full_tables(512, 512, 2, th_pw, None, dev)
+    timed('K4 anal, pixel-window shape, n 2, f64, lmax 512, %d node rings, batch %d'
+          % (len(th_pw), Gm.shape[0]), 'anal',
+          lambda nseg: (lk.anal(Gm, 512, t, nseg=nseg),), 1e-12, False,
+          reps=10 * args.reps)              # a short kernel: more launches for a steady mean
+
+    k2 = [r['ms'] for r in results if r['kernel'] == 'anal_pair']
+    print('K2 batch 4 / batch 8 time ratio: %.4f | %s' % (k2[1] / k2[0], smi))
+    out = {'card': smi, 'reps': args.reps,
+           'k2_batch4_over_batch8': k2[1] / k2[0], 'shapes': results}
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, 'w') as f:
+            json.dump(out, f)
+    print(json.dumps(out))
+
+
+if __name__ == '__main__':
+    main()

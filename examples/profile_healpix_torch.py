@@ -13,7 +13,8 @@ p_p (f32). Each step runs in a `healpix_path.<step>` profiler range inside one
 
   * the device idle share of the path and of each step (union of device intervals);
   * device seconds by group: the four Legendre kernels K1-K4 (told apart by kernel name
-    and the mode template argument), cuFFT kernels, copies and the rest;
+    and the mode template argument; the second pass of a split analysis counts with its
+    kernel), cuFFT kernels, copies and the rest;
   * the longitude phase (`healpix.rings_to_map`/`healpix.map_to_rings` ranges): host
     seconds, and the device seconds of the work launched inside them, found through each
     launch's correlation id;
@@ -24,12 +25,10 @@ The last line of standard output is one JSON object with these numbers.
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
 import time
-from collections import defaultdict
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 for _p in (_REPO, os.path.join(_REPO, 'examples')):
@@ -38,11 +37,10 @@ for _p in (_REPO, os.path.join(_REPO, 'examples')):
 
 import torch
 
-from profile_qlms_torch import DEVICE_CATS, summarize, union_seconds
+from profile_qlms_torch import DEVICE_CATS, device_group, summarize, union_seconds  # noqa: F401
 
 STEPS = ('alm2map', 'alm2map_spin', 'map2alm', 'map2alm_spin', 'fits_write', 'fits_read_qe')
 LONGITUDE = ('healpix.rings_to_map', 'healpix.map_to_rings')
-_LEGENDRE = re.compile(r'(synth|anal)_pair_kernel<[^>]*?(\d+)>')
 
 
 def healpix_path(par, obs, idxs, keys, tdir, nside, lmax, device):
@@ -89,18 +87,6 @@ def healpix_path(par, obs, idxs, keys, tdir, nside, lmax, device):
     return (tmap, qmap, umap), (tlm, elm, blm), qlms, secs
 
 
-def device_group(e):
-    """Group of a device activity: K1-K4 by kernel name and mode, cuFFT, copies, rest."""
-    if e['cat'] != 'kernel':
-        return 'copies' if e['cat'] == 'gpu_memcpy' else 'memset'
-    m = _LEGENDRE.search(e['name'])
-    if m:
-        plain = int(m.group(2)) == 3
-        return {('synth', False): 'K1 synth_pair', ('anal', False): 'K2 anal_pair',
-                ('synth', True): 'K3 synth', ('anal', True): 'K4 anal'}[(m.group(1), plain)]
-    return 'cufft' if 'fft' in e['name'].lower() else 'other kernels'
-
-
 def attribute(events, names):
     """Device seconds of the activities launched inside each host range named in `names`:
     a launch (cuda_runtime/cuda_driver event) is matched to its device activity through
@@ -142,16 +128,9 @@ def summarize_path(events):
                               if d['ts'] < b and d['ts'] + d['dur'] > a])
         steps[name.split('.', 1)[1]] = {'s': e['dur'] / 1e6, 'device_busy_s': busy,
                                         'idle_share': 1. - busy / (e['dur'] / 1e6)}
-    groups = defaultdict(lambda: [0., 0])
-    for e in dev:
-        g = groups[device_group(e)]
-        g[0] += e['dur'] / 1e6
-        g[1] += 1
     lon_host = sum(e['dur'] / 1e6 for e in spans
                    if e.get('cat') == 'user_annotation' and e.get('name') in LONGITUDE)
     out.update(steps=steps,
-               groups={k: {'s': s, 'calls': n} for k, (s, n) in
-                       sorted(groups.items(), key=lambda kv: -kv[1][0])},
                longitude={'host_s': lon_host,
                           'device_s': sum(attribute(events, LONGITUDE).values())})
     return out

@@ -13,7 +13,10 @@ exported Chrome trace it reports:
     memset) inside the profiled window, so overlapping activities count once;
   * the idle share: 1 - busy / window, the window being the span of the `main_path`
     profiler range around the four stages (they end with a device synchronisation);
-  * device seconds and counts per kernel name and per memcpy kind;
+  * device seconds and counts per kernel name and per memcpy kind, and per group: the
+    four Legendre kernels K1-K4 (told apart by kernel name and the mode template
+    argument; the second pass of a split analysis counts with its kernel), cuFFT kernels,
+    copies and the rest;
   * host seconds in the recursion-table builds (the `sht.recursion_tables` ranges).
 
 The last line of standard output is one JSON object with these numbers.
@@ -21,6 +24,7 @@ The last line of standard output is one JSON object with these numbers.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -34,6 +38,27 @@ for _p in (_REPO, os.path.join(_REPO, 'examples')):
 import torch
 
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+# csrc/legendre_pair.cu's kernels: direction, second pass or not, and the mode, which is the
+# last template argument
+_LEGENDRE = re.compile(r'(synth|anal)_pair(_sum)?_kernel<[^>]*?(\d+)>')
+
+
+def device_group(e):
+    """Group of a device activity: K1-K4 by kernel name and mode, cuFFT, copies, rest. The
+    second pass of a split ring sum (anal_pair_sum_kernel) falls to K2 or K4 by its mode."""
+    if e['cat'] != 'kernel':
+        return 'copies' if e['cat'] == 'gpu_memcpy' else 'memset'
+    m = _LEGENDRE.search(e['name'])
+    if m:
+        plain = int(m.group(3)) == 3
+        return {('synth', False): 'K1 synth_pair', ('anal', False): 'K2 anal_pair',
+                ('synth', True): 'K3 synth', ('anal', True): 'K4 anal'}[(m.group(1), plain)]
+    return 'cufft' if 'fft' in e['name'].lower() else 'other kernels'
+
+
+def is_second_pass(e):
+    m = _LEGENDRE.search(e['name']) if e['cat'] == 'kernel' else None
+    return bool(m and m.group(2))
 
 
 def union_seconds(intervals):
@@ -65,10 +90,14 @@ def summarize(events, window='main_path'):
     busy = union_seconds([(a, b) for a, b in clipped if b > a])
     window = (w1 - w0) / 1e6
     per_name = defaultdict(lambda: [0., 0])
+    groups = defaultdict(lambda: [0., 0])
     for e in dev:
         row = per_name[(e['cat'], e['name'])]
         row[0] += e['dur'] / 1e6
         row[1] += 1
+        g = groups[device_group(e)]
+        g[0] += e['dur'] / 1e6
+        g[1] += not is_second_pass(e)      # calls of a kernel, not its device rows
     tables = [e['dur'] / 1e6 for e in spans if e.get('name') == 'sht.recursion_tables'
               and e.get('cat') == 'user_annotation']
     rows = sorted(((s, n, cat, name) for (cat, name), (s, n) in per_name.items()),
@@ -76,6 +105,8 @@ def summarize(events, window='main_path'):
     return {'window_s': window, 'device_busy_s': busy, 'idle_share': 1. - busy / window,
             'device_sum_s': sum(r[0] for r in rows),
             'table_builds_s': sum(tables), 'table_builds': len(tables),
+            'groups': {k: {'s': t, 'calls': n} for k, (t, n) in
+                       sorted(groups.items(), key=lambda kv: -kv[1][0])},
             'rows': [{'cat': cat, 'name': name[:90], 's': s, 'calls': n}
                      for s, n, cat, name in rows]}
 
@@ -131,6 +162,8 @@ def main():
           'share %.4f; device activity summed %.3f s; %d table builds, %.3f s host'
           % (out['window_s'], host_wall, out['device_busy_s'], out['idle_share'],
              out['device_sum_s'], out['table_builds'], out['table_builds_s']))
+    for name, g in out['groups'].items():
+        print('  group %-14s %8.4f s %6d' % (name, g['s'], g['calls']))
     for r in out['rows'][:args.rows]:
         print('  %9.4f s %6d  %-10s %s' % (r['s'], r['calls'], r['cat'], r['name']))
     out['rows'] = out['rows'][:args.rows]

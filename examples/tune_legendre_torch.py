@@ -1,0 +1,171 @@
+#!/usr/bin/env python
+r"""Time other block shapes of the Legendre analysis kernels K2/K4 on one CUDA device:
+
+    python examples/tune_legendre_torch.py default PLAIN64=2,2,16,1 KS=1 PAIR32=4,2,16,1:KS=4
+
+Each argument is one variant of csrc/legendre_pair.cu, built into its own library from a
+copy of the source with some constants replaced, parts joined by ':':
+
+  PAIR32, PAIR64, PLAIN32, PLAIN64 = batch tile, rings per thread, warps per block, blocks
+      meant for an SM (the PLK_A_* block shapes, by kind of grid and data type);
+  KS = l steps between two barriers of a block; LCH = l steps of a staged chunk of tables;
+  default = the source as it is.
+
+Every variant is first held against the plain torch twins at lmax 256 (pair and plain
+grid, f32 <= 1e-5 and f64 <= 1e-12 of max, with the planner's ring segments and with one),
+then timed (CUDA events, least of 3 after a warm-up; 20 at the pixel-window shape) at lmax
+2048: K2 spin-1 pair on the 3073-ring QE grid in f32 at batch 8 and 4, with one input at
+batch 8, and in f64 at batch 4; K4 n = -2 on the 8191 rings of HEALPix nside 2048 at batch
+4 in f64 and f32; K4 at the exact pixel window's shape (48 node rings, 64 shapes, lmax 512,
+f64). One line a variant, with the segment counts in brackets, then each analysis
+kernel's registers/spilled bytes by template arguments. Compare variants only within one
+run: two runs may land on two cards. Raises without a card, and for a variant that does
+not build, launch or agree with the twins.
+"""
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _REPO not in sys.path:
+    sys.path.insert(0, _REPO)
+
+import torch
+
+SHAPES = ('PAIR32', 'PAIR64', 'PLAIN32', 'PLAIN64')
+LMAX = 2048
+
+
+def rel_max(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def least_ms(fn, reps=3):
+    fn()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return min(times)
+
+
+def variant_source(text, spec):
+    """(source text, block shapes) of the variant `spec` of the source `text`."""
+    shapes = {}
+    for k in SHAPES:
+        line = [ln for ln in text.splitlines() if ln.startswith('#define PLK_A_%s ' % k)]
+        if len(line) != 1:
+            raise ValueError('the source does not define PLK_A_%s once' % k)
+        shapes[k] = (line[0], tuple(int(x) for x in line[0].split(None, 2)[2].split(',')))
+    for part in spec.split(':'):
+        if part == 'default':
+            continue
+        k, v = part.split('=')
+        if k in SHAPES:
+            new = tuple(int(x) for x in v.split(','))
+            if len(new) != 4:
+                raise ValueError('%s: a block shape is four numbers' % part)
+            text = text.replace(shapes[k][0], '#define PLK_A_%s %s' % (k, ', '.join(map(str, new))))
+            shapes[k] = (None, new)
+        else:
+            line = [ln for ln in text.splitlines() if ln.startswith('constexpr int %s = ' % k)]
+            if len(line) != 1:
+                raise ValueError('%s: the source has no such constant' % part)
+            text = text.replace(line[0], 'constexpr int %s = %d;' % (k, int(v)))
+    return text, {k: v[1] for k, v in shapes.items()}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('tune_legendre_torch: needs a CUDA device')
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk, HealpixGeometry
+    from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
+    from plancklens_tpu_torch.ops.sht.pixwin import _ring_Gm
+    dev = torch.device('cuda:0')
+    print(subprocess.run(['nvidia-smi', '-i', '0', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    with open(lk.SOURCE) as f:
+        text0 = f.read()
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def crandn(shape, cdt):
+        return torch.randn(shape, generator=gen, device=dev, dtype=cdt)
+
+    c64, c128 = torch.complex64, torch.complex128
+    geom = gl_geometry(3 * LMAX // 2)
+    t_m, t_p = core.pair_tables(LMAX, LMAX, 1, geom.theta, None, dev)
+    Qp, Qm = (crandn((8, geom.nrings, LMAX + 1), c64) for _ in range(2))
+    Qp4, Qm4 = Qp[:4].contiguous(), Qm[:4].contiguous()
+    Qpd, Qmd = Qp4.to(c128), Qm4.to(c128)
+    hgeom = HealpixGeometry(2048)
+    tf = core.full_tables(LMAX, LMAX, -2, hgeom.theta, None, dev)
+    Q4 = crandn((4, hgeom.nrings, LMAX + 1), c128)
+    Q4f = Q4.to(c64)
+    Gm, th_pw, _ = _ring_Gm(128, 128, 512)
+    Gm = torch.as_tensor(Gm, device=dev)
+    tpw = core.full_tables(512, 512, 2, th_pw, None, dev)
+    # the checks at lmax 256: spin-2 pair on 257 rings, n = -2 on 201 random rings
+    ts_m, ts_p = core.pair_tables(256, 256, 2, gl_geometry(256).theta, None, dev)
+    th_r = np.sort(np.random.RandomState(2).uniform(0., np.pi, 201))
+    th_r[0], th_r[-1] = 4e-4, np.pi - 7e-4
+    tr = core.full_tables(256, 256, -2, th_r, None, dev)
+    Qs = {c: (crandn((3, 257, 257), c), crandn((3, 257, 257), c)) for c in (c64, c128)}
+    Qr = {c: crandn((3, 201, 257), c) for c in Qs}
+    ref_pair = {c: core.legendre_anal_pair_plain(*Qs[c], 2, 256, ts_m, ts_p) for c in Qs}
+    ref_plain = {c: core.legendre_anal_plain(Qr[c], 256, tr) for c in Qs}
+
+    os.makedirs(lk.BUILD_DIR, exist_ok=True)
+    for n, spec in enumerate(sys.argv[1:] or ['default']):
+        text, shapes = variant_source(text0, spec)
+        src = os.path.join(lk.BUILD_DIR, 'tune_%d.cu' % n)
+        with open(src, 'w') as f:
+            f.write(text)
+        # point the wrappers at the variant: its source, a fresh library, its tiles
+        lk.SOURCE, lk._lib = src, None
+        lk.ANAL_TILE = {(kind, dt): (shapes[k][0], shapes[k][1] * shapes[k][2])
+                        for k, kind, dt in zip(SHAPES, ('pair', 'pair', 'plain', 'plain'),
+                                               ('f32', 'f64', 'f32', 'f64'))}
+        t0 = time.perf_counter()
+        lk._load()
+        out = [spec, 'built in %.0f s' % (time.perf_counter() - t0)]
+        for c, tol in ((c64, 1e-5), (c128, 1e-12)):
+            for nseg in (None, 1):
+                ka = lk.anal_pair(*Qs[c], 2, 256, ts_m, ts_p, nseg=nseg)
+                err = max([rel_max(a, b) for a, b in zip(ka, ref_pair[c])]
+                          + [rel_max(lk.anal(Qr[c], 256, tr, nseg=nseg), ref_plain[c])])
+                if not err <= tol:
+                    raise RuntimeError('%s, nseg %s: %.2e of max from the twins' % (c, nseg, err))
+        for label, kind, fn, reps in (
+                ('K2 f32 b8', 'anal_pair', lambda: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p), 3),
+                ('K2 f32 b4', 'anal_pair', lambda: lk.anal_pair(Qp4, Qm4, 1, LMAX, t_m, t_p), 3),
+                ('K2 f32 b8 one input', 'anal_pair',
+                 lambda: lk.anal_pair(Qp, None, 1, LMAX, t_m, t_p), 3),
+                ('K2 f64 b4', 'anal_pair', lambda: lk.anal_pair(Qpd, Qmd, 1, LMAX, t_m, t_p), 3),
+                ('K4 f64 b4', 'anal', lambda: lk.anal(Q4, LMAX, tf), 3),
+                ('K4 f32 b4', 'anal', lambda: lk.anal(Q4f, LMAX, tf), 3),
+                ('K4 pixel window', 'anal', lambda: lk.anal(Gm, 512, tpw), 20)):
+            out.append('%s %.3f ms (NS %d)' % (label, least_ms(fn, reps), lk.last_plan[kind].nseg))
+        print(' | '.join(out), flush=True)
+        regs, name, spill = [], None, ''
+        with open(lk.library_path()[:-3] + '.log') as f:
+            for line in f:
+                if 'Compiling entry function' in line:
+                    name = line.split('anal_pair_kernel')[1].split('EEv')[0] \
+                        if 'anal_pair_kernel' in line else None
+                elif name and 'spill' in line:
+                    spill = line.split(',')[1].split()[0]
+                elif name and 'registers' in line:
+                    regs.append('%s %s/%s' % (name, line.split('Used')[1].split()[0], spill))
+        print('    registers/spill store bytes: ' + ', '.join(regs), flush=True)
+
+
+if __name__ == '__main__':
+    main()

@@ -19,16 +19,51 @@
 // (real/imag part), per hemisphere in the pair modes; the coefficients (synthesis) and
 // recursion tables are re-read from L1/L2 at every l step, and the Fourier modes
 // (analysis) stay in registers. At the main path's shapes (lmax 2048, 1537 northern
-// rings, 2049 m, 8 maps) the pair modes' arithmetic is FP32-issue bound at ~6 ms; this
-// first version takes 67 ms (K1) and 221 ms (K2) on an H100 80GB HBM3 at a 700 W power
-// limit (spin 1, f32). With 128 registers a thread one 512-thread block fills an SM, so
-// latency hiding and L1 load traffic bound K1; K2 runs only 65 x ceil(B/4) blocks on 132
-// SMs (PERF.md). The plain mode at HEALPix shapes (8191 rings, batch <= 8) does one
-// recursion for 4 maps, so the f64 recursion weighs as much as the f32 accumulate there;
-// it takes four rings per thread (f32) where the pair modes take two, since it keeps a
-// quarter of their accumulators, which halves K4's ring passes. K4 inherits K2's
-// occupancy limit (65 blocks at batch <= 4); splitting the rings over blocks is left to
-// the redesign of K2/K4 (ROADMAP).
+// rings, 2049 m, 8 maps) the pair modes' arithmetic is bound by FP32 throughput at ~6 ms,
+// the plain mode at HEALPix shapes (8191 rings, 4 maps, f64) by FP64 at ~11 ms; the kernels
+// take many times that (PERF.md has the times). With 128 registers a thread one
+// 512-thread block fills an SM, so latency hiding and L1 load traffic bound the synthesis
+// (K1/K3). The plain mode does one recursion for a batch tile of maps, so the f64
+// recursion weighs as much as the accumulate there; its synthesis takes four rings per
+// thread (f32) where the pair modes take two, since it keeps a quarter of their
+// accumulators.
+//
+// What bounds the analysis (K2/K4), and what its design does about it. Each l step of a
+// block is latency, not arithmetic: table rows to fetch, a chain of dependent f64
+// operations per ring, a cross-warp sum through shared memory behind a barrier and an add
+// into global memory, and registers allow one block an SM, so nothing else runs meanwhile.
+// The time of a call is (steps of all blocks) x (latency of a step) / (SMs kept busy).
+// Keeping the SMs busy, the grid:
+//   * the ring sum is split: block (s, batch tile, m-tile) runs only the ring passes of
+//     segment s, a whole number of passes (one pass = warps x rings per thread), so a
+//     call is many short blocks in several waves instead of one wave of 65 x ceil(B/BT)
+//     blocks as slow as its longest;
+//   * the m-tile is the slowest grid dimension, so blocks start in order of m: the low-m
+//     tiles, whose l loop is longest (it starts at l0(m) - 1), run first and the short
+//     ones fill the tail;
+//   * segment 0 adds into the outputs themselves, segment s > 0 into partial s - 1 of a
+//     workspace (NS - 1, legs, B, L, M) that the wrapper allocates; anal_pair_sum_kernel
+//     then adds the partials to the outputs in the order s = 1, 2, ... One segment
+//     (small ring counts, or enough m and batch tiles to fill the card without a split)
+//     needs no workspace and no second kernel. The segment count comes from the wrapper
+//     (legendre_kernels.plan_segments: about 4 waves of blocks, under a workspace cap).
+// Shortening the step, the block:
+//   * many rings a thread and few warps (PLK_A_* below: 8 warps x 3 rings in the pair
+//     modes, 8 x 8 on plain grids in f64, at 150 to 250 registers): the independent
+//     recursions of a thread's rings overlap each other's latency, and fewer warps leave
+//     fewer partial sums to exchange;
+//   * the table rows of the next LCH l steps are staged into shared memory by cp.async
+//     while the current LCH compute (all warps of a block need the same 3 or 6 rows of
+//     256 bytes, a new set from L2 at every l), two buffers in turn;
+//   * one barrier for KS l steps, not two for one: the warps leave their sums of a group
+//     of KS steps in one of two shared-memory buffers used in turn, so the barrier that
+//     publishes a group also frees the buffer of the group before; the KS * NV rows of a
+//     group are shared out over all warps for the cross-warp sum;
+//   * the running sum that a row is added to (every ring pass of a segment after its
+//     first) is fetched from global memory before the group's arithmetic, not between
+//     barriers.
+// What is left is still latency: counting its operations, the arithmetic units could take
+// a step in about a third of the time it takes (PERF.md).
 //
 // Precision. The recursion always runs in f64 (S = 256), also for f32 data: an f32
 // recursion, as the TPU kernels ran it, loses the small angles near the poles (cos theta
@@ -38,14 +73,15 @@
 // type. HEALPix's polar rings (theta = 4.0e-4 at nside 2048) seed far below f64's range;
 // the exponent count k of the scaled recursion carries them, north and south alike.
 //
-// Why the first version is simple. Synthesis: one thread per (ring, m) keeps the
-// recursion state and the outputs of a batch tile in registers; threads lie along m so
-// that the reads of C[b, l, m..m+31] coalesce, and the ring-warps of a block share them
-// through L1. Analysis: the sum over rings is a cross-thread reduction, made deterministic
-// (no float atomics): the warps of a block reduce through shared memory in a fixed
-// order, and each output element is owned by one thread of one block, which adds the
-// partial sums of successive ring passes in order. Nothing is tiled over l and there is
-// no tensor-core path yet; both are later work (PERF.md).
+// Layout of the work. Synthesis: one thread per (ring, m) keeps the recursion state and
+// the outputs of a batch tile in registers; threads lie along m so that the reads of
+// C[b, l, m..m+31] coalesce, and the ring-warps of a block share them through L1.
+// Analysis: the sum over rings is a cross-thread reduction, made deterministic (no float
+// atomics) at each of its three levels: the warps of a block reduce through shared memory
+// in a fixed order; each element of an output or a partial is written by one block, which
+// adds the sums of its segment's ring passes in order; and the partials are added in
+// order of segment. Nothing is tiled over l and there is no tensor-core path;
+// both are later work (PERF.md).
 //
 // Layouts (all contiguous, complex interleaved): C (B, L, M), F (B, R, M), Q (B, R, M),
 // A (B, L, M); f64 tables alpha/beta/gamma (L, M), seed_v/seed_k (nh, M), l0 (M), x (nh)
@@ -55,13 +91,15 @@
 // mode 2: spin != 0, one input (both recursions, one output); mode 3: plain, one input,
 // one recursion over all rings.
 //
-// Plain C interface (ctypes); each entry point returns cudaGetLastError() of its launch.
+// Plain C interface (ctypes); each entry point returns the first error of the launches it
+// makes (cudaGetLastError() after each, the second pass of the analysis included).
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NW = 16;   // warps per block (rings of a block; lanes run along m)
+constexpr int NW = 16;   // warps per synthesis block (rings of a block; lanes run along m)
 constexpr int PLAIN = 3;
 
 template <typename T> struct C2t;
@@ -142,6 +180,12 @@ __device__ __forceinline__ int loop_start(const int* l0m, const int* l0p, int m_
 template <int MODE>
 __host__ __device__ __forceinline__ int rec_rows(int R) {
   return MODE == PLAIN ? R : (R + 1) / 2;
+}
+
+// outputs of an analysis call: two legs in mode 1, else one
+template <int MODE>
+__host__ __device__ constexpr int anal_legs() {
+  return MODE == 1 ? 2 : 1;
 }
 
 // ------------------------------------------------------------------ K1/K3 synthesis
@@ -240,50 +284,95 @@ synth_pair_kernel(const typename C2t<T>::type* __restrict__ Cp,
 }
 
 // ------------------------------------------------------------------- K2/K4 analysis
-template <typename T, int BT, int RPT, int MODE>
-__global__ void __launch_bounds__(NW * 32, 1)
+// A block is NWA warps (lanes along m, warps along rings) of RPT rings a thread, on a
+// batch tile of BT maps; MINB blocks are meant to share an SM.
+constexpr int LCH = 16;   // l steps of one staged chunk of table rows
+constexpr int KS = 2;     // l steps between two barriers of a block (measured: 1 and 4 are slower)
+
+template <typename T, int BT, int RPT, int NWA, int MINB, int MODE>
+__global__ void __launch_bounds__(NWA * 32, MINB)
 anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
                  const typename C2t<T>::type* __restrict__ Qm,
                  typename C2t<T>::type* __restrict__ A,
                  typename C2t<T>::type* __restrict__ Bo,
+                 typename C2t<T>::type* __restrict__ ws,
                  Tables tm, Tables tp, const double* __restrict__ x,
-                 int B, int L, int M, int R) {
+                 int B, int L, int M, int R, int pps) {
   using C2 = typename C2t<T>::type;
   constexpr bool TWO = MODE == 1 || MODE == 2;
   constexpr bool HASM = MODE == 1;
   constexpr bool MIRROR = MODE != PLAIN;
-  constexpr int NLEG = HASM ? 2 : 1;
+  constexpr int NLEG = anal_legs<MODE>();
   constexpr int NV = BT * NLEG;      // (map, leg) outputs of a thread per l
-  static_assert(NV <= NW, "one reducing warp per output");
-  __shared__ T red[NV][2][NW][32];
+  static_assert(NV <= NWA, "one warp per output for the rows below the loop");
+  constexpr int PPW = (KS * NV + NWA - 1) / NWA;   // (step, output) rows a warp sums
+
+  // two buffers of the warps' partial sums of KS successive l steps, used in turn
+  static_assert(LCH % KS == 0, "whole groups of steps in a chunk of table rows");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T (*const red)[KS][NV][2][NWA][32] = reinterpret_cast<T (*)[KS][NV][2][NWA][32]>(smem);
+  // two buffers of the recursion tables' rows of LCH successive l, staged by cp.async:
+  // the rows of the next chunk arrive while this one computes
+  constexpr int NT = TWO ? 6 : 3;
+  double (*const tab)[NT][LCH][32] =
+      reinterpret_cast<double (*)[NT][LCH][32]>(smem + 2 * sizeof(T[KS][NV][2][NWA][32]));
 
   const int nh = rec_rows<MODE>(R), n_s = R - nh;
   const int lane = threadIdx.x, w = threadIdx.y;
-  const int m_first = blockIdx.x * 32;
+  // grid (ring segment, batch tile, m-tile): the m-tile is slowest, so the tiles with the
+  // longest l loop start first
+  const int seg = blockIdx.x;
+  const int m_first = blockIdx.z * 32;
   const int m = m_first + lane;
   const bool mvalid = m < M;
+  const int m_in = mvalid ? m : M - 1;      // a column to read for lanes past mmax
   const int b0 = blockIdx.y * BT;
   const T sgn_m = (m & 1) ? T(-1) : T(1);
   const int lbeg = loop_start(tm.l0, TWO ? tp.l0 : tm.l0, m_first);
 
-  // the reducing thread (warp w < NV, lane) owns output (map b0 + w / NLEG, leg w % NLEG,
-  // m): it writes rows below lbeg once and every row l >= lbeg in each ring pass
-  const bool owner = w < NV;
-  const int ob = w / NLEG, oleg = w % NLEG;
-  const bool ovalid = owner && mvalid && (b0 + ob) < B;
-  C2* const out = oleg == 0 ? A : Bo;
-  if (ovalid) {
-    for (int l = 0; l < lbeg; ++l)
-      out[((size_t)(b0 + ob) * L + l) * M + m] = C2{T(0), T(0)};
+  // Output v < NV of a block is (map b0 + v / NLEG, leg v % NLEG): a row of the outputs
+  // in segment 0, of partial seg - 1 of the workspace otherwise. Every row l >= lbeg is
+  // written in each ring pass of the segment; segment 0 also writes the rows below lbeg,
+  // once, and no partial holds them.
+  auto out_row = [&](int v, int l) {
+    C2* const base = seg == 0 ? (v % NLEG == 0 ? A : Bo)
+                              : ws + ((size_t)(seg - 1) * NLEG + v % NLEG) * ((size_t)B * L * M);
+    return base + ((size_t)(b0 + v / NLEG) * L + l) * M + m;
+  };
+  auto out_valid = [&](int v) { return mvalid && (b0 + v / NLEG) < B; };
+  if (seg == 0 && w < NV && out_valid(w)) {
+    for (int l = 0; l < lbeg; ++l) *out_row(w, l) = C2{T(0), T(0)};
   }
 
-  for (int j0 = 0; j0 < nh; j0 += NW * RPT) {
+  // the segment's ring passes: pps passes of NWA * RPT rows, the last segment's fewer
+  const int j_begin = seg * pps * (NWA * RPT);
+  const int j_end = min(nh, j_begin + pps * (NWA * RPT));
+  int group = 0;      // groups of KS l steps of this block so far, over all its passes
+  // the warps stage rows lc .. lc + LCH - 1 of each table into buffer cb, a row a warp
+  // (rows past lmax and columns past mmax repeat the last: they feed masked lanes and
+  // steps that are not run)
+  auto stage = [&](int lc, int cb) {
+#pragma unroll
+    for (int i = w; i < LCH; i += NWA) {
+      const size_t at = (size_t)(lc + i < L ? lc + i : L - 1) * M + m_in;
+      __pipeline_memcpy_async(&tab[cb][0][i][lane], tm.alpha + at, 8);
+      __pipeline_memcpy_async(&tab[cb][1][i][lane], tm.beta + at, 8);
+      __pipeline_memcpy_async(&tab[cb][2][i][lane], tm.gamma + at, 8);
+      if (TWO) {
+        __pipeline_memcpy_async(&tab[cb][3][i][lane], tp.alpha + at, 8);
+        __pipeline_memcpy_async(&tab[cb][4][i][lane], tp.beta + at, 8);
+        __pipeline_memcpy_async(&tab[cb][5][i][lane], tp.gamma + at, 8);
+      }
+    }
+    __pipeline_commit();
+  };
+  for (int j0 = j_begin; j0 < j_end; j0 += NWA * RPT) {
     Rec rm[RPT], rp[RPT];
     double xr[RPT];
     C2 qpn[RPT][BT], qps[RPT][BT], qmn[RPT][BT], qms[RPT][BT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int jj = j0 + w + r * NW;
+      const int jj = j0 + w + r * NWA;
       const bool v = mvalid && jj < nh;
       const int j = jj < nh ? jj : 0;
       xr[r] = x[j];
@@ -306,69 +395,126 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
         }
       }
     }
-    const bool first = j0 == 0;
+    const bool first = j0 == j_begin;
 
-    for (int l = lbeg; l < L; ++l) {
-      const size_t lm = (size_t)l * M + m;
-      double am = 0., bm = 0., gm = 0., ap = 0., bp = 0., gp = 0.;
-      if (mvalid) {
-        am = tm.alpha[lm]; bm = tm.beta[lm]; gm = tm.gamma[lm];
-        if (TWO) { ap = tp.alpha[lm]; bp = tp.beta[lm]; gp = tp.gamma[lm]; }
-      }
-      const T sgn = (l & 1) ? T(-1) : T(1);
-      C2 va[BT], vb[BT];
+    // (every thread is past the last barrier of the pass before, so past its table reads)
+    stage(lbeg, 0);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int lc = lbeg, cb = 0; lc < L; lc += LCH, cb ^= 1) {
+      if (lc + LCH < L) stage(lc + LCH, cb ^ 1);
+      const int lend = lc + LCH < L ? lc + LCH : L;
+      // The l steps go in groups of KS between barriers. In a group every warp leaves its
+      // rings' sums of each step in shared memory; after the barrier the KS * NV (step,
+      // output) rows of the group are shared out over the warps, PPW a warp, each summed
+      // over the warps' partials in a fixed order and added to the running sum in global
+      // memory, which was fetched before the group's arithmetic to hide its latency.
+      for (int ls = lc; ls < lend; ls += KS, ++group) {
+        T (&rd)[KS][NV][2][NWA][32] = red[group & 1];
+        C2 prev[PPW];
 #pragma unroll
-      for (int b = 0; b < BT; ++b) va[b] = vb[b] = C2{T(0), T(0)};
+        for (int i = 0; i < PPW; ++i) {
+          const int p = w + i * NWA, kk = p / NV, v = p % NV;
+          prev[i] = C2{T(0), T(0)};
+          if (!first && p < KS * NV && ls + kk < lend && out_valid(v))
+            prev[i] = *out_row(v, ls + kk);
+        }
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const T dm = deff<T>(rm[r]);
-        const T dp = TWO ? deff<T>(rp[r]) : dm;
-        const T dps = sgn * dp, dms = sgn * dm;
+        for (int kk = 0; kk < KS; ++kk) {
+          const int l = ls + kk;
+          if (l >= lend) break;
+          const double am = tab[cb][0][l - lc][lane], bm = tab[cb][1][l - lc][lane],
+                       gm = tab[cb][2][l - lc][lane];
+          const double ap = TWO ? tab[cb][3][l - lc][lane] : 0.,
+                       bp = TWO ? tab[cb][4][l - lc][lane] : 0.,
+                       gp = TWO ? tab[cb][5][l - lc][lane] : 0.;
+          const T sgn = (l & 1) ? T(-1) : T(1);
+          C2 va[BT], vb[BT];
 #pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          if (MIRROR) {
-            va[b].x += qpn[r][b].x * dm + qps[r][b].x * dps;
-            va[b].y += qpn[r][b].y * dm + qps[r][b].y * dps;
-          } else {
-            va[b].x += qpn[r][b].x * dm;
-            va[b].y += qpn[r][b].y * dm;
+          for (int b = 0; b < BT; ++b) va[b] = vb[b] = C2{T(0), T(0)};
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            const T dm = deff<T>(rm[r]);
+            const T dp = TWO ? deff<T>(rp[r]) : dm;
+            const T dps = sgn * dp, dms = sgn * dm;
+#pragma unroll
+            for (int b = 0; b < BT; ++b) {
+              if (MIRROR) {
+                va[b].x += qpn[r][b].x * dm + qps[r][b].x * dps;
+                va[b].y += qpn[r][b].y * dm + qps[r][b].y * dps;
+              } else {
+                va[b].x += qpn[r][b].x * dm;
+                va[b].y += qpn[r][b].y * dm;
+              }
+              if (HASM) {
+                vb[b].x += qmn[r][b].x * dp + qms[r][b].x * dms;
+                vb[b].y += qmn[r][b].y * dp + qms[r][b].y * dms;
+              }
+            }
+            rec_step(rm[r], l, am, bm, gm, xr[r]);
+            if (TWO) rec_step(rp[r], l, ap, bp, gp, xr[r]);
           }
-          if (HASM) {
-            vb[b].x += qmn[r][b].x * dp + qms[r][b].x * dms;
-            vb[b].y += qmn[r][b].y * dp + qms[r][b].y * dms;
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            rd[kk][b * NLEG][0][w][lane] = va[b].x;
+            rd[kk][b * NLEG][1][w][lane] = va[b].y;
+            if (HASM) {
+              rd[kk][b * NLEG + 1][0][w][lane] = vb[b].x;
+              rd[kk][b * NLEG + 1][1][w][lane] = vb[b].y;
+            }
           }
         }
-        rec_step(rm[r], l, am, bm, gm, xr[r]);
-        if (TWO) rec_step(rp[r], l, ap, bp, gp, xr[r]);
-      }
+        // one barrier a group: the next group writes the other buffer, and this buffer
+        // is written again only after the next group's barrier, which every reader
+        // below reaches after its reads. The barrier of a chunk's last group also
+        // publishes the next chunk's table rows, and ends the reads of this chunk's
+        if (ls + KS >= lend) __pipeline_wait_prior(0);
+        __syncthreads();
 #pragma unroll
-      for (int b = 0; b < BT; ++b) {
-        red[b * NLEG][0][w][lane] = va[b].x;
-        red[b * NLEG][1][w][lane] = va[b].y;
-        if (HASM) {
-          red[b * NLEG + 1][0][w][lane] = vb[b].x;
-          red[b * NLEG + 1][1][w][lane] = vb[b].y;
-        }
-      }
-      __syncthreads();
-      if (ovalid) {
-        T sx = T(0), sy = T(0);
+        for (int i = 0; i < PPW; ++i) {
+          const int p = w + i * NWA, kk = p / NV, v = p % NV;
+          if (p < KS * NV && ls + kk < lend && out_valid(v)) {
+            T sx = T(0), sy = T(0);
 #pragma unroll
-        for (int ww = 0; ww < NW; ++ww) {   // fixed order: deterministic
-          sx += red[w][0][ww][lane];
-          sy += red[w][1][ww][lane];
-        }
-        C2* o = out + ((size_t)(b0 + ob) * L + l) * M + m;
-        if (first) {
-          *o = C2{sx, sy};
-        } else {
-          C2 prev = *o;
-          *o = C2{prev.x + sx, prev.y + sy};
+            for (int ww = 0; ww < NWA; ++ww) {   // fixed order: deterministic
+              sx += rd[kk][v][0][ww][lane];
+              sy += rd[kk][v][1][ww][lane];
+            }
+            *out_row(v, ls + kk) = C2{prev[i].x + sx, prev[i].y + sy};
+          }
         }
       }
-      __syncthreads();
     }
   }
+}
+
+// second pass of a split ring sum: out += partial 0 + partial 1 + ... in this order, for
+// the rows l >= lbeg of each m-tile (segment 0 wrote the rows below, the partials do not
+// hold them). One thread per output element; MODE as in the analysis kernel.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(256)
+anal_pair_sum_kernel(typename C2t<T>::type* __restrict__ A,
+                     typename C2t<T>::type* __restrict__ Bo,
+                     const typename C2t<T>::type* __restrict__ ws,
+                     const int* __restrict__ l0m, const int* __restrict__ l0p,
+                     int B, int L, int M, int npart) {
+  using C2 = typename C2t<T>::type;
+  constexpr int NLEG = anal_legs<MODE>();
+  const size_t n = (size_t)B * L * M;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= NLEG * n) return;
+  const int leg = (int)(idx / n);
+  const size_t e = idx - leg * n;
+  const int m = (int)(e % M), l = (int)((e / M) % L);
+  if (l < loop_start(l0m, l0p, m & ~31)) return;
+  C2* const o = (leg == 0 ? A : Bo) + e;
+  C2 acc = *o;
+  for (int s = 0; s < npart; ++s) {           // fixed order: deterministic
+    const C2 p = ws[((size_t)s * NLEG + leg) * n + e];
+    acc.x += p.x;
+    acc.y += p.y;
+  }
+  *o = acc;
 }
 
 Tables make_tables(const void* a, const void* b, const void* g, const void* l0,
@@ -394,40 +540,87 @@ int launch_synth(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables tm,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BT, int RPT, int MODE>
-int launch_anal(const void* Qp, const void* Qm, void* A, void* Bo, Tables tm,
-                Tables tp, const void* x, int B, int L, int M, int R, int device,
+// The ring sum in `nseg` segments of a whole number of passes each; `ws` holds the
+// nseg - 1 partials (legs, B, L, M) of the segments after the first and may be null for
+// one segment, when the outputs are written directly and no second kernel runs.
+template <typename T, int BT, int RPT, int NWA, int MINB, int MODE>
+int launch_anal(const void* Qp, const void* Qm, void* A, void* Bo, void* ws, Tables tm,
+                Tables tp, const void* x, int B, int L, int M, int R, int nseg, int device,
                 void* stream) {
   using C2 = typename C2t<T>::type;
+  constexpr bool TWO = MODE == 1 || MODE == 2;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  dim3 block(32, NW);
-  dim3 grid((M + 31) / 32, (B + BT - 1) / BT);
-  anal_pair_kernel<T, BT, RPT, MODE><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int nh = rec_rows<MODE>(R);
+  const int passes = (nh + NWA * RPT - 1) / (NWA * RPT);
+  const int btiles = (B + BT - 1) / BT, mtiles = (M + 31) / 32;
+  if (nseg < 1 || nseg > passes || (nseg > 1 && ws == nullptr) || btiles > 65535 ||
+      mtiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int pps = (passes + nseg - 1) / nseg;
+  if ((passes + pps - 1) / pps != nseg) return (int)cudaErrorInvalidValue;  // an empty segment
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 block(32, NWA);
+  dim3 grid(nseg, btiles, mtiles);
+  // two buffers each of per-warp partial sums and of staged table rows: up to 112 KB, so
+  // dynamic shared memory
+  const int smem = 2 * KS * BT * anal_legs<MODE>() * 2 * NWA * 32 * (int)sizeof(T) +
+                   2 * (TWO ? 6 : 3) * LCH * 32 * (int)sizeof(double);
+  e = cudaFuncSetAttribute(anal_pair_kernel<T, BT, RPT, NWA, MINB, MODE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  anal_pair_kernel<T, BT, RPT, NWA, MINB, MODE><<<grid, block, smem, st>>>(
       static_cast<const C2*>(Qp), static_cast<const C2*>(Qm), static_cast<C2*>(A),
-      static_cast<C2*>(Bo), tm, tp, static_cast<const double*>(x), B, L, M, R);
+      static_cast<C2*>(Bo), static_cast<C2*>(ws), tm, tp, static_cast<const double*>(x), B,
+      L, M, R, pps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || nseg == 1) return (int)e;
+  const size_t total = (size_t)anal_legs<MODE>() * B * L * M;
+  anal_pair_sum_kernel<T, MODE><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      static_cast<C2*>(A), static_cast<C2*>(Bo), static_cast<const C2*>(ws), tm.l0,
+      TWO ? tp.l0 : tm.l0, B, L, M, nseg - 1);
   return (int)cudaGetLastError();
 }
 
-// the pair modes 0-2 of one direction and dtype, chosen at run time
-template <typename T, int BT, int RPT, bool SYNTH>
-int launch_pair(const void* in_p, const void* in_m, void* out_p, void* out_m, Tables tm,
-                Tables tp, const void* x, int B, int L, int M, int R, int mode,
-                int device, void* stream) {
+// the pair modes 0-2 of one data type, chosen at run time
+template <typename T, int BT, int RPT>
+int launch_synth_pair(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables tm,
+                      Tables tp, const void* x, int B, int L, int M, int R, int mode,
+                      int device, void* stream) {
   switch (mode) {
-    case 0:
-      return SYNTH ? launch_synth<T, BT, RPT, 0>(in_p, in_m, out_p, out_m, tm, tp, x, B, L, M, R, device, stream)
-                   : launch_anal<T, BT, RPT, 0>(in_p, in_m, out_p, out_m, tm, tp, x, B, L, M, R, device, stream);
-    case 1:
-      return SYNTH ? launch_synth<T, BT, RPT, 1>(in_p, in_m, out_p, out_m, tm, tp, x, B, L, M, R, device, stream)
-                   : launch_anal<T, BT, RPT, 1>(in_p, in_m, out_p, out_m, tm, tp, x, B, L, M, R, device, stream);
-    case 2:
-      return SYNTH ? launch_synth<T, BT, RPT, 2>(in_p, in_m, out_p, out_m, tm, tp, x, B, L, M, R, device, stream)
-                   : launch_anal<T, BT, RPT, 2>(in_p, in_m, out_p, out_m, tm, tp, x, B, L, M, R, device, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return launch_synth<T, BT, RPT, 0>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
+    case 1: return launch_synth<T, BT, RPT, 1>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
+    case 2: return launch_synth<T, BT, RPT, 2>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
+
+template <typename T, int BT, int RPT, int NWA, int MINB>
+int launch_anal_pair(const void* Qp, const void* Qm, void* A, void* Bo, void* ws, Tables tm,
+                     Tables tp, const void* x, int B, int L, int M, int R, int mode,
+                     int nseg, int device, void* stream) {
+  switch (mode) {
+    case 0: return launch_anal<T, BT, RPT, NWA, MINB, 0>(Qp, Qm, A, Bo, ws, tm, tp, x, B, L, M, R, nseg, device, stream);
+    case 1: return launch_anal<T, BT, RPT, NWA, MINB, 1>(Qp, Qm, A, Bo, ws, tm, tp, x, B, L, M, R, nseg, device, stream);
+    case 2: return launch_anal<T, BT, RPT, NWA, MINB, 2>(Qp, Qm, A, Bo, ws, tm, tp, x, B, L, M, R, nseg, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Synthesis: batch tile and rings per thread of each data type. The pair modes keep four
+// accumulators per map and ring, the plain mode one, so it takes twice the rings.
+constexpr int BT32 = 4, BT64 = 2;
+constexpr int RPT_PAIR32 = 2, RPT_PAIR64 = 1, RPT_PLAIN32 = 4, RPT_PLAIN64 = 2;
+
+// Analysis: batch tile, rings per thread, warps per block and blocks meant for an SM, of
+// each kind of grid and data type. Measured on the H100 (PERF.md): few warps with many
+// rings a thread, at 210 to 250 registers and one block an SM, beat more warps or more
+// blocks with fewer rings, except for f32 data on plain grids.
+#define PLK_A_PAIR32 4, 3, 8, 1
+#define PLK_A_PAIR64 2, 3, 8, 1
+#define PLK_A_PLAIN32 4, 4, 16, 1
+#define PLK_A_PLAIN64 2, 8, 8, 1
+constexpr int tile_code(int bt, int rpt, int nwa, int) { return (bt << 16) | (nwa * rpt); }
 
 }  // namespace
 
@@ -440,38 +633,47 @@ int launch_pair(const void* in_p, const void* in_m, void* out_p, void* out_m, Ta
 
 extern "C" {
 
-// Pair modes. f32 data: batch tile 4, two rings per thread; f64 data: batch tile 2, one
-// ring.
+// (batch tile << 16) | rows of one ring pass of the analysis kernels, for the wrapper's
+// segment planner
+int plk_anal_tile(int plain, int f64) {
+  return plain ? (f64 ? tile_code(PLK_A_PLAIN64) : tile_code(PLK_A_PLAIN32))
+               : (f64 ? tile_code(PLK_A_PAIR64) : tile_code(PLK_A_PAIR32));
+}
+
+// Pair modes.
 int plk_synth_pair_f32(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_TABLE_ARGS,
                        const void* x, int B, int L, int M, int R, int mode, int device,
                        void* stream) {
-  return launch_pair<float, 4, 2, true>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P, x, B, L,
-                                        M, R, mode, device, stream);
+  return launch_synth_pair<float, BT32, RPT_PAIR32>(Cp, Cm, Fp, Fm, PLK_TABLES_M,
+                                                    PLK_TABLES_P, x, B, L, M, R, mode,
+                                                    device, stream);
 }
 
 int plk_synth_pair_f64(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_TABLE_ARGS,
                        const void* x, int B, int L, int M, int R, int mode, int device,
                        void* stream) {
-  return launch_pair<double, 2, 1, true>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P, x, B,
-                                         L, M, R, mode, device, stream);
+  return launch_synth_pair<double, BT64, RPT_PAIR64>(Cp, Cm, Fp, Fm, PLK_TABLES_M,
+                                                     PLK_TABLES_P, x, B, L, M, R, mode,
+                                                     device, stream);
 }
 
+// Analysis: the ring sum in nseg segments, ws the workspace of nseg - 1 partials.
 int plk_anal_pair_f32(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
-                      const void* x, int B, int L, int M, int R, int mode, int device,
-                      void* stream) {
-  return launch_pair<float, 4, 2, false>(Qp, Qm, A, Bo, PLK_TABLES_M, PLK_TABLES_P, x, B, L,
-                                         M, R, mode, device, stream);
+                      const void* x, int B, int L, int M, int R, int mode, void* ws,
+                      int nseg, int device, void* stream) {
+  return launch_anal_pair<float, PLK_A_PAIR32>(Qp, Qm, A, Bo, ws, PLK_TABLES_M, PLK_TABLES_P,
+                                               x, B, L, M, R, mode, nseg, device, stream);
 }
 
 int plk_anal_pair_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
-                      const void* x, int B, int L, int M, int R, int mode, int device,
-                      void* stream) {
-  return launch_pair<double, 2, 1, false>(Qp, Qm, A, Bo, PLK_TABLES_M, PLK_TABLES_P, x, B,
-                                          L, M, R, mode, device, stream);
+                      const void* x, int B, int L, int M, int R, int mode, void* ws,
+                      int nseg, int device, void* stream) {
+  return launch_anal_pair<double, PLK_A_PAIR64>(Qp, Qm, A, Bo, ws, PLK_TABLES_M,
+                                                PLK_TABLES_P, x, B, L, M, R, mode, nseg,
+                                                device, stream);
 }
 
-// Plain mode (K3/K4), one table set on all R rings. f32 data: batch tile 4, four rings
-// per thread; f64 data: batch tile 2, two rings.
+// Plain mode (K3/K4), one table set on all R rings.
 #define PLK_PLAIN_TABLE_ARGS                                                       \
   const void *a, const void *b, const void *g, const void *l0, const void *sv,     \
       const void *sk
@@ -479,29 +681,29 @@ int plk_anal_pair_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TAB
 int plk_synth_f32(const void* C, void* F, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
                   int L, int M, int R, int device, void* stream) {
   const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_synth<float, 4, 4, PLAIN>(C, nullptr, F, nullptr, t, t, x, B, L, M, R,
-                                          device, stream);
+  return launch_synth<float, BT32, RPT_PLAIN32, PLAIN>(C, nullptr, F, nullptr, t, t, x, B, L,
+                                                       M, R, device, stream);
 }
 
 int plk_synth_f64(const void* C, void* F, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
                   int L, int M, int R, int device, void* stream) {
   const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_synth<double, 2, 2, PLAIN>(C, nullptr, F, nullptr, t, t, x, B, L, M, R,
-                                           device, stream);
+  return launch_synth<double, BT64, RPT_PLAIN64, PLAIN>(C, nullptr, F, nullptr, t, t, x, B,
+                                                        L, M, R, device, stream);
 }
 
 int plk_anal_f32(const void* Q, void* A, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
-                 int L, int M, int R, int device, void* stream) {
+                 int L, int M, int R, void* ws, int nseg, int device, void* stream) {
   const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_anal<float, 4, 4, PLAIN>(Q, nullptr, A, nullptr, t, t, x, B, L, M, R,
-                                         device, stream);
+  return launch_anal<float, PLK_A_PLAIN32, PLAIN>(Q, nullptr, A, nullptr, ws, t, t, x, B, L,
+                                                  M, R, nseg, device, stream);
 }
 
 int plk_anal_f64(const void* Q, void* A, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
-                 int L, int M, int R, int device, void* stream) {
+                 int L, int M, int R, void* ws, int nseg, int device, void* stream) {
   const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_anal<double, 2, 2, PLAIN>(Q, nullptr, A, nullptr, t, t, x, B, L, M, R,
-                                          device, stream);
+  return launch_anal<double, PLK_A_PLAIN64, PLAIN>(Q, nullptr, A, nullptr, ws, t, t, x, B, L,
+                                                   M, R, nseg, device, stream);
 }
 
 }  // extern "C"

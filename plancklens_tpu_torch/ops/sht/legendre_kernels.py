@@ -12,11 +12,18 @@ functions run these wrappers for CUDA tensors and the twins for CPU tensors. The
 wrappers here take CUDA tensors only: anything else raises, and so does a failed build
 or launch.
 
+The analysis kernels K2/K4 split their ring sum over the card: `plan_segments` (plain
+Python, no CUDA call) chooses the number of ring segments NS from the call's shape and the
+card's SM count, the wrapper allocates the workspace of NS - 1 partial sums, and a second
+hand-written kernel adds the partials to the outputs in a fixed order. With NS = 1 the
+outputs are written directly and no second kernel runs.
+
 The shared library is compiled by nvcc from the checkout's sources at first use into
 `plancklens_tpu_torch/_build/`, named by a hash of the source and flags (both dtypes are
 always built), under a file lock, and bound with ctypes (plain C interface: a build
 takes seconds, where one that includes PyTorch's headers takes minutes).
 """
+import collections
 import ctypes
 import fcntl
 import hashlib
@@ -34,8 +41,28 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '
 DTYPES = ('f32', 'f64')
 
 # kernel launches since the last reset, one count per kernel (chip_smoke.py reads them to
-# show that the main path went through the kernels)
+# show that the main path went through the kernels). A call of `anal_pair`/`anal` counts
+# once, whether or not its ring sum takes a second pass.
 launches = {'synth_pair': 0, 'anal_pair': 0, 'synth': 0, 'anal': 0}
+# K1's launches by (mode, batch, 'f32' or 'f64'), reset with `launches`: the shapes a path
+# really runs it at
+synth_pair_shapes = {}
+# the segment plan of the last `anal_pair` and `anal` call
+last_plan = {}
+
+# (batch tile, rows of one ring pass) of the analysis kernels, by kind of grid and data
+# type; rows are rings of the recursion, warps x rings per thread of a block. They are
+# csrc/legendre_pair.cu's PLK_A_* block shapes, checked against the library at load.
+ANAL_TILE = {('pair', 'f32'): (4, 24), ('pair', 'f64'): (2, 24),
+             ('plain', 'f32'): (4, 64), ('plain', 'f64'): (2, 64)}
+# Blocks wanted for a split ring sum, in waves of one block an SM: the blocks differ in
+# length by the l range of their m-tile, and the short ones fill the tail of many waves.
+WAVES = 4
+# Most bytes of partial sums a call may allocate. One partial of the largest main-path
+# call (two outputs, batch 8, lmax 2048, complex64) is 0.50 GiB, of the HEALPix path's
+# (one output, batch 4, complex128) 0.25 GiB: 2 GiB allows 4 and 9 segments there, and
+# keeps the main path's peak (10.9 GiB before the split) far under 16 GiB.
+WORKSPACE_CAP = 2 * 2 ** 30
 
 _lib = None
 
@@ -43,6 +70,43 @@ _lib = None
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    synth_pair_shapes.clear()
+
+
+SegmentPlan = collections.namedtuple(
+    'SegmentPlan', 'nseg passes passes_per_seg rows_per_pass blocks workspace_bytes')
+
+
+def plan_segments(rows, L, M, B, batch_tile, rows_per_pass, nout, elem_size, sm_count,
+                  nseg=None, cap=WORKSPACE_CAP):
+    """How an analysis call splits its ring sum: a SegmentPlan.
+
+    rows: rings the recursion runs on (the northern half of a pair grid, every ring of a
+    plain one); the outputs are `nout` arrays (B, L, M) of `elem_size` bytes an element;
+    one block covers a batch tile, 32 m and the ring passes (`rows_per_pass` rows each) of
+    one segment. Without a split the grid is ceil(M/32) x ceil(B/batch_tile) blocks. The
+    plan takes the fewest segments that give WAVES x sm_count blocks, at most one per
+    pass and at most what `cap` bytes of partial sums allow (segment 0 adds into the
+    outputs, so NS segments need NS - 1 partials), every segment a whole number of passes
+    and none empty. `nseg` forces a count instead (clipped to the passes, and lowered to
+    the nearest count that leaves no segment empty)."""
+    passes = -(-rows // rows_per_pass)
+    base = -(-M // 32) * -(-B // batch_tile)
+    if nseg is None:
+        want = -(-WAVES * sm_count // base)
+        fit = 1 + cap // (nout * B * L * M * elem_size)
+        nseg = min(want, fit)
+    nseg = max(1, min(nseg, passes))
+    pps = -(-passes // nseg)
+    nseg = -(-passes // pps)
+    return SegmentPlan(nseg, passes, pps, rows_per_pass, base * nseg,
+                       (nseg - 1) * nout * B * L * M * elem_size)
+
+
+def segment_rows(plan, rows):
+    """[(first row, end row)] of each segment of `plan` over `rows` rings, in order."""
+    step = plan.passes_per_seg * plan.rows_per_pass
+    return [(s * step, min(rows, (s + 1) * step)) for s in range(plan.nseg)]
 
 
 def _nvcc():
@@ -89,15 +153,25 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ('plk_synth_pair_f32', 'plk_synth_pair_f64',
-                     'plk_anal_pair_f32', 'plk_anal_pair_f64'):
-            fn = getattr(lib, name)
-            fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 6 + [p]
-            fn.restype = i
-        for name in ('plk_synth_f32', 'plk_synth_f64', 'plk_anal_f32', 'plk_anal_f64'):
-            fn = getattr(lib, name)
-            fn.argtypes = [p] * 2 + [p] * 6 + [p] + [i] * 5 + [p]
-            fn.restype = i
+        # the analysis entry points take (workspace, segments) before (device, stream)
+        for name, extra in (('plk_synth_pair', []), ('plk_anal_pair', [p, i])):
+            for suffix in DTYPES:
+                fn = getattr(lib, '%s_%s' % (name, suffix))
+                fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 5 + extra + [i, p]
+                fn.restype = i
+        for name, extra in (('plk_synth', []), ('plk_anal', [p, i])):
+            for suffix in DTYPES:
+                fn = getattr(lib, '%s_%s' % (name, suffix))
+                fn.argtypes = [p] * 2 + [p] * 6 + [p] + [i] * 4 + extra + [i, p]
+                fn.restype = i
+        lib.plk_anal_tile.argtypes = [i, i]
+        lib.plk_anal_tile.restype = i
+        for (kind, suffix), (bt, rpp) in ANAL_TILE.items():
+            tile = lib.plk_anal_tile(int(kind == 'plain'), int(suffix == 'f64'))
+            if tile != (bt << 16 | rpp):
+                raise RuntimeError('the %s %s analysis kernel tiles (%d, %d), the planner '
+                                   'assumes (%d, %d)' % (kind, suffix, tile >> 16,
+                                                         tile & 0xffff, bt, rpp))
         _lib = lib
     return _lib
 
@@ -146,9 +220,12 @@ def _mode(spin, has_second):
     return 1 if has_second else (0 if spin == 0 else 2)
 
 
+def _suffix(dtype):
+    return 'f32' if dtype == torch.complex64 else 'f64'
+
+
 def _launch(kind, dtype, dev, *args):
-    suffix = 'f32' if dtype == torch.complex64 else 'f64'
-    fn = getattr(_load(), 'plk_%s_%s' % (kind, suffix))
+    fn = getattr(_load(), 'plk_%s_%s' % (kind, _suffix(dtype)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(*args, dev.index, ctypes.c_void_p(stream))
     if rc != 0:
@@ -156,9 +233,23 @@ def _launch(kind, dtype, dev, *args):
     launches[kind] += 1
 
 
-def _launch_pair(kind, a_p, a_m, o_p, o_m, t_m, t_p, B, L, M, R, mode, dev):
+def _launch_pair(kind, a_p, a_m, o_p, o_m, t_m, t_p, B, L, M, R, mode, dev, *extra):
     _launch(kind, a_p.dtype, dev, _ptr(a_p), _ptr(a_m), _ptr(o_p), _ptr(o_m),
-            *_tab_args(t_m), *_tab_args(t_p), _ptr(t_m['x']), B, L, M, R, mode)
+            *_tab_args(t_m), *_tab_args(t_p), _ptr(t_m['x']), B, L, M, R, mode, *extra)
+
+
+def _plan(kind, Q, rows, L, nout, nseg):
+    """The segment plan of an analysis call on Q (B, nrings, M) and its workspace of
+    nseg - 1 partial sums (nout, B, L, M), None for one segment."""
+    B, _, M = Q.shape
+    bt, rpp = ANAL_TILE['plain' if kind == 'anal' else 'pair', _suffix(Q.dtype)]
+    sms = torch.cuda.get_device_properties(Q.device).multi_processor_count
+    plan = plan_segments(rows, L, M, B, bt, rpp, nout, Q.element_size(), sms, nseg=nseg)
+    last_plan[kind] = plan
+    ws = None
+    if plan.nseg > 1:
+        ws = torch.empty((plan.nseg - 1, nout, B, L, M), dtype=Q.dtype, device=Q.device)
+    return plan, ws
 
 
 def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
@@ -177,17 +268,20 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
         _check_tables(t, dev, L, M, nh)
     Fp = torch.empty((B, nrings, M), dtype=Cp.dtype, device=dev)
     Fm = None if Cm is None else torch.empty_like(Fp)
-    _launch_pair('synth_pair', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings,
-                 _mode(spin, Cm is not None), dev)
+    mode = _mode(spin, Cm is not None)
+    _launch_pair('synth_pair', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings, mode, dev)
+    shape = (mode, B, _suffix(Cp.dtype))
+    synth_pair_shapes[shape] = synth_pair_shapes.get(shape, 0) + 1
     return Fp, Fm
 
 
-def anal_pair(Qp, Qm, spin, lmax, t_m, t_p):
+def anal_pair(Qp, Qm, spin, lmax, t_m, t_p, nseg=None):
     """K2: (A, Bc) = NS-pair analysis of Qp (with d_{m,-spin}) and Qm (d_{m,+spin}).
 
     Qp, Qm: (B, nrings, M) complex64/128 contiguous CUDA tensors, quadrature-weighted
     (Qm may be None). Returns (B, lmax+1, M) complex outputs, Bc None when Qm is None.
-    Deterministic: the ring sums are reduced in a fixed order."""
+    The ring sum runs in `plan_segments`' segments (`nseg` forces a count). Deterministic:
+    the ring sums are reduced in a fixed order at every level."""
     B, R, M = Qp.shape
     L = lmax + 1
     _check_data('Qp', Qp, None, (B, R, M))
@@ -198,8 +292,9 @@ def anal_pair(Qp, Qm, spin, lmax, t_m, t_p):
         _check_tables(t, dev, L, M, (R + 1) // 2)
     A = torch.empty((B, L, M), dtype=Qp.dtype, device=dev)
     Bc = None if Qm is None else torch.empty_like(A)
+    plan, ws = _plan('anal_pair', Qp, (R + 1) // 2, L, 1 if Qm is None else 2, nseg)
     _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R,
-                 _mode(spin, Qm is not None), dev)
+                 _mode(spin, Qm is not None), dev, _ptr(ws), plan.nseg)
     return A, Bc
 
 
@@ -218,18 +313,20 @@ def synth(C, nrings, t):
     return G
 
 
-def anal(Q, lmax, t):
+def anal(Q, lmax, t, nseg=None):
     """K4: A_lm = sum_j Q_jm d^l_{m,n}(theta_j) over every ring j of any grid (no mirror).
 
     Q: (B, nrings, M) complex64/128 contiguous CUDA tensor, quadrature-weighted; t: the
-    f64 device table set on all rings. Returns (B, lmax+1, M) complex. Deterministic: the
-    ring sums are reduced in a fixed order."""
+    f64 device table set on all rings. Returns (B, lmax+1, M) complex. The ring sum runs
+    in `plan_segments`' segments (`nseg` forces a count). Deterministic: the ring sums
+    are reduced in a fixed order at every level."""
     B, R, M = Q.shape
     L = lmax + 1
     _check_data('Q', Q, None, (B, R, M))
     dev = Q.device
     _check_tables(t, dev, L, M, R)
     A = torch.empty((B, L, M), dtype=Q.dtype, device=dev)
+    plan, ws = _plan('anal', Q, R, L, 1, nseg)
     _launch('anal', Q.dtype, dev, _ptr(Q), _ptr(A), *_tab_args(t), _ptr(t['x']),
-            B, L, M, R)
+            B, L, M, R, _ptr(ws), plan.nseg)
     return A

@@ -69,12 +69,36 @@ def _k(name, cat, ts, dur, corr):
     ('void anal_pair_kernel<float, 4, 1, 2>(float2 const*)', 'kernel', 'K2 anal_pair'),
     ('void synth_pair_kernel<double, 4, 1, 3>(double2 const*)', 'kernel', 'K3 synth'),
     ('void anal_pair_kernel<double, 4, 1, 3>(double2 const*)', 'kernel', 'K4 anal'),
+    ('void (anonymous namespace)::anal_pair_sum_kernel<float, 1>(float2*)', 'kernel',
+     'K2 anal_pair'),
+    ('void (anonymous namespace)::anal_pair_sum_kernel<double, 3>(double2*)', 'kernel',
+     'K4 anal'),
     ('void regular_fft<256u, EPT<16u>, 32u>(kernel_arguments_t)', 'kernel', 'cufft'),
     ('void at::native::vectorized_elementwise_kernel<4>', 'kernel', 'other kernels'),
     ('Memcpy DtoH (Device -> Pageable)', 'gpu_memcpy', 'copies'),
 ])
 def test_device_group(name, cat, group):
     assert hprof.device_group({'name': name, 'cat': cat}) == group
+
+
+def test_second_pass_counts_with_its_kernel():
+    """A split ring sum is two device rows, the analysis kernel and its second pass: both
+    fall into the kernel's group, in the main-path summary and the HEALPix one, and the
+    group's calls count the kernel's calls."""
+    k2 = 'void (anonymous namespace)::anal_pair_kernel<float, 4, 2, 1>(float2 const*)'
+    k2s = 'void (anonymous namespace)::anal_pair_sum_kernel<float, 1>(float2*)'
+    k4 = 'void (anonymous namespace)::anal_pair_kernel<double, 2, 2, 3>(double2 const*)'
+    k4s = 'void (anonymous namespace)::anal_pair_sum_kernel<double, 3>(double2*)'
+    rows = [_x(k2, 'kernel', 10, 100), _x(k2s, 'kernel', 110, 5),
+            _x(k2, 'kernel', 200, 100),                      # one segment: no second pass
+            _x(k4, 'kernel', 400, 300), _x(k4s, 'kernel', 700, 7)]
+    for window, fn in (('main_path', prof.summarize), ('healpix_path', hprof.summarize_path)):
+        out = fn([_x(window, 'user_annotation', 0, 1000)] + rows)
+        assert out['groups']['K2 anal_pair'] == {'s': pytest.approx(205e-6), 'calls': 2}
+        assert out['groups']['K4 anal'] == {'s': pytest.approx(307e-6), 'calls': 1}
+        assert list(out['groups']) == ['K4 anal', 'K2 anal_pair']
+    assert prof.is_second_pass({'name': k4s, 'cat': 'kernel'})
+    assert not prof.is_second_pass({'name': k4, 'cat': 'kernel'})
 
 
 def test_summarize_path_steps_groups_and_longitude():

@@ -11,10 +11,16 @@
 Spins 0-3, single transforms (Cm/Qm None), odd and even ring counts, mmax < lmax, batch 1
 and 3. The kernel wrappers refuse CPU tensors; the kernels themselves are held against
 the plain engine on a CUDA device by the `cuda`-marked test (and by chip_smoke.py).
+
+* the ring split of the analysis kernels K2/K4, as far as the CPU reaches: the segment
+  planner (`legendre_kernels.plan_segments`/`segment_rows`) at the shapes the paths use
+  and over a hypothesis sweep, and the split itself as a sum: the plain analysis of each
+  ring segment alone, added in segment order, equals the whole call to 1e-12 of max.
 """
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from plancklens_tpu.ops.sht import core as rcore, SHT as RSHT, gl_geometry as rgl
 from plancklens_tpu.ops.sht.pallas_kernel import (legendre_synth_pair_pallas,
@@ -212,6 +218,145 @@ def test_asymmetric_grid_not_ported():
         assert _err(PG, G) <= 1e-12 and _err(PC, C) <= 1e-12
 
 
+# ------------------------------------------------ the ring split of the analysis kernels
+SMS = 132                                     # SMs of an H100; the planner takes the count
+
+
+def _check_plan(plan, rows, L, M, B, bt, rpp, nout, esize, sms, cap):
+    """Segments cover every ring pass exactly once, in order, each a whole number of
+    passes and none empty; one segment needs no workspace; the partials fit the cap."""
+    segs = lk.segment_rows(plan, rows)
+    assert len(segs) == plan.nseg >= 1
+    assert plan.passes == -(-rows // rpp)
+    assert segs[0][0] == 0 and segs[-1][1] == rows
+    for (a, b), (a2, _) in zip(segs, segs[1:] + [(rows, None)]):
+        assert a < b == a2                                  # in order, adjacent, not empty
+        assert a % rpp == 0 and (b % rpp == 0 or b == rows)  # whole passes
+        assert -(-(b - a) // rpp) <= plan.passes_per_seg
+    assert sum(-(-(b - a) // rpp) for a, b in segs) == plan.passes
+    base = -(-M // 32) * -(-B // bt)
+    assert plan.blocks == base * plan.nseg
+    assert plan.workspace_bytes == (plan.nseg - 1) * nout * B * L * M * esize <= cap
+    if plan.passes == 1:
+        assert plan.nseg == 1
+    if sms is not None:                 # the planner's own count: no more than fill the card
+        assert plan.nseg <= max(1, -(-lk.WAVES * sms // base))
+
+
+# (rows, L, M, B, 'pair'/'plain', dtype, outputs): the shapes the paths run, and the
+# segment count expected on a 132-SM card
+PATH_SHAPES = [
+    (1537, 2049, 2049, 8, 'pair', 'f32', 2, 4),    # K2, QE grid of lmax 2048, two outputs
+    (1537, 2049, 2049, 8, 'pair', 'f32', 1, 5),
+    (1537, 2049, 2049, 4, 'pair', 'f32', 2, 8),
+    (1537, 2049, 2049, 4, 'pair', 'f32', 1, 9),
+    (8191, 2049, 2049, 4, 'plain', 'f64', 1, 5),   # K4, all rings of nside 2048
+    (48, 513, 513, 64, 'plain', 'f64', 1, 1),      # the exact pixel window's node grids
+    (48, 513, 513, 1, 'plain', 'f64', 1, 1),
+    (129, 257, 257, 3, 'pair', 'f32', 2, 6),       # the 257/258-ring checks at lmax 256
+    (129, 257, 257, 3, 'pair', 'f64', 2, 6),
+]
+
+
+@pytest.mark.parametrize('rows,L,M,B,kind,dt,nout,want', PATH_SHAPES)
+def test_segment_plan_at_path_shapes(rows, L, M, B, kind, dt, nout, want):
+    bt, rpp = lk.ANAL_TILE[kind, dt]
+    esize = 8 if dt == 'f32' else 16
+    plan = lk.plan_segments(rows, L, M, B, bt, rpp, nout, esize, SMS)
+    _check_plan(plan, rows, L, M, B, bt, rpp, nout, esize, SMS, lk.WORKSPACE_CAP)
+    assert plan.nseg == want
+    if rows >= 1537:                      # the table shapes fill the card twice at least
+        assert plan.blocks >= 2 * SMS
+    # a forced count is clipped to the passes and leaves no segment empty
+    for force in (1, 2, 3, 1000):
+        forced = lk.plan_segments(rows, L, M, B, bt, rpp, nout, esize, SMS, nseg=force)
+        _check_plan(forced, rows, L, M, B, bt, rpp, nout, esize, None, float('inf'))
+        assert forced.nseg <= min(force, forced.passes)
+        assert forced.nseg == 1 or forced.passes_per_seg == -(-forced.passes // force) \
+            or force > forced.passes
+
+
+@settings(max_examples=300, deadline=None)
+@given(rows=st.integers(1, 20000), lmax=st.integers(1, 4096), mfrac=st.floats(0.05, 1.),
+       B=st.integers(1, 96), kind=st.sampled_from(['pair', 'plain']),
+       dt=st.sampled_from(['f32', 'f64']), nout=st.integers(1, 2),
+       sms=st.integers(1, 264), cap_mib=st.integers(0, 8192))
+def test_segment_plan_sweep(rows, lmax, mfrac, B, kind, dt, nout, sms, cap_mib):
+    L, M = lmax + 1, max(1, int(mfrac * (lmax + 1)))
+    bt, rpp = lk.ANAL_TILE[kind, dt]
+    esize = 8 if dt == 'f32' else 16
+    cap = cap_mib * 2 ** 20
+    plan = lk.plan_segments(rows, L, M, B, bt, rpp, nout, esize, sms, cap=cap)
+    _check_plan(plan, rows, L, M, B, bt, rpp, nout, esize, sms, cap)
+
+
+def _segment_mask(nrings, a, b, pair):
+    """1 on the rings of the segment of recursion rows [a, b): those rows and, on a pair
+    grid, their mirror rings nrings - 1 - j (the equator row of an odd grid has none)."""
+    keep = np.zeros(nrings)
+    keep[a:b] = 1.
+    if pair:
+        n_s = nrings - (nrings + 1) // 2
+        js = np.arange(a, min(b, n_s))
+        keep[nrings - 1 - js] = 1.
+    return torch.from_numpy(keep)[None, :, None]
+
+
+@pytest.mark.parametrize('nrings', [143, 144])
+@pytest.mark.parametrize('spin', [0, 1, 2, 3])
+def test_ring_segments_add_up_pair(nrings, spin):
+    """K2's split on the CPU: the plain pair analysis of each segment's rings (zero
+    weights elsewhere), added in order, is the whole call to 1e-12 of max in f64; ragged
+    last pass, equator ring and mirror rows included."""
+    lmax = 24
+    rng = np.random.RandomState(100 * spin + nrings)
+    theta = pgl(nrings - 1).theta
+    t_m, t_p = pcore.pair_tables(lmax, lmax, spin, theta, None, 'cpu')
+    Q, Qm = _t(_c(rng, (2, nrings, lmax + 1))), _t(_c(rng, (2, nrings, lmax + 1)))
+    whole = pcore.legendre_anal_pair_plain(Q, Qm, spin, lmax, t_m, t_p)
+    nh = (nrings + 1) // 2
+    bt, rpp = lk.ANAL_TILE['pair', 'f64']
+    for force in (None, 2):
+        plan = lk.plan_segments(nh, lmax + 1, lmax + 1, 2, bt, rpp, 2, 16, SMS, nseg=force)
+        assert plan.nseg == (3 if force is None else 2)
+        total, seen = [0., 0.], torch.zeros(1, nrings, 1, dtype=torch.float64)
+        for a, b in lk.segment_rows(plan, nh):
+            keep = _segment_mask(nrings, a, b, True)
+            seen += keep
+            part = pcore.legendre_anal_pair_plain(Q * keep, Qm * keep, spin, lmax, t_m, t_p)
+            total = [x + y for x, y in zip(total, part)]
+        assert torch.equal(seen, torch.ones_like(seen))      # every ring in one segment
+        assert _err(total[0], whole[0]) <= 1e-12 and _err(total[1], whole[1]) <= 1e-12
+
+
+@pytest.mark.parametrize('nrings', [191, 192])
+@pytest.mark.parametrize('n', [-2, 0, 3])
+def test_ring_segments_add_up_plain(nrings, n):
+    """K4's split on the CPU, on sliced table sets: the plain analysis of each segment's
+    rings with that segment's rows of the tables, added in order, is the whole call."""
+    lmax = 20
+    rng = np.random.RandomState(10 * n + nrings)
+    theta = np.sort(rng.uniform(1e-3, np.pi - 1e-3, nrings))
+    t = pcore.full_tables(lmax, lmax, n, theta, None, 'cpu')
+    Q = _t(_c(rng, (3, nrings, lmax + 1)))
+    whole = pcore.legendre_anal_plain(Q, lmax, t)
+    bt, rpp = lk.ANAL_TILE['plain', 'f64']
+    plan = lk.plan_segments(nrings, lmax + 1, lmax + 1, 3, bt, rpp, 1, 16, SMS)
+    assert plan.nseg == 3
+    total = 0.
+    for a, b in lk.segment_rows(plan, nrings):
+        ts = dict(t, seed_v=t['seed_v'][a:b], seed_k=t['seed_k'][a:b], x=t['x'][a:b])
+        total = total + pcore.legendre_anal_plain(Q[:, a:b], lmax, ts)
+    assert _err(total, whole) <= 1e-12
+
+
+def test_launch_counts_reset_together():
+    lk.synth_pair_shapes[(1, 8, 'f32')] = 3
+    lk.launches['synth_pair'] += 3
+    lk.reset_launches()
+    assert lk.synth_pair_shapes == {} and set(lk.launches.values()) == {0}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -220,10 +365,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('nrings', [65, 66])
+@pytest.mark.parametrize('nrings', [65, 66, 513])
 def test_kernels_match_plain_on_card(cuda_device, nrings):
     """K1/K2 against the plain engine on the card: f32 <= 1e-5, f64 <= 1e-12 of max; K2
-    bitwise reproducible."""
+    bitwise reproducible. 513 rings are 257 recursion rows, 11 ring passes: the ring sum
+    is split into segments there, and also run forced into one."""
     lmax = 64
     theta = pgl(nrings - 1).theta
     gen = torch.Generator(device=cuda_device).manual_seed(nrings)
@@ -245,7 +391,14 @@ def test_kernels_match_plain_on_card(cuda_device, nrings):
                 assert all(_err(a.cpu(), b.cpu()) <= tol
                            for a, b in zip(ka, pa) if b is not None)
                 # deterministic: the ring sums are reduced in a fixed order
-                assert torch.equal(lk.anal_pair(Q, qm, spin, lmax, t_m, t_p)[0], ka[0])
+                again = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p)
+                assert all(torch.equal(a, b) for a, b in zip(again, ka) if b is not None)
+                if nrings == 513:
+                    assert lk.last_plan['anal_pair'].nseg > 1
+                    one = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p, nseg=1)
+                    assert lk.last_plan['anal_pair'].nseg == 1
+                    assert all(_err(a.cpu(), b.cpu()) <= tol
+                               for a, b in zip(one, pa) if b is not None)
 
 
 @pytest.mark.cuda
