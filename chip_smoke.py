@@ -13,16 +13,18 @@ entry path at Planck's nside 2048. Phases:
   2 kernels     K1/K2 vs plain version: spins 0-3, odd/even rings, lmax 256, f32
                 (<= 1e-5 of max) and f64 (<= 1e-12 of max), the analysis with its ring sum
                 split into segments (NS > 1, as the planner has it there) and forced into
-                one (NS = 1); lmax 2048 on the 3073-ring QE grid, spin 1, f32, batch 4 and
-                8 (<= 1e-5 of max), times with NS, blocks and workspace, the batch-4 to
-                batch-8 time ratio of K2, and the analysis bitwise equal from run to run
+                one (NS = 1), K1 also at batch 5 (not a multiple of a batch tile) and with
+                mmax 128 (M not a multiple of 32); lmax 2048 on the 3073-ring QE grid,
+                spin 1, f32, batch 4 and 8 (<= 1e-5 of max), times with K1's block shape
+                and K2's NS, blocks and workspace, the batch-4 to batch-8 time ratios of
+                K1 and K2, and both bitwise equal from run to run
   2b plain      K3/K4 vs plain version at lmax 256 on 201 and 202 random rings (one within
                 1e-3 of each pole) and the 255 rings of HEALPix nside 64, n = -3..3,
                 mmax = lmax and mmax < lmax, f32 (<= 1e-5) and f64 (<= 1e-12 of max), K4
                 with NS > 1 and NS = 1; lmax 2048 on the 2047 north-cap rings of nside
-                2048, n = -2, f32, batch 4 and 8 (<= 1e-5 of max), K4 bitwise equal from
-                run to run; times on all 8191 rings at batch 4, K4 bitwise equal from run
-                to run there too
+                2048, n = -2, f32, batch 4 and 8 (<= 1e-5 of max), K3/K4 bitwise equal
+                from run to run; times on all 8191 rings at batch 4 with K3's block shape,
+                K3/K4 bitwise equal from run to run there too
   3 sht         SHT round trips at lmax 2048, spin 0 and 2, f32 (<= 1e-4 of max)
   4 main path   the slice at lmax 2048: finite outputs of the expected shapes, K1/K2
                 launched, f32 vs f64 qlm of sim 4 (ptt, relative rms <= 1e-3), and the
@@ -151,11 +153,10 @@ def main():
     so = lk.build()
     lk._load()
     phase(1, 'kernels built in %.1fs: %s' % (time.perf_counter() - t0, os.path.relpath(so, HERE)))
-    with open(so[:-3] + '.log') as f:
-        for line in f:
-            if 'registers' in line or ('spill stores' in line
-                                         and not line.strip().startswith('0 bytes')):
-                print('    ' + line.strip())
+    for k in lk.build_report():
+        print('    %s<%s>: %d registers, %d/%d bytes spill stores/loads'
+              % (k['kernel'], ', '.join(map(str, k['args'])), k['registers'],
+                 k['spill_stores'], k['spill_loads']))
 
     # ---------------------------------------------------------------- 2 kernels
     gen = torch.Generator(device=dev).manual_seed(2048)
@@ -168,6 +169,11 @@ def main():
         pl = lk.last_plan[kind]
         return 'NS %d, %d blocks, workspace %.0f MiB' % (pl.nseg, pl.blocks,
                                                           pl.workspace_bytes / 2 ** 20)
+
+    def shape(kind, B, dt='f32'):
+        """The synthesis block shape a call of batch B runs, for the phase lines."""
+        bt, rpt, nws, minb = lk.synth_shape(kind, dt, B)
+        return '%d maps x %d rings x %d warps, %d block(s) an SM' % (bt, rpt, nws, minb)
 
     worst = {'synth_pair': 0., 'anal_pair': 0.}
     nsegs = set()
@@ -184,6 +190,19 @@ def main():
                 for cm, qm in ((Cm, Qm), (None, None)):
                     ks = lk.synth_pair(C, cm, spin, nrings, t_m, t_p)
                     ps = core.legendre_synth_pair_plain(C, cm, spin, nrings, t_m, t_p)
+                    # K1's ragged shapes: batch 5 (no multiple of a batch tile) and mmax
+                    # 128 (M = 129, no multiple of 32); lmax 256 is no multiple of LCS
+                    C5 = crandn((5, lmax + 1, lmax + 1), cdt)
+                    C5m = None if cm is None else crandn((5, lmax + 1, lmax + 1), cdt)
+                    h_m, h_p = core.pair_tables(lmax, 128, spin, theta, None, dev)
+                    Ch = C[:, :, :129].contiguous()
+                    Chm = None if cm is None else cm[:, :, :129].contiguous()
+                    er = max(rel_max(a, b) for k_, p_ in (
+                        (lk.synth_pair(C5, C5m, spin, nrings, t_m, t_p),
+                         core.legendre_synth_pair_plain(C5, C5m, spin, nrings, t_m, t_p)),
+                        (lk.synth_pair(Ch, Chm, spin, nrings, h_m, h_p),
+                         core.legendre_synth_pair_plain(Ch, Chm, spin, nrings, h_m, h_p)))
+                        for a, b in zip(k_, p_) if b is not None)
                     pa = core.legendre_anal_pair_plain(Q, qm, spin, lmax, t_m, t_p)
                     ea = 0.
                     for nseg in (None, 1):     # the planner's segments (6 there), and one
@@ -194,14 +213,15 @@ def main():
                         ea = max([ea] + [rel_max(a, b) for a, b in zip(ka, pa)
                                          if b is not None])
                     torch.cuda.synchronize()
-                    es = max(rel_max(a, b) for a, b in zip(ks, ps) if b is not None)
+                    es = max([er] + [rel_max(a, b) for a, b in zip(ks, ps) if b is not None])
                     check(es <= tol and ea <= tol, 'kernel vs plain at lmax %d, %d rings, '
-                          '%s, spin %d: synth %.2e anal %.2e > %.0e'
-                          % (lmax, nrings, cdt, spin, es, ea, tol))
+                          '%s, spin %d: synth %.2e (batch 5 and mmax 128: %.2e) anal %.2e '
+                          '> %.0e' % (lmax, nrings, cdt, spin, es, er, ea, tol))
                     worst['synth_pair'] = max(worst['synth_pair'], es)
                     worst['anal_pair'] = max(worst['anal_pair'], ea)
-    phase(2, 'kernel vs plain at lmax 256, spins 0-3, 257/258 rings, f32 and f64, K2 in %s '
-             'ring segments: worst synth %.2e, anal %.2e of max'
+    phase(2, 'kernel vs plain at lmax 256, spins 0-3, 257/258 rings, f32 and f64, K1 at batch '
+             '3 and 5 and mmax 256 and 128, K2 in %s ring segments: worst synth %.2e, anal '
+             '%.2e of max'
           % ('/'.join(map(str, sorted(nsegs))), worst['synth_pair'], worst['anal_pair']))
 
     geom = gl_geometry(3 * LMAX // 2)          # the QE grid of lmax 2048: 3073 x 6250
@@ -211,8 +231,11 @@ def main():
     for B in (4, 8):
         C = crandn((B, LMAX + 1, LMAX + 1), torch.complex64)
         Cm = crandn((B, LMAX + 1, LMAX + 1), torch.complex64)
-        lk.synth_pair(C, Cm, 1, nr, t_m, t_p)                                # warm-up
+        F0 = lk.synth_pair(C, Cm, 1, nr, t_m, t_p)                           # warm-up
         ms_s, (Fp, Fm) = cuda_ms(lambda: lk.synth_pair(C, Cm, 1, nr, t_m, t_p), 3)
+        check(torch.equal(F0[0], Fp) and torch.equal(F0[1], Fm),
+              'synth_pair is not deterministic')
+        del F0
         w = torch.as_tensor(geom.weight, dtype=torch.float32, device=dev)[:, None]
         Qp, Qm = (Fp * w).contiguous(), (Fm * w).contiguous()
         A0, B0 = lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p)
@@ -229,13 +252,16 @@ def main():
         check(es <= 1e-5 and ea <= 1e-5, 'kernel vs plain at lmax 2048, batch %d: synth '
               '%.2e anal %.2e of max > 1e-5' % (B, es, ea))
         stats[B] = dict(synth=(ms_s, pms_s, abs_s, es), anal=(ms_a, pms_a, abs_a, ea))
-        phase(2, 'lmax 2048, %d x %d grid, spin 1, f32, batch %d: synth %.3f ms (plain '
-              '%.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e of max)'
-              % (nr, geom.nphi, B, ms_s, pms_s, es, ms_a, split('anal_pair'), pms_a, ea))
+        phase(2, 'lmax 2048, %d x %d grid, spin 1, f32, batch %d: synth %.3f ms (block shape '
+              '%s; plain %.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e of '
+              'max), both bitwise equal on a second run'
+              % (nr, geom.nphi, B, ms_s, shape('pair', B), pms_s, es, ms_a, split('anal_pair'),
+                 pms_a, ea))
         del C, Cm, Fp, Fm, Qp, Qm, A, Bc, A0, B0, Pp, Pm, PA, PB
     torch.cuda.empty_cache()
-    phase(2, 'K2 anal_pair, batch 4 / batch 8 time ratio: %.4f'
-          % (stats[4]['anal'][0] / stats[8]['anal'][0]))
+    phase(2, 'batch 4 / batch 8 time ratio: K1 synth_pair %.4f, K2 anal_pair %.4f'
+          % (stats[4]['synth'][0] / stats[8]['synth'][0],
+             stats[4]['anal'][0] / stats[8]['anal'][0]))
     # bounds at the batch-8 shapes timed above: both recursions on the 1537 northern
     # rings, four accumulators (north/south of each leg) per map
     B, L, nh = 8, LMAX + 1, (nr + 1) // 2
@@ -289,8 +315,10 @@ def main():
     t = core.full_tables(LMAX, LMAX, -2, th_cap, None, dev)
     for B in (4, 8):
         C = crandn((B, LMAX + 1, LMAX + 1), torch.complex64)
-        lk.synth(C, ncap, t)                                                 # warm-up
+        G0 = lk.synth(C, ncap, t)                                            # warm-up
         ms_s, G = cuda_ms(lambda: lk.synth(C, ncap, t), 3)
+        check(torch.equal(G0, G), 'K3 synth is not deterministic')
+        del G0
         A0 = lk.anal(G, LMAX, t)
         ms_a, A = cuda_ms(lambda: lk.anal(G, LMAX, t), 3)
         check(torch.equal(A0, A), 'K4 anal is not deterministic')
@@ -300,8 +328,10 @@ def main():
         check(es <= 1e-5 and ea <= 1e-5, 'K3/K4 vs plain at lmax 2048 on %d cap rings, batch '
               '%d: synth %.2e anal %.2e of max > 1e-5' % (ncap, B, es, ea))
         phase(2, '(2b) lmax 2048, %d north-cap rings of nside %d, n -2, f32, batch %d: synth '
-                 '%.3f ms (plain %.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e '
-                 'of max)' % (ncap, NSIDE, B, ms_s, pms_s, es, ms_a, split('anal'), pms_a, ea))
+                 '%.3f ms (block shape %s; plain %.1f ms, %.2e of max), anal %.3f ms (%s; '
+                 'plain %.1f ms, %.2e of max), both bitwise equal on a second run'
+              % (ncap, NSIDE, B, ms_s, shape('plain', B), pms_s, es, ms_a, split('anal'), pms_a,
+                 ea))
         del C, G, A0, A, PG, PA
     del t
     # all 8191 rings, batch 4, n = -2: phase 5b's shape (uncached, as phase 5b builds its own)
@@ -310,16 +340,19 @@ def main():
     full = {}
     for cdt in (torch.complex64, torch.complex128):
         C = crandn((B, L, L), cdt)
-        lk.synth(C, R, t)
+        G0 = lk.synth(C, R, t)
         ms_s, G = cuda_ms(lambda: lk.synth(C, R, t), 2)
+        check(torch.equal(G0, G), 'K3 synth on all %d rings is not deterministic' % R)
+        del G0
         A0 = lk.anal(G, LMAX, t)
         ms_a, A = cuda_ms(lambda: lk.anal(G, LMAX, t), 2)
         check(torch.equal(A0, A), 'K4 anal on all %d rings is not deterministic' % R)
         del A0
         full[cdt] = (ms_s, ms_a)
-        phase(2, '(2b) lmax 2048, all %d rings of nside %d, n -2, %s, batch %d: synth %.3f ms, '
-                 'anal %.3f ms (%s), bitwise equal on a second run'
-              % (R, NSIDE, cdt, B, ms_s, ms_a, split('anal')))
+        phase(2, '(2b) lmax 2048, all %d rings of nside %d, n -2, %s, batch %d: synth %.3f ms '
+                 '(block shape %s), anal %.3f ms (%s), both bitwise equal on a second run'
+              % (R, NSIDE, cdt, B, ms_s, shape('plain', B, 'f32' if cdt == torch.complex64
+                                               else 'f64'), ms_a, split('anal')))
     # phase 5b's shape (f64): the kernels against their plain versions, timed
     pms_s, PG = cuda_ms(lambda: core.legendre_synth_plain(C, t), 1)
     pms_a, PA = cuda_ms(lambda: core.legendre_anal_plain(G, LMAX, t), 1)

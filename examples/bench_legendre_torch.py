@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-r"""Time the Legendre analysis kernels K2 `anal_pair` and K4 `anal` alone on one CUDA device:
+r"""Time the Legendre kernels K1-K4 alone on one CUDA device:
 
     python examples/bench_legendre_torch.py [--reps 3] [--sweep] [--ptxas] [--json bench_legendre.json]
 
@@ -8,8 +8,12 @@ holds K1-K4 against their plain torch twins at lmax 256 (f32 <= 1e-5, f64 <= 1e-
 257 rings for the pair kernels, 201 random rings for the plain ones; the analysis kernels
 once with the planner's ring segments and once forced to one segment), then times, with
 CUDA events, `--reps` launches after one warm-up, without the twins (they take seconds at
-these sizes; ten times the launches at the pixel-window shape, which takes ~2 ms):
+these sizes; ten times the launches at the pixel-window shape, which takes ~1 ms):
 
+  K1  spin-1 pair (mode 1), f32, lmax 2048 on the 3073-ring QE grid, batch 8 and batch 4,
+      and spin 0 with one input (mode 0) at batch 4: the main path's K1 shapes;
+  K3  n = -2, f64, lmax 2048 on all 8191 rings of HEALPix nside 2048, batch 4: the HEALPix
+      path's;
   K2  spin-1 pair, f32, lmax 2048 on the 3073-ring QE grid, batch 4 and batch 8;
   K4  n = -2, f64, lmax 2048 on all 8191 rings of HEALPix nside 2048, batch 4;
   K4  n = 2, f64, lmax 512 on the 48 node rings of the exact pixel window of nside 128
@@ -17,9 +21,12 @@ these sizes; ten times the launches at the pixel-window shape, which takes ~2 ms
 
 Every timed shape is run twice and must be bitwise equal; where the planner splits the
 rings, the result is also held against the one-segment result (f32 <= 1e-5, f64 <= 1e-12
-of max). `--sweep` also times the two lmax-2048 shapes with the ring sum forced into 1, 2,
-4, 8 and 16 segments. One line per shape, each with the card's name and power limit; the last
-line of standard output is one JSON object with the same numbers. Raises without a card.
+of max). `--sweep` also times the lmax-2048 analysis shapes with the ring sum forced
+into 1, 2, 4, 8 and 16 segments. `--ptxas` prints the registers and spills of every
+instantiation of the synthesis and analysis kernels (`legendre_kernels.ptxas_report`).
+One line per shape, each with the card's name and power limit (and the block shape of a
+synthesis); the last line of standard output is one JSON object with the same numbers.
+Raises without a card.
 """
 import argparse
 import json
@@ -64,7 +71,8 @@ def main():
     p.add_argument('--sweep', action='store_true',
                    help='also time the lmax-2048 shapes at forced segment counts')
     p.add_argument('--ptxas', action='store_true',
-                   help="print the compiler's register and spill report of the analysis kernels")
+                   help="print the compiler's register and spill report of the synthesis and "
+                        "analysis kernels")
     p.add_argument('--json', default=None, help='also write the result object to this file')
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -82,19 +90,11 @@ def main():
     lk._load()
     print('built in %.1f s | %s' % (time.perf_counter() - t0, smi), flush=True)
     if args.ptxas:
-        # one line a kernel: the mangled name's template arguments (I<type>Li<n>E...), its
-        # registers and its spills
-        with open(lk.library_path()[:-3] + '.log') as f:
-            name = None
-            for line in f:
-                if 'Compiling entry function' in line:
-                    name = line.split('anal_pair_kernel')[1].split('EEv')[0] \
-                        if 'anal_pair_kernel' in line else None
-                elif name and 'spill' in line:
-                    spills = line.strip()
-                elif name and 'registers' in line:
-                    print('    anal_pair_kernel<%s>: %s; %s'
-                          % (name, line.split(':', 1)[1].strip(), spills))
+        for k in lk.build_report():
+            if k['kernel'] in ('synth_pair_kernel', 'anal_pair_kernel'):
+                print('    %s<%s>: %d registers, %d bytes stack, %d/%d bytes spill stores/loads'
+                      % (k['kernel'], ', '.join(map(str, k['args'])), k['registers'],
+                         k['stack'], k['spill_stores'], k['spill_loads']))
     gen = torch.Generator(device=dev).manual_seed(256)
 
     def crandn(shape, cdt):
@@ -151,22 +151,33 @@ def main():
     # ------------------------------------------------------------------ the timed shapes
     results = []
 
-    def timed(label, kind, call, tol, sweep, reps=args.reps):
-        """Warm up, time, check run-to-run equality and agreement with one segment."""
+    def timed(label, kind, call, tol, sweep, reps=args.reps, shape=None):
+        """Warm up, time, check run-to-run equality and, for a split ring sum, agreement
+        with one segment. `call(nseg)` returns a tuple of outputs; the synthesis calls
+        ignore `nseg` and name their block shape (`legendre_kernels.synth_shape`)."""
         first = call(None)
         mean, best, out = event_ms(lambda: call(None), reps)
         for a, b in zip(first, out):
             if not torch.equal(a, b):
                 raise RuntimeError('%s: two runs differ' % label)
-        row = dict(shape=label, kernel=kind, ms=mean, ms_min=best, card=smi, **plan_of(kind))
-        if row['nseg'] > 1:
+        row = dict(shape=label, kernel=kind, ms=mean, ms_min=best, card=smi)
+        note = ''
+        if shape is not None:
+            row['block_shape'] = shape
+            note = ' | %d maps x %d rings x %d warps, %d block(s) an SM' % shape
+        if kind in ('anal_pair', 'anal'):
+            row.update(plan_of(kind))
+            note = ' | NS %d, %d blocks, workspace %.0f MiB' % (
+                row['nseg'], row['blocks'], row['workspace_mib'])
+        if row.get('nseg', 1) > 1:
             one = call(1)
             row['vs_one_segment'] = max(rel_max(a, b) for a, b in zip(out, one))
             if not row['vs_one_segment'] <= tol:
                 raise RuntimeError('%s: %d segments vs one: %.2e > %.0e'
                                    % (label, row['nseg'], row['vs_one_segment'], tol))
+            note += ', %.1e of max from one segment' % row['vs_one_segment']
             del one
-        if sweep:
+        if sweep and 'nseg' in row:
             row['sweep'] = {}
             n = 1
             while n <= 16:
@@ -176,29 +187,42 @@ def main():
                                                     got['blocks'], got['workspace_mib'])
                 n *= 2
         results.append(row)
-        print('%s: %.3f ms (min %.3f) | NS %d, %d blocks, workspace %.0f MiB%s | %s' % (
-            label, mean, best, row['nseg'], row['blocks'], row['workspace_mib'],
-            ', %.1e of max from one segment' % row['vs_one_segment']
-            if 'vs_one_segment' in row else '', smi), flush=True)
+        print('%s: %.3f ms (min %.3f)%s | %s' % (label, mean, best, note, smi), flush=True)
         for k, v in row.get('sweep', {}).items():
             print('    forced NS %s: %.3f ms, %d blocks, workspace %.0f MiB' % ((k,) + v))
         return row
 
     geom = gl_geometry(3 * LMAX // 2)                 # the QE grid of lmax 2048: 3073 rings
+    nr = geom.nrings
     t_m, t_p = core.pair_tables(LMAX, LMAX, 1, geom.theta, None, dev)
     for B in (8, 4):
-        Qp = crandn((B, geom.nrings, LMAX + 1), torch.complex64)
-        Qm = crandn((B, geom.nrings, LMAX + 1), torch.complex64)
-        timed('K2 anal_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d'
-              % (LMAX, geom.nrings, B), 'anal_pair',
-              lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p, nseg=nseg),
+        C, Cm = (crandn((B, LMAX + 1, LMAX + 1), torch.complex64) for _ in range(2))
+        timed('K1 synth_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d' % (LMAX, nr, B),
+              'synth_pair', lambda nseg: lk.synth_pair(C, Cm, 1, nr, t_m, t_p), 1e-5, False,
+              shape=lk.synth_shape('pair', 'f32', B))
+        del C, Cm
+        Qp, Qm = (crandn((B, nr, LMAX + 1), torch.complex64) for _ in range(2))
+        timed('K2 anal_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d' % (LMAX, nr, B),
+              'anal_pair', lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p, nseg=nseg),
               1e-5, args.sweep)
         del Qp, Qm
     del t_m, t_p
+    t_0, _ = core.pair_tables(LMAX, LMAX, 0, geom.theta, None, dev)
+    C = crandn((4, LMAX + 1, LMAX + 1), torch.complex64)
+    timed('K1 synth_pair, spin 0, one input, f32, lmax %d, %d rings, batch 4' % (LMAX, nr),
+          'synth_pair', lambda nseg: lk.synth_pair(C, None, 0, nr, t_0, t_0)[:1], 1e-5, False,
+          shape=lk.synth_shape('pair', 'f32', 4))
+    del C, t_0
     torch.cuda.empty_cache()
 
     hgeom = HealpixGeometry(NSIDE)
     t = core.full_tables(LMAX, LMAX, -2, hgeom.theta, None, dev)
+    C = crandn((4, LMAX + 1, LMAX + 1), torch.complex128)
+    timed('K3 synth, n -2, f64, lmax %d, %d rings, batch 4' % (LMAX, hgeom.nrings), 'synth',
+          lambda nseg: (lk.synth(C, hgeom.nrings, t),), 1e-12, False,
+          shape=lk.synth_shape('plain', 'f64', 4))
+    del C
+    torch.cuda.empty_cache()
     Q = crandn((4, hgeom.nrings, LMAX + 1), torch.complex128)
     timed('K4 anal, n -2, f64, lmax %d, %d rings, batch 4' % (LMAX, hgeom.nrings), 'anal',
           lambda nseg: (lk.anal(Q, LMAX, t, nseg=nseg),), 1e-12, args.sweep)
@@ -213,10 +237,11 @@ def main():
           lambda nseg: (lk.anal(Gm, 512, t, nseg=nseg),), 1e-12, False,
           reps=10 * args.reps)              # a short kernel: more launches for a steady mean
 
-    k2 = [r['ms'] for r in results if r['kernel'] == 'anal_pair']
-    print('K2 batch 4 / batch 8 time ratio: %.4f | %s' % (k2[1] / k2[0], smi))
-    out = {'card': smi, 'reps': args.reps,
-           'k2_batch4_over_batch8': k2[1] / k2[0], 'shapes': results}
+    out = {'card': smi, 'reps': args.reps, 'shapes': results}
+    for k, kind in (('k1', 'synth_pair'), ('k2', 'anal_pair')):
+        b8, b4 = [r['ms'] for r in results if r['kernel'] == kind][:2]
+        out['%s_batch4_over_batch8' % k] = b4 / b8
+        print('%s batch 4 / batch 8 time ratio: %.4f | %s' % (k.upper(), b4 / b8, smi))
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, 'w') as f:

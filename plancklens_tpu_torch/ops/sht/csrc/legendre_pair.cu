@@ -17,16 +17,36 @@
 // What bounds them on the H100: not HBM. Per (l, ring, m) the work is an f64 recursion
 // step of ~10 operations per recursion and 2 multiply-adds per map in the data type
 // (real/imag part), per hemisphere in the pair modes; the coefficients (synthesis) and
-// recursion tables are re-read from L1/L2 at every l step, and the Fourier modes
-// (analysis) stay in registers. At the main path's shapes (lmax 2048, 1537 northern
-// rings, 2049 m, 8 maps) the pair modes' arithmetic is bound by FP32 throughput at ~6 ms,
-// the plain mode at HEALPix shapes (8191 rings, 4 maps, f64) by FP64 at ~11 ms; the kernels
-// take many times that (PERF.md has the times). With 128 registers a thread one
-// 512-thread block fills an SM, so latency hiding and L1 load traffic bound the synthesis
-// (K1/K3). The plain mode does one recursion for a batch tile of maps, so the f64
-// recursion weighs as much as the accumulate there; its synthesis takes four rings per
-// thread (f32) where the pair modes take two, since it keeps a quarter of their
-// accumulators.
+// recursion tables are read again at every l step, and the Fourier modes (analysis) stay
+// in registers. At the main path's shapes (lmax 2048, 1537 northern rings, 2049 m, 8 maps)
+// the pair modes' arithmetic is bound by FP32 throughput at ~6 ms, the plain mode at
+// HEALPix shapes (8191 rings, 4 maps, f64) by FP64 at ~11 ms; the kernels take a few
+// times that (PERF.md has the times).
+//
+// What bounds the synthesis (K1/K3), and what its design does about it. Each thread owns
+// (ring, m) points and writes each output element once, so nothing is reduced across
+// threads; a step is the recursion of RPT rings and the multiply-adds of BT maps, and its
+// time is latency and instruction issue: one block of 8 warps fills an SM (150 to 250
+// registers a thread), so the independent work inside a thread is what hides latency.
+//   * grid (ring tile, batch tile, m-tile) with the m-tile slowest: the ~132 blocks in
+//     flight share one m-tile's coefficient and table columns (a few MB) through L2, so
+//     C and the tables come from HBM about once a call; the low-m tiles, whose l loop is
+//     longest, start first and the short ones fill the tail;
+//   * a batch tile of 4 maps (8 above batch 4: the wide shape) runs the f64 recursion once
+//     for all of them;
+//   * several rings a thread (3 in the f32 pair modes, 6 on plain grids in f64; PLK_S_*
+//     below): their recursions are independent chains that overlap each other's latency;
+//   * the coefficient rows of the batch tile and the table rows of the next LCS l steps
+//     are staged into shared memory by cp.async while the current LCS compute, two
+//     buffers in turn and one barrier a chunk: every warp of a block needs the same rows,
+//     and no step waits for its loads;
+//   * the effective value d 2^(S k) is one multiplication by an exact power of two
+//     (deff_mul), not a call of ldexp, a library routine with branches that costs about
+//     a third of a step;
+//   * the l loop inside a chunk is unrolled twice, so that the loads of the next step
+//     are issued while this one computes.
+// What is left is issue: counting its instructions, a step of the f32 pair mode 1 issues
+// in about half the time it takes (PERF.md).
 //
 // What bounds the analysis (K2/K4), and what its design does about it. Each l step of a
 // block is latency, not arithmetic: table rows to fetch, a chain of dependent f64
@@ -73,9 +93,10 @@
 // type. HEALPix's polar rings (theta = 4.0e-4 at nside 2048) seed far below f64's range;
 // the exponent count k of the scaled recursion carries them, north and south alike.
 //
-// Layout of the work. Synthesis: one thread per (ring, m) keeps the recursion state and
-// the outputs of a batch tile in registers; threads lie along m so that the reads of
-// C[b, l, m..m+31] coalesce, and the ring-warps of a block share them through L1.
+// Layout of the work. Synthesis: one thread per (ring, m) of RPT rings keeps the recursion
+// states and the outputs of a batch tile in registers; threads lie along m so that a row
+// C[b, l, m..m+31] is one coalesced copy into shared memory, which all warps of the block
+// read.
 // Analysis: the sum over rings is a cross-thread reduction, made deterministic (no float
 // atomics) at each of its three levels: the warps of a block reduce through shared memory
 // in a fixed order; each element of an output or a partial is written by one block, which
@@ -99,7 +120,6 @@
 
 namespace {
 
-constexpr int NW = 16;   // warps per synthesis block (rings of a block; lanes run along m)
 constexpr int PLAIN = 3;
 
 template <typename T> struct C2t;
@@ -168,6 +188,23 @@ __device__ __forceinline__ T deff(const Rec& r) {
   return T(r.k == 0 ? r.d : ldexp(r.d, S * r.k));
 }
 
+// deff without ldexp, for the synthesis: the same value, bit for bit. A state with k < 0
+// has |d| <= 2^(S/2) (rec_step rescales above it; k <= 0 always), so d 2^(S k) is one
+// multiplication by an exact power of two, rounded once as ldexp rounds: 2^(S k) is a
+// normal double for k >= -3 and the subnormal 2^-1024 for k = -4; for k <= -5 the product
+// is below 2^-1075 and rounds to a zero of d's sign, which d x 0 gives. (ldexp takes a
+// library routine with branches, in every step of every ring, divergent where k differs
+// across a warp.)
+__device__ __forceinline__ double pow2_sk(int k) {
+  return k >= -3 ? __longlong_as_double((long long)(1023 + S * k) << 52)
+                 : (k == -4 ? __longlong_as_double(1LL << 50) : 0.);
+}
+
+template <typename T>
+__device__ __forceinline__ T deff_mul(const Rec& r) {
+  return T(__dmul_rn(r.d, pow2_sk(r.k)));
+}
+
 // first l of the block's loop: rows below l0(m) - 1 leave the state at zero, so starting
 // there is exact (l0 is nondecreasing in m; the block's first m has the smallest)
 __device__ __forceinline__ int loop_start(const int* l0m, const int* l0p, int m_first) {
@@ -189,8 +226,16 @@ __host__ __device__ constexpr int anal_legs() {
 }
 
 // ------------------------------------------------------------------ K1/K3 synthesis
-template <typename T, int BT, int RPT, int MODE>
-__global__ void __launch_bounds__(NW * 32, 1)
+// A block is NWS warps (lanes along m, warps along rings) of RPT rings a thread, on a batch
+// tile of BT maps; MINB blocks are meant to share an SM. The coefficient rows of the
+// batch tile and the table rows of LCS successive l are staged into shared memory by
+// cp.async, two buffers in turn: the rows of the next chunk arrive while this one computes.
+constexpr int LCS = 16;   // l steps of one staged chunk of coefficients and table rows
+// unrolling of the l loop in a chunk (measured: 1 is ~10% slower, 4 spills)
+constexpr int LUNROLL = 2;
+
+template <typename T, int BT, int RPT, int NWS, int MINB, int MODE>
+__global__ void __launch_bounds__(NWS * 32, MINB)
 synth_pair_kernel(const typename C2t<T>::type* __restrict__ Cp,
                   const typename C2t<T>::type* __restrict__ Cm,
                   typename C2t<T>::type* __restrict__ Fp,
@@ -201,12 +246,23 @@ synth_pair_kernel(const typename C2t<T>::type* __restrict__ Cp,
   constexpr bool TWO = MODE == 1 || MODE == 2;   // both recursions
   constexpr bool HASM = MODE == 1;               // second input/output
   constexpr bool MIRROR = MODE != PLAIN;         // southern rows from the mirror
+  constexpr int NIN = HASM ? 2 : 1;              // inputs
+  constexpr int NT = TWO ? 6 : 3;                // table rows of one l step
+  extern __shared__ __align__(16) unsigned char smem[];
+  C2 (*const cs)[LCS][NIN][BT][32] = reinterpret_cast<C2 (*)[LCS][NIN][BT][32]>(smem);
+  double (*const tab)[LCS][NT][32] = reinterpret_cast<double (*)[LCS][NT][32]>(
+      smem + 2 * sizeof(C2[LCS][NIN][BT][32]));
+
   const int nh = rec_rows<MODE>(R), n_s = R - nh;
   const int lane = threadIdx.x, w = threadIdx.y;
-  const int m_first = blockIdx.x * 32;
+  // grid (ring tile, batch tile, m-tile): the m-tile is slowest, so the blocks in flight
+  // share one m-tile's coefficient and table columns through L2, and the tiles with the
+  // longest l loop start first
+  const int m_first = blockIdx.z * 32;
   const int m = m_first + lane;
   const bool mvalid = m < M;
-  const int b0 = blockIdx.z * BT;
+  const int m_in = mvalid ? m : M - 1;      // a column to read for lanes past mmax
+  const int b0 = blockIdx.y * BT;
 
   Rec rm[RPT], rp[RPT];
   double xr[RPT];
@@ -214,7 +270,7 @@ synth_pair_kernel(const typename C2t<T>::type* __restrict__ Cp,
   C2 pn[RPT][BT], ps[RPT][BT], mn[RPT][BT], ms[RPT][BT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    jr[r] = blockIdx.y * (NW * RPT) + w + r * NW;
+    jr[r] = blockIdx.x * (NWS * RPT) + w + r * NWS;
     const bool v = mvalid && jr[r] < nh;
     const int j = jr[r] < nh ? jr[r] : 0;
     xr[r] = x[j];
@@ -226,39 +282,72 @@ synth_pair_kernel(const typename C2t<T>::type* __restrict__ Cp,
     }
   }
 
+  // the warps stage rows lc .. lc + LCS - 1 of the coefficients and tables into buffer cb,
+  // a row of 32 m a warp in turn (rows past lmax, maps past B and columns past mmax repeat
+  // the last: they feed steps that are not run, outputs that are not written and masked
+  // lanes, whose recursion never seeds)
+  auto stage = [&](int lc, int cb) {
+#pragma unroll
+    for (int i = w; i < LCS * NIN * BT; i += NWS) {
+      const int s = i / (NIN * BT), in = (i / BT) % NIN, b = i % BT;
+      const int l = lc + s < L ? lc + s : L - 1;
+      const int bb = b0 + b < B ? b0 + b : B - 1;
+      __pipeline_memcpy_async(&cs[cb][s][in][b][lane],
+                              (in == 0 ? Cp : Cm) + ((size_t)bb * L + l) * M + m_in,
+                              sizeof(C2));
+    }
+#pragma unroll
+    for (int i = w; i < LCS * NT; i += NWS) {
+      const int s = i / NT, k = i % NT;
+      const double* row = k == 0 ? tm.alpha : k == 1 ? tm.beta : k == 2 ? tm.gamma
+                        : k == 3 ? tp.alpha : k == 4 ? tp.beta : tp.gamma;
+      __pipeline_memcpy_async(&tab[cb][s][k][lane],
+                              row + (size_t)(lc + s < L ? lc + s : L - 1) * M + m_in, 8);
+    }
+    __pipeline_commit();
+  };
+
   const int lbeg = loop_start(tm.l0, TWO ? tp.l0 : tm.l0, m_first);
-  for (int l = lbeg; l < L; ++l) {
-    const size_t lm = (size_t)l * M + m;
-    double am = 0., bm = 0., gm = 0., ap = 0., bp = 0., gp = 0.;
-    C2 cp[BT], cm[BT];
-    if (mvalid) {
-      am = tm.alpha[lm]; bm = tm.beta[lm]; gm = tm.gamma[lm];
-      if (TWO) { ap = tp.alpha[lm]; bp = tp.beta[lm]; gp = tp.gamma[lm]; }
-    }
-#pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      const bool v = mvalid && (b0 + b) < B;
-      const size_t idx = ((size_t)(b0 + b) * L + l) * M + m;
-      cp[b] = v ? Cp[idx] : C2{T(0), T(0)};
-      if (HASM) cm[b] = v ? Cm[idx] : C2{T(0), T(0)};
-    }
-    const T sgn = (l & 1) ? T(-1) : T(1);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const T dm = deff<T>(rm[r]);
-      const T dp = TWO ? deff<T>(rp[r]) : dm;
-      const T dps = sgn * dp, dms = sgn * dm;
+  stage(lbeg, 0);
+  for (int lc = lbeg, cb = 0; lc < L; lc += LCS, cb ^= 1) {
+    // one barrier a chunk: it publishes buffer cb, and every thread is past its reads of
+    // the other buffer (the chunk before), which is refilled next
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (lc + LCS < L) stage(lc + LCS, cb ^ 1);
+    const int lend = lc + LCS < L ? lc + LCS : L;
+#pragma unroll LUNROLL
+    for (int l = lc; l < lend; ++l) {
+      const int s = l - lc;
+      const double am = tab[cb][s][0][lane], bm = tab[cb][s][1][lane],
+                   gm = tab[cb][s][2][lane];
+      const double ap = TWO ? tab[cb][s][3 % NT][lane] : 0.,
+                   bp = TWO ? tab[cb][s][4 % NT][lane] : 0.,
+                   gp = TWO ? tab[cb][s][5 % NT][lane] : 0.;
+      C2 cp[BT], cm[BT];
 #pragma unroll
       for (int b = 0; b < BT; ++b) {
-        pn[r][b].x += cp[b].x * dm;  pn[r][b].y += cp[b].y * dm;
-        if (MIRROR) { ps[r][b].x += cp[b].x * dps; ps[r][b].y += cp[b].y * dps; }
-        if (HASM) {
-          mn[r][b].x += cm[b].x * dp;  mn[r][b].y += cm[b].y * dp;
-          ms[r][b].x += cm[b].x * dms; ms[r][b].y += cm[b].y * dms;
-        }
+        cp[b] = cs[cb][s][0][b][lane];
+        if (HASM) cm[b] = cs[cb][s][NIN - 1][b][lane];
       }
-      rec_step(rm[r], l, am, bm, gm, xr[r]);
-      if (TWO) rec_step(rp[r], l, ap, bp, gp, xr[r]);
+      const T sgn = (l & 1) ? T(-1) : T(1);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const T dm = deff_mul<T>(rm[r]);
+        const T dp = TWO ? deff_mul<T>(rp[r]) : dm;
+        const T dps = sgn * dp, dms = sgn * dm;
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          pn[r][b].x += cp[b].x * dm;  pn[r][b].y += cp[b].y * dm;
+          if (MIRROR) { ps[r][b].x += cp[b].x * dps; ps[r][b].y += cp[b].y * dps; }
+          if (HASM) {
+            mn[r][b].x += cm[b].x * dp;  mn[r][b].y += cm[b].y * dp;
+            ms[r][b].x += cm[b].x * dms; ms[r][b].y += cm[b].y * dms;
+          }
+        }
+        rec_step(rm[r], l, am, bm, gm, xr[r]);
+        if (TWO) rec_step(rp[r], l, ap, bp, gp, xr[r]);
+      }
     }
   }
 
@@ -524,19 +613,35 @@ Tables make_tables(const void* a, const void* b, const void* g, const void* l0,
                 static_cast<const double*>(sv), static_cast<const int*>(sk)};
 }
 
-template <typename T, int BT, int RPT, int MODE>
+// bytes of dynamic shared memory of a synthesis block: two buffers of LCS steps of the
+// coefficient rows and the table rows
+template <typename T, int BT, int MODE>
+constexpr int synth_smem() {
+  return 2 * LCS * 32 * ((MODE == 1 ? 2 : 1) * BT * (int)sizeof(typename C2t<T>::type) +
+                         (MODE == 1 || MODE == 2 ? 6 : 3) * (int)sizeof(double));
+}
+
+template <typename T, int BT, int RPT, int NWS, int MINB, int MODE>
 int launch_synth(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables tm,
                  Tables tp, const void* x, int B, int L, int M, int R, int device,
                  void* stream) {
   using C2 = typename C2t<T>::type;
+  constexpr int smem = synth_smem<T, BT, MODE>();
+  static_assert(smem <= 232448, "a synthesis block's staging buffers exceed 227 KB");
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int nh = rec_rows<MODE>(R);
-  dim3 block(32, NW);
-  dim3 grid((M + 31) / 32, (nh + NW * RPT - 1) / (NW * RPT), (B + BT - 1) / BT);
-  synth_pair_kernel<T, BT, RPT, MODE><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const C2*>(Cp), static_cast<const C2*>(Cm), static_cast<C2*>(Fp),
-      static_cast<C2*>(Fm), tm, tp, static_cast<const double*>(x), B, L, M, R);
+  const int btiles = (B + BT - 1) / BT, mtiles = (M + 31) / 32;
+  if (btiles > 65535 || mtiles > 65535) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(synth_pair_kernel<T, BT, RPT, NWS, MINB, MODE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 block(32, NWS);
+  dim3 grid((nh + NWS * RPT - 1) / (NWS * RPT), btiles, mtiles);
+  synth_pair_kernel<T, BT, RPT, NWS, MINB, MODE>
+      <<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const C2*>(Cp), static_cast<const C2*>(Cm), static_cast<C2*>(Fp),
+          static_cast<C2*>(Fm), tm, tp, static_cast<const double*>(x), B, L, M, R);
   return (int)cudaGetLastError();
 }
 
@@ -582,15 +687,15 @@ int launch_anal(const void* Qp, const void* Qm, void* A, void* Bo, void* ws, Tab
   return (int)cudaGetLastError();
 }
 
-// the pair modes 0-2 of one data type, chosen at run time
-template <typename T, int BT, int RPT>
+// the pair modes 0-2 of one data type and block shape, chosen at run time
+template <typename T, int BT, int RPT, int NWS, int MINB>
 int launch_synth_pair(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables tm,
                       Tables tp, const void* x, int B, int L, int M, int R, int mode,
                       int device, void* stream) {
   switch (mode) {
-    case 0: return launch_synth<T, BT, RPT, 0>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
-    case 1: return launch_synth<T, BT, RPT, 1>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
-    case 2: return launch_synth<T, BT, RPT, 2>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
+    case 0: return launch_synth<T, BT, RPT, NWS, MINB, 0>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
+    case 1: return launch_synth<T, BT, RPT, NWS, MINB, 1>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
+    case 2: return launch_synth<T, BT, RPT, NWS, MINB, 2>(Cp, Cm, Fp, Fm, tm, tp, x, B, L, M, R, device, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -607,10 +712,24 @@ int launch_anal_pair(const void* Qp, const void* Qm, void* A, void* Bo, void* ws
   }
 }
 
-// Synthesis: batch tile and rings per thread of each data type. The pair modes keep four
-// accumulators per map and ring, the plain mode one, so it takes twice the rings.
-constexpr int BT32 = 4, BT64 = 2;
-constexpr int RPT_PAIR32 = 2, RPT_PAIR64 = 1, RPT_PLAIN32 = 4, RPT_PLAIN64 = 2;
+// Synthesis: batch tile, rings per thread, warps per block and blocks meant for an SM, of
+// each kind of grid and data type, a narrow shape and a wide one; a call whose batch
+// exceeds the narrow shape's batch tile runs the wide one (legendre_kernels.synth_shape
+// mirrors the choice). Measured on the H100 (PERF.md): 8 warps with the most rings a
+// thread that stay unspilled; f32 pair data at batch 8 is faster as one tile of 8 maps x
+// 2 rings than as two of 4 x 3; f64 pair data keeps one ring a thread (two spill).
+#define PLK_S_PAIR32 4, 3, 8, 1
+#define PLK_S_PAIR32_WIDE 8, 2, 8, 1
+#define PLK_S_PAIR64 4, 1, 8, 1
+#define PLK_S_PAIR64_WIDE 4, 1, 8, 1
+#define PLK_S_PLAIN32 4, 6, 8, 1
+#define PLK_S_PLAIN32_WIDE 8, 4, 8, 1
+#define PLK_S_PLAIN64 4, 6, 8, 1
+#define PLK_S_PLAIN64_WIDE 8, 3, 8, 1
+constexpr int shape_code(int bt, int rpt, int nws, int minb) {
+  return (bt << 24) | (rpt << 16) | (nws << 8) | minb;
+}
+constexpr int batch_tile(int bt, int, int, int) { return bt; }
 
 // Analysis: batch tile, rings per thread, warps per block and blocks meant for an SM, of
 // each kind of grid and data type. Measured on the H100 (PERF.md): few warps with many
@@ -640,21 +759,38 @@ int plk_anal_tile(int plain, int f64) {
                : (f64 ? tile_code(PLK_A_PAIR64) : tile_code(PLK_A_PAIR32));
 }
 
-// Pair modes.
+// (batch tile << 24) | (rings per thread << 16) | (warps << 8) | blocks an SM of the
+// synthesis kernel that a call of the kind and data type runs, narrow or wide, for the
+// wrapper's check of its mirror
+int plk_synth_shape(int plain, int f64, int wide) {
+  if (plain)
+    return f64 ? (wide ? shape_code(PLK_S_PLAIN64_WIDE) : shape_code(PLK_S_PLAIN64))
+               : (wide ? shape_code(PLK_S_PLAIN32_WIDE) : shape_code(PLK_S_PLAIN32));
+  return f64 ? (wide ? shape_code(PLK_S_PAIR64_WIDE) : shape_code(PLK_S_PAIR64))
+             : (wide ? shape_code(PLK_S_PAIR32_WIDE) : shape_code(PLK_S_PAIR32));
+}
+
+// Pair modes; the synthesis takes its wide shape above the narrow batch tile.
 int plk_synth_pair_f32(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_TABLE_ARGS,
                        const void* x, int B, int L, int M, int R, int mode, int device,
                        void* stream) {
-  return launch_synth_pair<float, BT32, RPT_PAIR32>(Cp, Cm, Fp, Fm, PLK_TABLES_M,
-                                                    PLK_TABLES_P, x, B, L, M, R, mode,
-                                                    device, stream);
+  if (B > batch_tile(PLK_S_PAIR32))
+    return launch_synth_pair<float, PLK_S_PAIR32_WIDE>(Cp, Cm, Fp, Fm, PLK_TABLES_M,
+                                                       PLK_TABLES_P, x, B, L, M, R, mode,
+                                                       device, stream);
+  return launch_synth_pair<float, PLK_S_PAIR32>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P, x,
+                                                B, L, M, R, mode, device, stream);
 }
 
 int plk_synth_pair_f64(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_TABLE_ARGS,
                        const void* x, int B, int L, int M, int R, int mode, int device,
                        void* stream) {
-  return launch_synth_pair<double, BT64, RPT_PAIR64>(Cp, Cm, Fp, Fm, PLK_TABLES_M,
-                                                     PLK_TABLES_P, x, B, L, M, R, mode,
-                                                     device, stream);
+  if (B > batch_tile(PLK_S_PAIR64))
+    return launch_synth_pair<double, PLK_S_PAIR64_WIDE>(Cp, Cm, Fp, Fm, PLK_TABLES_M,
+                                                        PLK_TABLES_P, x, B, L, M, R, mode,
+                                                        device, stream);
+  return launch_synth_pair<double, PLK_S_PAIR64>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P,
+                                                 x, B, L, M, R, mode, device, stream);
 }
 
 // Analysis: the ring sum in nseg segments, ws the workspace of nseg - 1 partials.
@@ -681,15 +817,21 @@ int plk_anal_pair_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TAB
 int plk_synth_f32(const void* C, void* F, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
                   int L, int M, int R, int device, void* stream) {
   const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_synth<float, BT32, RPT_PLAIN32, PLAIN>(C, nullptr, F, nullptr, t, t, x, B, L,
-                                                       M, R, device, stream);
+  if (B > batch_tile(PLK_S_PLAIN32))
+    return launch_synth<float, PLK_S_PLAIN32_WIDE, PLAIN>(C, nullptr, F, nullptr, t, t, x, B,
+                                                          L, M, R, device, stream);
+  return launch_synth<float, PLK_S_PLAIN32, PLAIN>(C, nullptr, F, nullptr, t, t, x, B, L, M,
+                                                   R, device, stream);
 }
 
 int plk_synth_f64(const void* C, void* F, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
                   int L, int M, int R, int device, void* stream) {
   const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_synth<double, BT64, RPT_PLAIN64, PLAIN>(C, nullptr, F, nullptr, t, t, x, B,
-                                                        L, M, R, device, stream);
+  if (B > batch_tile(PLK_S_PLAIN64))
+    return launch_synth<double, PLK_S_PLAIN64_WIDE, PLAIN>(C, nullptr, F, nullptr, t, t, x, B,
+                                                           L, M, R, device, stream);
+  return launch_synth<double, PLK_S_PLAIN64, PLAIN>(C, nullptr, F, nullptr, t, t, x, B, L, M,
+                                                    R, device, stream);
 }
 
 int plk_anal_f32(const void* Q, void* A, PLK_PLAIN_TABLE_ARGS, const void* x, int B,

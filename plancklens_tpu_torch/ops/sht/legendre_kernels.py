@@ -28,6 +28,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -55,6 +56,14 @@ last_plan = {}
 # csrc/legendre_pair.cu's PLK_A_* block shapes, checked against the library at load.
 ANAL_TILE = {('pair', 'f32'): (4, 24), ('pair', 'f64'): (2, 24),
              ('plain', 'f32'): (4, 64), ('plain', 'f64'): (2, 64)}
+# (batch tile, rings per thread, warps, blocks meant for an SM) of the synthesis kernels,
+# a narrow and a wide shape by kind of grid and data type: csrc/legendre_pair.cu's PLK_S_*
+# block shapes, checked against the library at load. A call whose batch exceeds the
+# narrow batch tile runs the wide shape (`synth_shape`).
+SYNTH_SHAPES = {('pair', 'f32'): ((4, 3, 8, 1), (8, 2, 8, 1)),
+                ('pair', 'f64'): ((4, 1, 8, 1), (4, 1, 8, 1)),
+                ('plain', 'f32'): ((4, 6, 8, 1), (8, 4, 8, 1)),
+                ('plain', 'f64'): ((4, 6, 8, 1), (8, 3, 8, 1))}
 # Blocks wanted for a split ring sum, in waves of one block an SM: the blocks differ in
 # length by the l range of their m-tile, and the short ones fill the tail of many waves.
 WAVES = 4
@@ -75,6 +84,19 @@ def reset_launches():
 
 SegmentPlan = collections.namedtuple(
     'SegmentPlan', 'nseg passes passes_per_seg rows_per_pass blocks workspace_bytes')
+
+
+def synth_shape(kind, dt, B):
+    """The block shape (batch tile, rings per thread, warps, blocks an SM) that a synthesis
+    call of batch B runs: 'pair' (K1) or 'plain' (K3), 'f32' or 'f64'; the launcher's
+    choice, mirrored."""
+    narrow, wide = SYNTH_SHAPES[kind, dt]
+    return wide if B > narrow[0] else narrow
+
+
+def _shape_code(shape):
+    bt, rpt, nws, minb = shape
+    return bt << 24 | rpt << 16 | nws << 8 | minb
 
 
 def plan_segments(rows, L, M, B, batch_tile, rows_per_pass, nout, elem_size, sm_count,
@@ -148,6 +170,58 @@ def build():
     return so
 
 
+_ENTRY = re.compile(r"Compiling entry function '_Z\w*?\d+([a-z][a-z_]*_kernel)I(\w+)'")
+_SPILLS = re.compile(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads')
+_REGS = re.compile(r'Used (\d+) registers')
+
+
+def _template_args(code):
+    """The template arguments at the start of a mangled argument list (after its `I`):
+    `fLi4ELi3ELin1EE...` -> ('float', 4, 3, -1)."""
+    args, i = [], 0
+    while code[i] != 'E':
+        if code[i] == 'L':                      # a literal: L <type> <digits, n = minus> E
+            j = code.index('E', i)
+            lit = code[i + 2:j]
+            args.append(-int(lit[1:]) if lit.startswith('n') else int(lit))
+            i = j + 1
+        else:
+            args.append({'f': 'float', 'd': 'double', 'i': 'int'}[code[i]])
+            i += 1
+    return tuple(args)
+
+
+def ptxas_report(text):
+    """The compiler's register and spill report (`nvcc -Xptxas -v`, the `.log` beside the
+    library) as one dict a kernel instantiation, in the order compiled: kernel name,
+    template arguments (type names and integers), registers, stack frame and spill
+    bytes."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = {'kernel': m.group(1), 'args': _template_args(m.group(2))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _SPILLS.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            cur['registers'] = int(m.group(1))
+            cur = None
+    return out
+
+
+def build_report():
+    """`ptxas_report` of the current library's build log."""
+    with open(library_path()[:-3] + '.log') as f:
+        return ptxas_report(f.read())
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -164,6 +238,17 @@ def _load():
                 fn = getattr(lib, '%s_%s' % (name, suffix))
                 fn.argtypes = [p] * 2 + [p] * 6 + [p] + [i] * 4 + extra + [i, p]
                 fn.restype = i
+        lib.plk_synth_shape.argtypes = [i, i, i]
+        lib.plk_synth_shape.restype = i
+        for (kind, suffix), shapes in SYNTH_SHAPES.items():
+            for wide, shape in enumerate(shapes):
+                got = lib.plk_synth_shape(int(kind == 'plain'), int(suffix == 'f64'), wide)
+                if got != _shape_code(shape):
+                    raise RuntimeError('the %s %s synthesis kernel (%s) has the block shape '
+                                       '%s, its mirror says %s'
+                                       % (kind, suffix, ('narrow', 'wide')[wide],
+                                          tuple(got >> k & 0xff for k in (24, 16, 8, 0)),
+                                          shape))
         lib.plk_anal_tile.argtypes = [i, i]
         lib.plk_anal_tile.restype = i
         for (kind, suffix), (bt, rpp) in ANAL_TILE.items():

@@ -17,6 +17,8 @@ the plain engine on a CUDA device by the `cuda`-marked test (and by chip_smoke.p
   and over a hypothesis sweep, and the split itself as a sum: the plain analysis of each
   ring segment alone, added in segment order, equals the whole call to 1e-12 of max.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from plancklens_tpu.ops.sht.pallas_kernel import (legendre_synth_pair_pallas,
                                                   legendre_anal_pair_pallas)
 from plancklens_tpu_torch import compat
 from plancklens_tpu_torch.ops.sht import core as pcore, legendre_kernels as lk
-from plancklens_tpu_torch.ops.sht import SHT as PSHT, gl_geometry as pgl
+from plancklens_tpu_torch.ops.sht import SHT as PSHT, gl_geometry as pgl, HealpixGeometry
 from plancklens_tpu.utils import alm as ralm
 
 torch.set_num_threads(1)
@@ -357,6 +359,116 @@ def test_launch_counts_reset_together():
     assert lk.synth_pair_shapes == {} and set(lk.launches.values()) == {0}
 
 
+# ------------------------------------------------ the synthesis kernels K1/K3, on the CPU
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117synth_pair_kernelIfLi4ELi3ELi8ELi1ELi1EEEvPKN3C2tIT_E4typeES6_PS4_S7_NS_6TablesES8_PKdiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117synth_pair_kernelIfLi4ELi3ELi8ELi1ELi1EEEvPKN3C2tIT_E4typeES6_PS4_S7_NS_6TablesES8_PKdiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 234 registers, used 1 barriers, 520 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116anal_pair_kernelIdLi2ELi8ELi8ELi1ELi3EEEvPKN3C2tIT_E4typeES6_PS4_S7_S7_NS_6TablesES8_PKdiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116anal_pair_kernelIdLi2ELi8ELi8ELi1ELi3EEEvPKN3C2tIT_E4typeES6_PS4_S7_S7_NS_6TablesES8_PKdiiiii
+    72 bytes stack frame, 112 bytes spill stores, 104 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 528 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120anal_pair_sum_kernelIfLi1EEEvPN3C2tIT_E4typeES5_PKS3_PKiS9_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120anal_pair_sum_kernelIfLi1EEEvPN3C2tIT_E4typeES5_PKS3_PKiS9_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_parses_both_templates():
+    """The register and spill report of `nvcc -Xptxas -v` (made-up lines in its format):
+    kernel, template arguments, registers and spill bytes of each instantiation."""
+    rep = lk.ptxas_report(_PTXAS_LOG)
+    assert [(k['kernel'], k['args'], k['registers'], k['stack'], k['spill_stores'],
+             k['spill_loads']) for k in rep] == [
+        ('synth_pair_kernel', ('float', 4, 3, 8, 1, 1), 234, 0, 0, 0),
+        ('anal_pair_kernel', ('double', 2, 8, 8, 1, 3), 255, 72, 112, 104),
+        ('anal_pair_sum_kernel', ('float', 1), 24, 0, 0, 0)]
+    assert lk._template_args('dLin1ELi7EEEv') == ('double', -1, 7)
+
+
+def _source_defines(prefix):
+    with open(lk.SOURCE) as f:
+        text = f.read()
+    return {ln.split()[1]: tuple(int(x) for x in ln.split(None, 2)[2].split(','))
+            for ln in text.splitlines() if ln.startswith('#define ' + prefix)}, text
+
+
+def test_synth_shapes_mirror_the_source_and_fit():
+    """`legendre_kernels.SYNTH_SHAPES` is the source's PLK_S_* block shapes (the library
+    checks the same at load, on the card), each fits the register file at its blocks an
+    SM, and its two staging buffers fit a block's 227 KB of shared memory in every mode."""
+    defs, text = _source_defines('PLK_S_')
+    lcs = int(re.search(r'constexpr int LCS = (\d+);', text).group(1))
+    for (kind, dt), shapes in lk.SYNTH_SHAPES.items():
+        for wide, shape in enumerate(shapes):
+            name = 'PLK_S_%s%s%s' % (kind.upper(), dt[1:], '_WIDE' if wide else '')
+            assert defs[name] == shape, name
+            bt, rpt, nws, minb = shape
+            assert nws * 32 * minb <= 65536 // 128       # at least 128 registers a thread
+            esize = 8 if dt == 'f32' else 16
+            for nin, nt in ((2, 6), (1, 6), (1, 3)) if kind == 'pair' else ((1, 3),):
+                assert 2 * lcs * 32 * (nin * bt * esize + nt * 8) <= 232448, (name, nin)
+
+
+@pytest.mark.parametrize('B', [1, 3, 4, 5, 8])
+def test_synth_batch_tile_choice(B):
+    """The launcher's choice of block shape by batch, mirrored: f32 pair data (K1 on the
+    main path) and plain grids run batch 1-8 as one batch tile, so the f64 recursion runs
+    once per (ring, m) at batch 4 and 8; f64 pair data has one shape of 4 maps."""
+    tiles = {'pair': {'f32': 1, 'f64': -(-B // 4)}, 'plain': {'f32': 1, 'f64': 1}}
+    for (kind, dt), (narrow, wide) in lk.SYNTH_SHAPES.items():
+        got = lk.synth_shape(kind, dt, B)
+        assert got == (narrow if B <= narrow[0] else wide)
+        assert -(-B // got[0]) == tiles[kind][dt], (kind, dt)
+
+
+def _pow2_sk(k):
+    """2^(256 k) as csrc/legendre_pair.cu's pow2_sk builds it from the exponent bits."""
+    if k >= -3:
+        return np.array((1023 + 256 * k) << 52, dtype=np.int64).view(np.float64)[()]
+    return np.array(1 << 50, dtype=np.int64).view(np.float64)[()] if k == -4 else 0.
+
+
+@pytest.mark.parametrize('k', [0, -1, -2, -3, -4, -5, -6, -9])
+def test_deff_mul_is_ldexp(k):
+    """The synthesis's deff_mul (one multiplication by 2^(256 k)) is ldexp(d, 256 k) bit for
+    bit, for every |d| <= 2^128 that a state with k < 0 can hold: normal, subnormal (k = -4)
+    and zero (k <= -5) results, signs and rounding included; also after the cast to f32."""
+    rng = np.random.RandomState(10 - k)
+    d = rng.choice([-1., 1.], 40000) * np.exp2(rng.uniform(-140., 128., 40000))
+    d = np.concatenate([d, [0., -0., 2. ** 128, -2. ** 128, 1.5 * 2. ** -51, 3. * 2. ** -52,
+                            2. ** -51 + 2. ** -103, 2. ** -102]])
+    want, got = np.ldexp(d, 256 * k), d * _pow2_sk(k)
+    assert np.array_equal(want.view(np.int64), got.view(np.int64))
+    with np.errstate(over='ignore'):
+        assert np.array_equal(want.astype(np.float32).view(np.int32),
+                              got.astype(np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize('n', [-2, 0, 3])
+def test_scaled_state_bound_for_deff_mul(n):
+    """The precondition of deff_mul on the twin's recursion: whenever k < 0, |d| <= 2^128,
+    at every l, on the HEALPix rings of nside 32 and a ring at theta = 4e-4."""
+    lmax = 192
+    theta = np.concatenate([[4e-4], HealpixGeometry(32).theta])
+    t = pcore.full_tables(lmax, lmax, n, theta, None, 'cpu')
+    st = pcore._init_state(t)
+    xc = t['x'][:, None]
+    thresh = torch.tensor(2. ** 128, dtype=torch.float64)
+    down = torch.tensor(2. ** -256, dtype=torch.float64)
+    seen_neg = False
+    for l in range(lmax + 1):
+        neg = st[2] < 0
+        seen_neg |= bool(neg.any())
+        assert bool((st[1].abs()[neg] <= 2. ** 128).all())
+        st = pcore._rec_step(l, st, t['alpha'][l], t['beta'][l], t['gamma'][l], xc, t['l0'],
+                             t['seed_v'], t['seed_k'], thresh, down)
+    assert seen_neg
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -367,9 +479,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize('nrings', [65, 66, 513])
 def test_kernels_match_plain_on_card(cuda_device, nrings):
-    """K1/K2 against the plain engine on the card: f32 <= 1e-5, f64 <= 1e-12 of max; K2
+    """K1/K2 against the plain engine on the card: f32 <= 1e-5, f64 <= 1e-12 of max; both
     bitwise reproducible. 513 rings are 257 recursion rows, 11 ring passes: the ring sum
-    is split into segments there, and also run forced into one."""
+    is split into segments there, and also run forced into one. K1 also at batch 5 and
+    with mmax < lmax."""
     lmax = 64
     theta = pgl(nrings - 1).theta
     gen = torch.Generator(device=cuda_device).manual_seed(nrings)
@@ -399,6 +512,46 @@ def test_kernels_match_plain_on_card(cuda_device, nrings):
                     assert lk.last_plan['anal_pair'].nseg == 1
                     assert all(_err(a.cpu(), b.cpu()) <= tol
                                for a, b in zip(one, pa) if b is not None)
+                # K1: every output element written by one thread, so bitwise reproducible
+                again = lk.synth_pair(C, cm, spin, nrings, t_m, t_p)
+                assert all(torch.equal(a, b) for a, b in zip(again, ks) if b is not None)
+            # K1's ragged shapes: batch 5 (no multiple of a batch tile; the wide shape in
+            # f32), mmax 40 < lmax (M = 41, no multiple of 32); L = 65 is no multiple of
+            # the staged chunk
+            h_m, h_p = pcore.pair_tables(lmax, 40, spin, theta, None, cuda_device)
+            for tm_, tp_, M in ((t_m, t_p, lmax + 1), (h_m, h_p, 41)):
+                C5, C5m = (torch.randn((5, lmax + 1, M), generator=gen, device=cuda_device,
+                                       dtype=cdt) for _ in range(2))
+                for cm in (None, C5m):
+                    ks = lk.synth_pair(C5, cm, spin, nrings, tm_, tp_)
+                    ps = pcore.legendre_synth_pair_plain(C5, cm, spin, nrings, tm_, tp_)
+                    assert all(_err(a.cpu(), b.cpu()) <= tol
+                               for a, b in zip(ks, ps) if b is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nrings', [97, 130])
+def test_plain_synthesis_ragged_on_card(cuda_device, nrings):
+    """K3 on a random polar-heavy ring set (rings within 1e-3 of both poles) against the
+    plain engine at batch 3, 4 and 5 (the narrow and wide shapes, one not a multiple of a
+    batch tile), mmax = lmax and mmax 40 (M = 41): f32 <= 1e-5, f64 <= 1e-12 of max; and
+    bitwise equal on a second run."""
+    lmax = 64
+    rng = np.random.RandomState(nrings)
+    theta = np.sort(np.concatenate([rng.uniform(4e-4, 0.3, nrings // 3),
+                                    rng.uniform(0., np.pi, nrings - 2 * (nrings // 3)),
+                                    np.pi - rng.uniform(7e-4, 0.3, nrings // 3)]))
+    gen = torch.Generator(device=cuda_device).manual_seed(nrings)
+    for cdt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
+        for n in (-2, 0, 3):
+            for mmax in (lmax, 40):
+                t = pcore.full_tables(lmax, mmax, n, theta, None, cuda_device)
+                for B in (3, 4, 5):
+                    C = torch.randn((B, lmax + 1, mmax + 1), generator=gen, device=cuda_device,
+                                    dtype=cdt)
+                    G = lk.synth(C, nrings, t)
+                    assert _err(G.cpu(), pcore.legendre_synth_plain(C, t).cpu()) <= tol
+                    assert torch.equal(lk.synth(C, nrings, t), G)
 
 
 @pytest.mark.cuda
