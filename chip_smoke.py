@@ -37,8 +37,26 @@ entry path at Planck's nside 2048. Phases:
                 round trip (relative rms <= 1e-6) and qlm against phase 4's (<= 1e-5);
                 the nside-2048 ring weights timed. examples/profile_healpix_torch.py
                 traces the same path and splits its time
+  6 cinv        masked inverse-variance filtering at params/anisofilt_example.py's
+                configuration (examples/masked_filter_torch.py): (6a) CinvT (35 and 3000
+                uK-arcmin) and CinvP at lmax 64, lmax_dense 32, f64, batch 2, the CG loop on
+                the kernels against the CG loop on the CPU plain path: the same iteration
+                count (> 5), the right-hand side and the forward op (the kernels' part of
+                the loop) within 1e-12 of max, the card's solution below 1e-5 in the CPU
+                system, the solutions within 1e-10 (T at 35 uK-arcmin: within 10x the CPU
+                path's own change under a 1e-15 change of its maps and inverted dense
+                block, as that system amplifies rounding by its condition), and a traced
+                warm solve on the card with no host-to-device copy; (6b) CinvT at lmax 2048,
+                f64, batch 8 (host dense block to l 64): every row below 1e-5 (recurred and
+                recomputed residual), iterations, seconds, seconds an iteration, K1/K2
+                launches by (mode, batch, type), peak < 40 GiB, 10 warm iterations traced
+                (device time by kernel group); the f32 solve, not checked;
+                (6c) CinvP, f64, batch 4, the E/B block to l 32 probed on the card (chunk,
+                seconds, K2 workspace <= its cap); (6d) AlmMapLib -> IVFCinv -> IVFFtl(l >=
+                102) -> QELib ptt/p_p on 2 sims, finite, against phase 4's qlm (printed);
+                then K1/K2 at 6b's shape timed against their plain versions (<= 1e-12)
 
-Phases 4 and 5b each start with an empty recursion-table cache, so each path's times and
+Phases 4, 5b and 6 each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
 
 Any failure raises (non-zero exit). The line before the last is a JSON object with one
@@ -63,9 +81,6 @@ REPLACES = {'synth_pair': 'plancklens_tpu/ops/sht/pallas_kernel.py:497',
             'anal': 'plancklens_tpu/ops/sht/pallas_kernel.py:267'}
 NSIDE = 2048
 HP_SIMS = [0, 1, 2, 3]
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, FP32 and FP64 outside the
-# tensor cores, flop/s
-PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
 
 
 def check(cond, msg):
@@ -83,24 +98,6 @@ def rel_max(a, b):
 
 def rel_rms(a, b):
     return ((a - b).abs().pow(2).sum() / b.abs().pow(2).sum()).sqrt().item()
-
-
-def bound(l0, L, rows, nrec, nacc, B, f64_data, nbytes):
-    """(bound_ms, bound_by) of one Legendre call: the larger of the bytes it must move
-    over HBM's rate and its operations over the peak rate of their type. Points are the
-    (l >= l0(m), ring, m) triples this call's tables need; per point each recursion is 5
-    f64 flops ((a x + b) d - g d_prev) and each accumulator a complex-by-real multiply-add
-    of 4 flops per map in the data type."""
-    points = float(rows) * float(np.maximum(L - np.asarray(l0, dtype=np.int64), 0).sum())
-    rec = points * nrec * 5.
-    acc = points * nacc * B * 4.
-    t_ops = (rec + acc) / PEAK_F64 if f64_data else max(rec / PEAK_F64, acc / PEAK_F32)
-    t_bytes = nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes else 'bytes')
-
-
-def table_bytes(t):
-    return sum(v.numel() * v.element_size() for k, v in t.items() if k != 'S')
 
 
 def cuda_ms(fn, reps):
@@ -130,6 +127,7 @@ def main():
           'plancklens_tpu_torch must come from this checkout')
     from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk, SHT
     from plancklens_tpu_torch.ops.sht import HealpixGeometry
+    from plancklens_tpu_torch.ops.sht.roofline import pair_bound, plain_bound
     from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
     from plancklens_tpu_torch.ops.sht.pixwin import pixwin_exact, _ring_Gm
     from plancklens_tpu_torch.utils import alm as ualm
@@ -262,14 +260,13 @@ def main():
     phase(2, 'batch 4 / batch 8 time ratio: K1 synth_pair %.4f, K2 anal_pair %.4f'
           % (stats[4]['synth'][0] / stats[8]['synth'][0],
              stats[4]['anal'][0] / stats[8]['anal'][0]))
-    # bounds at the batch-8 shapes timed above: both recursions on the 1537 northern
-    # rings, four accumulators (north/south of each leg) per map
-    B, L, nh = 8, LMAX + 1, (nr + 1) // 2
-    l0 = t_m['l0'].cpu().numpy()
-    tb = table_bytes(t_m) + table_bytes(t_p)
-    io = 2 * B * L * L * 8 + 2 * B * nr * L * 8
-    stats[8]['synth'] += bound(l0, L, nh, 2, 4, B, False, io + tb)
-    stats[8]['anal'] += bound(l0, L, nh, 2, 4, B, False, io + tb)
+    # bounds at the batch-8 and batch-4 shapes timed above (mode 1: both recursions on the
+    # 1537 northern rings, two sums an input, roofline.PAIR_WORK)
+    stats[8]['synth'] += pair_bound((t_m, t_p), 1, 8, nr, False)
+    stats[8]['anal'] += pair_bound((t_m, t_p), 1, 8, nr, False)
+    b4 = pair_bound((t_m, t_p), 1, 4, nr, False)
+    phase(2, 'bounds of K1/K2 at lmax 2048, spin-1 pair, f32: batch 8 %.3f ms (%s), batch 4 '
+             '%.3f ms (%s)' % (stats[8]['synth'][-2], stats[8]['synth'][-1], b4[0], b4[1]))
     del t_m, t_p
 
     # ---------------------------------------------------------------- 2b plain kernels
@@ -358,12 +355,10 @@ def main():
     pms_a, PA = cuda_ms(lambda: core.legendre_anal_plain(G, LMAX, t), 1)
     check(rel_max(G, PG) <= 1e-12 and rel_max(A, PA) <= 1e-12,
           'K3/K4 vs plain on all %d rings, f64: %.2e / %.2e' % (R, rel_max(G, PG), rel_max(A, PA)))
-    l0 = t['l0'].cpu().numpy()
-    io = B * L * L * 16 + B * R * L * 16
     stats_p = {'synth': (full[torch.complex128][0], pms_s, (G - PG).abs().max().item())
-                        + bound(l0, L, R, 1, 1, B, True, io + table_bytes(t)),
+                        + plain_bound(t, B, R, True),
                'anal': (full[torch.complex128][1], pms_a, (A - PA).abs().max().item())
-                       + bound(l0, L, R, 1, 1, B, True, io + table_bytes(t))}
+                       + plain_bound(t, B, R, True)}
     phase(2, '(2b) the same in f64: plain synth %.1f ms, plain anal %.1f ms, %.2e / %.2e of max'
           % (pms_s, pms_a, rel_max(G, PG), rel_max(A, PA)))
     del C, G, A, PG, PA, t
@@ -543,16 +538,183 @@ def main():
           'HEALPix ring weights')
     phase(5, '(5b) ring weights of nside %d (QR of %d x %d on the card): %.2fs'
           % (NSIDE, 3 * NSIDE + 1, hgeom.nrings, s_w))
+    del hgeom, w
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 6 masked filtering
+    from masked_filter_torch import aniso_inputs, masked_path, true_rel
+    from plancklens_tpu_torch.models import cinv as pcinv
+    from plancklens_tpu_torch.utils import camb_clfile
+    from torch.profiler import profile, ProfilerActivity
+    cpu = torch.device('cpu')
+    # 6a: the CG loop on the kernels against the CG loop on the twins, lmax 64, batch 2
+    from plancklens_tpu_torch.utils.cachers import cacher_mem
+    g64, tf64, ninv64 = aniso_inputs(lsmall)
+    cls64 = camb_clfile(os.path.join(DATAPATH, 'cls', 'FFP10_wdipole_lensedCls.dat'),
+                        lmax=lsmall)
+    sht64 = SHT(g64, lsmall, device=cpu)
+    rng = np.random.RandomState(64)
+    ls64, ms64 = ualm._lm_indices(lsmall)
+
+    def sky(cl, nlev):
+        a = rng.standard_normal((2, len(ls64))) + 1j * rng.standard_normal((2, len(ls64)))
+        a[:, ms64 == 0] = a[:, ms64 == 0].real * np.sqrt(2.)
+        return torch.as_tensor(a / np.sqrt(2.) * np.sqrt(cl[ls64]) * tf64[ls64]), \
+            rng.standard_normal((2, g64.nrings, g64.nphi)) * nlev / 60. / 180. * np.pi \
+            / np.sqrt(np.outer(g64.weight, np.full(g64.nphi, 2. * np.pi / g64.nphi)))
+
+    def perturbed(a):
+        return a * (1. + 1e-15 * rng.standard_normal(a.shape))
+
+    # (field, noise level in uK-arcmin, lmax_dense, limit of the card's solution against the
+    # CPU path's: None = 10x the CPU path's own change under a 1e-15 change of its maps and
+    # of its inverted dense block). The anisofilt T system at 35 uK-arcmin amplifies rounding
+    # by its condition (106 iterations; such a change moves its solution by ~5e-8 of max, and
+    # the card's is ~2x that from the CPU's). At 3000 uK-arcmin (14 iterations, ~5e-13 for
+    # such a change) and in the P system (~1e-15) the two are held to 1e-10 (PERF.md)
+    cases = (('t', 35., lsmall // 2, None), ('t', 3000., lsmall // 2, 1e-10),
+             ('p', 55., lsmall // 2, 1e-10))
+    for field, nlev, ld, tol in cases:
+        if field == 't':
+            s_t, n_t = sky(cls64['tt'], nlev)
+            maps = (sht64.alm2map(s_t).numpy() + n_t,)
+            ninv = ninv64['t'] * (35. / nlev) ** 2
+        else:
+            (s_e, n_q), (s_b, n_u) = sky(cls64['ee'], nlev), sky(cls64['bb'], nlev)
+            q64, u64 = sht64.alm2map_spin((s_e, s_b), 2)
+            maps = (q64.numpy() + n_q, u64.numpy() + n_u)
+            ninv = ninv64['p']
+
+        def filt(d, cacher=None):
+            cls_ = pcinv.CinvT if field == 't' else pcinv.CinvP
+            return cls_(lsmall, g64, cls64, tf64, ninv, lmax_dense=ld, dense_cacher=cacher,
+                        device=d)
+        held = cacher_mem()
+        f_gpu, f_cpu = filt(dev), filt(cpu, held)
+        (key, minv), = held._cache.items()
+        minv_n = cacher_mem()
+        minv_n.cache(key, 0.5 * (perturbed(minv) + perturbed(minv).T))
+        f_n = filt(cpu, minv_n)
+        x_g, it_g, rel_g = f_gpu.solve_wf(*maps)
+        x_c, it_c, rel_c = f_cpu.solve_wf(*maps)
+        x_n, it_n, _ = f_n.solve_wf(*[perturbed(m) for m in maps])
+        err, floor = rel_max(x_g.cpu(), x_c), rel_max(x_n, x_c)
+        limit = 10. * floor if tol is None else tol
+        # the loop's operators on the same vectors, card against CPU: the right-hand side
+        # and the forward op (the kernels' part), and the preconditioner, whose dense f64
+        # product differs with its summation order as far as its condition lets it
+        b_c = f_cpu.calc_prep(*maps)
+        ops = max(rel_max(f_gpu.calc_prep(*maps).cpu(), b_c),
+                  rel_max(f_gpu.fwd_op(b_c.to(dev)).cpu(), f_cpu.fwd_op(b_c)))
+        pre = rel_max(f_gpu.pre_op(b_c.to(dev)).cpu(), f_cpu.pre_op(b_c))
+        # the card's solution in the CPU path's system
+        res = true_rel(f_cpu, b_c, x_g.cpu(), f_cpu._ms if field == 't' else f_cpu._ms2)
+        # a warm solve on the card, traced: no host-to-device copy in the loop
+        maps_d = [torch.as_tensor(m, device=dev) for m in maps]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, it_w, _ = f_gpu.solve_wf(*maps_d)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        h2d, d2h = sum('HtoD' in n for n in names), sum('DtoH' in n for n in names)
+        k1 = sum('synth_pair_kernel' in n for n in names)
+        phase(6, '(6a) Cinv%s at lmax %d (lmax_dense %d), f64, batch 2, the anisofilt mask, '
+                 '%g uK-arcmin: %d iterations on the card, %d on the CPU; right-hand side and '
+                 'forward op %.2e of max from the CPU path\'s, preconditioner %.2e; the card\'s '
+                 'solution has a residual of %s in the CPU system and is %.2e of max from the '
+                 'CPU solution (limit %.2e; the CPU solution moves by %.2e under a 1e-15 '
+                 'change of its maps and inverted dense block); a warm solve on the card '
+                 'traced: %d K1 launches, %d host-to-device and %d device-to-host copies over '
+                 '%d iterations'
+              % (field.upper(), lsmall, ld, nlev, it_g, it_c, ops, pre,
+                 np.array2string(res.numpy(), precision=3), err, limit, floor, k1, h2d, d2h,
+                 it_w))
+        check(it_g == it_c == it_n and it_g > 5 and bool((rel_g < 1e-5).all())
+              and bool((res < 1e-5).all()),
+              'Cinv%s at lmax %d: iterations %d (card) / %d (CPU) / %d (perturbed), card '
+              'solution residual %s' % (field.upper(), lsmall, it_g, it_c, it_n, res))
+        check(ops <= 1e-12, 'Cinv%s right-hand side / forward op on the card vs CPU: %.2e'
+              % (field.upper(), ops))
+        check(err <= limit, 'Cinv%s at %g uK-arcmin, card vs CPU: %.2e > %.2e'
+              % (field.upper(), nlev, err, limit))
+        check(k1 > 0 and h2d == 0 and d2h <= it_w + 2, 'Cinv%s solve trace: %d K1 launches, '
+              '%d host-to-device, %d device-to-host copies' % (field.upper(), k1, h2d, d2h))
+        del f_gpu, f_cpu, f_n, prof
+    # 6b-6d: lmax 2048, the anisofilt configuration on the idealized parfile's sims
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    nalm = ualm.getsize(LMAX)
+    m6 = masked_path(par, dev, LMAX, f32=True, log=lambda s: phase(6, s))
+    for step, batch in (('t', 8), ('p', 4)):
+        st = m6[step]
+        rels = np.concatenate([st['rel'], st.get('true_rel', [])])
+        check(st['it'] < 300 and bool((rels < 1e-5).all()),
+              'Cinv%s at lmax %d did not converge below 1e-5: %d iterations, %s'
+              % (step.upper(), LMAX, st['it'], rels))
+        mode = 0 if step == 't' else 1
+        check(st['k1'].get((mode, batch, 'f64'), 0) > 0
+              and st['k2'].get((mode, batch, 'f64'), 0) > 0,
+              'Cinv%s did not run K1/K2 mode %d at batch %d: %s %s'
+              % (step.upper(), mode, batch, st['k1'], st['k2']))
+        check(st['peak_gib'] < 40., 'Cinv%s peak memory %.2f GiB' % (step.upper(), st['peak_gib']))
+    pr = m6['p_probe']
+    check(pr['peak_gib'] < 40. and pr['workspace_bytes'] <= lk.WORKSPACE_CAP
+          and pr['launches']['synth_pair'] > 0 and pr['launches']['anal_pair'] > 0,
+          'CinvP probe: peak %.2f GiB, workspace %s, launches %s'
+          % (pr['peak_gib'], pr['workspace_bytes'], pr['launches']))
+    ro = m6['route']
+    check(ro['launches']['synth_pair'] > 0 and ro['launches']['anal_pair'] > 0,
+          'the masked route launched %s' % ro['launches'])
+    gaps6 = {}
+    for k, q in m6['route_qlms'].items():
+        check(tuple(q.shape) == (len(ro['sims']), nalm) and bool(torch.isfinite(q).all()),
+              'masked route qlm %s' % k)
+        gaps6[k] = rel_rms(q.to(torch.complex128), qlms[k][ro['sims']].to(torch.complex128))
+    phase(6, '(6d) masked-route qlm against the full-sky qlm of phase 4, same sims (relative '
+             'rms, not checked): %s' % ', '.join('%s %.3e' % kv for kv in gaps6.items()))
+    cg_launches = (m6['t']['k1'][0, 8, 'f64'], m6['t']['k2'][0, 8, 'f64'])
+    del m6
+    torch.cuda.empty_cache()
+    # K1/K2 at the CG shape of 6b (spin 0, one input, f64, batch 8, 2049 rings) against
+    # their plain versions, for the kernels' line
+    g6 = gl_geometry(LMAX)
+    nr6, B, L = g6.nrings, 8, LMAX + 1
+    t_0, _ = core.pair_tables(LMAX, LMAX, 0, g6.theta, None, dev)
+    C = crandn((B, L, L), torch.complex128)
+    F0, _ = lk.synth_pair(C, None, 0, nr6, t_0, t_0)
+    ms_s, (F, _) = cuda_ms(lambda: lk.synth_pair(C, None, 0, nr6, t_0, t_0), 3)
+    check(torch.equal(F0, F), 'synth_pair at the CG shape is not deterministic')
+    Q6 = (F * torch.as_tensor(g6.weight, device=dev)[:, None]).contiguous()
+    A0, _ = lk.anal_pair(Q6, None, 0, LMAX, t_0, t_0)
+    ms_a, (A, _) = cuda_ms(lambda: lk.anal_pair(Q6, None, 0, LMAX, t_0, t_0), 3)
+    check(torch.equal(A0, A), 'anal_pair at the CG shape is not deterministic')
+    pms_s, (PF, _) = cuda_ms(lambda: core.legendre_synth_pair_plain(C, None, 0, nr6, t_0, t_0), 1)
+    pms_a, (PA, _) = cuda_ms(lambda: core.legendre_anal_pair_plain(Q6, None, 0, LMAX, t_0, t_0),
+                             1)
+    check(rel_max(F, PF) <= 1e-12 and rel_max(A, PA) <= 1e-12, 'K1/K2 vs plain at the CG '
+          'shape: %.2e / %.2e' % (rel_max(F, PF), rel_max(A, PA)))
+    # mode 0: one recursion on the 1025 northern rings, one sum a map (roofline.PAIR_WORK)
+    b6 = pair_bound((t_0,), 0, B, nr6, True)
+    stats_cg = {'synth': (ms_s, pms_s, (F - PF).abs().max().item()) + b6,
+                'anal': (ms_a, pms_a, (A - PA).abs().max().item()) + b6}
+    phase(6, 'K1/K2 at the CG shape (spin 0, one input, f64, batch 8, %d rings): synth %.3f ms '
+             '(plain %.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e of max), '
+             'bound %.3f ms (%s), both bitwise equal on a second run'
+          % (nr6, ms_s, pms_s, rel_max(F, PF), ms_a, split('anal_pair'), pms_a, rel_max(A, PA),
+             b6[0], b6[1]))
+    del C, F0, F, Q6, A0, A, PF, PA, t_0
 
     kernels = []
     for name, st, n in (('synth_pair', stats[8]['synth'], launches['synth_pair']),
                         ('anal_pair', stats[8]['anal'], launches['anal_pair']),
                         ('synth', stats_p['synth'], hp_launches['synth']),
-                        ('anal', stats_p['anal'], hp_launches['anal'])):
+                        ('anal', stats_p['anal'], hp_launches['anal']),
+                        ('synth_pair_cg', stats_cg['synth'], cg_launches[0]),
+                        ('anal_pair_cg', stats_cg['anal'], cg_launches[1])):
         ms_k, ms_p, err_abs = st[:3]
         bound_ms, bound_by = st[-2:]
         kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
-                        'replaces': REPLACES[name], 'launches': n,
+                        'replaces': REPLACES[name.replace('_cg', '')], 'launches': n,
                         'max_abs_err': err_abs, 'ms': ms_k, 'plain_ms': ms_p,
                         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None})
     print(smi)

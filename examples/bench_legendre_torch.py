@@ -15,6 +15,9 @@ these sizes; ten times the launches at the pixel-window shape, which takes ~1 ms
   K3  n = -2, f64, lmax 2048 on all 8191 rings of HEALPix nside 2048, batch 4: the HEALPix
       path's;
   K2  spin-1 pair, f32, lmax 2048 on the 3073-ring QE grid, batch 4 and batch 8;
+  K1, K2  the masked filter's CG shapes (models/cinv.py), f64 on the 2049 rings of
+      gl_geometry(2048): spin 0 with one input (CinvT) at batch 1 and 8, the spin-2 pair
+      (CinvP) at batch 4, each with its bound (ops/sht/roofline.pair_bound);
   K4  n = -2, f64, lmax 2048 on all 8191 rings of HEALPix nside 2048, batch 4;
   K4  n = 2, f64, lmax 512 on the 48 node rings of the exact pixel window of nside 128
       against its 64 pixel shapes.
@@ -42,6 +45,7 @@ if _REPO not in sys.path:
     sys.path.insert(0, _REPO)
 
 import torch
+
 
 LMAX = 2048
 NSIDE = 2048
@@ -81,6 +85,7 @@ def main():
     from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk, HealpixGeometry
     from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
     from plancklens_tpu_torch.ops.sht.pixwin import _ring_Gm
+    from plancklens_tpu_torch.ops.sht.roofline import pair_bound
     dev = torch.device('cuda:0')
     smi = subprocess.run(['nvidia-smi', '-i', '0', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
@@ -213,6 +218,44 @@ def main():
           'synth_pair', lambda nseg: lk.synth_pair(C, None, 0, nr, t_0, t_0)[:1], 1e-5, False,
           shape=lk.synth_shape('pair', 'f32', 4))
     del C, t_0
+    torch.cuda.empty_cache()
+
+    cg_geom = gl_geometry(LMAX)                      # the cinv grid of lmax 2048: 2049 rings
+    ncg, L = cg_geom.nrings, LMAX + 1
+
+    def with_bound(row, tabs, mode, B):
+        """roofline.pair_bound of the f64 pair call timed in `row`."""
+        row['bound_ms'], row['bound_by'] = pair_bound(tabs, mode, B, ncg, True)
+        print('    bound %.3f ms (%s): %.1f%% of it' % (row['bound_ms'], row['bound_by'],
+                                                    100. * row['bound_ms'] / row['ms']))
+
+    t_0, _ = core.pair_tables(LMAX, LMAX, 0, cg_geom.theta, None, dev)
+    for B in (1, 8):
+        C = crandn((B, L, L), torch.complex128)
+        with_bound(timed('K1 synth_pair, spin 0, one input, f64, lmax %d, %d rings, batch %d '
+                         '(CinvT)' % (LMAX, ncg, B), 'synth_pair',
+                         lambda nseg: lk.synth_pair(C, None, 0, ncg, t_0, t_0)[:1], 1e-12,
+                         False, shape=lk.synth_shape('pair', 'f64', B)), [t_0], 0, B)
+        Q = crandn((B, ncg, L), torch.complex128)
+        with_bound(timed('K2 anal_pair, spin 0, one input, f64, lmax %d, %d rings, batch %d '
+                         '(CinvT)' % (LMAX, ncg, B), 'anal_pair',
+                         lambda nseg: lk.anal_pair(Q, None, 0, LMAX, t_0, t_0, nseg=nseg)[:1],
+                         1e-12, args.sweep), [t_0], 0, B)
+        del C, Q
+    del t_0
+    t_m, t_p = core.pair_tables(LMAX, LMAX, 2, cg_geom.theta, None, dev)
+    C, Cm = (crandn((4, L, L), torch.complex128) for _ in range(2))
+    with_bound(timed('K1 synth_pair, spin-2 pair, f64, lmax %d, %d rings, batch 4 (CinvP)'
+                     % (LMAX, ncg), 'synth_pair',
+                     lambda nseg: lk.synth_pair(C, Cm, 2, ncg, t_m, t_p), 1e-12, False,
+                     shape=lk.synth_shape('pair', 'f64', 4)), [t_m, t_p], 1, 4)
+    del C, Cm
+    Qp, Qm = (crandn((4, ncg, L), torch.complex128) for _ in range(2))
+    with_bound(timed('K2 anal_pair, spin-2 pair, f64, lmax %d, %d rings, batch 4 (CinvP)'
+                     % (LMAX, ncg), 'anal_pair',
+                     lambda nseg: lk.anal_pair(Qp, Qm, 2, LMAX, t_m, t_p, nseg=nseg), 1e-12,
+                     args.sweep), [t_m, t_p], 1, 4)
+    del Qp, Qm, t_m, t_p
     torch.cuda.empty_cache()
 
     hgeom = HealpixGeometry(NSIDE)

@@ -1,1 +1,1 @@
-from . import spin, qe, qresp, sims, filt, qest, qecl
+from . import spin, qe, qresp, sims, filt, qest, qecl, cinv

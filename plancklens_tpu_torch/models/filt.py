@@ -1,6 +1,8 @@
-r"""Inverse-variance filtering libraries (the 'ivfs' interface), isotropic full-sky part.
+r"""Inverse-variance filtering libraries (the 'ivfs' interface): isotropic, shuffled and
+l-rescaled.
 
-Port of plancklens_tpu/models/filt.py:22-153 and 258-289. The ivfs contract (reference:
+Port of plancklens_tpu/models/filt.py:22-153, 258-289 and 290-336 (the masked filters
+are models/cinv.py). The ivfs contract (reference:
 plancklens/filt/filt_simple.py:16-183):
   get_sim_tlm/elm/blm(idx)        inverse-variance filtered alms  (bar X = F X_data)
   get_sim_tmliklm/emliklm/bmliklm Wiener-filtered alms            (X^WF = C_l bar X)
@@ -170,3 +172,52 @@ class IVFShuffle:
             inner = getattr(self.ivfs, name)
             return lambda idx, *a, **kw: inner(self._m(idx), *a, **kw)
         return getattr(self.ivfs, name)
+
+
+class IVFFtl:
+    """Post-hoc l-rescaling of a filtering library, e.g. for l-cuts
+    (reference: plancklens/filt/filt_util.py:39-103)."""
+
+    def __init__(self, ivfs, lfilt_t, lfilt_e, lfilt_b):
+        self.ivfs = ivfs
+        self.lt = np.asarray(lfilt_t)
+        self.le = np.asarray(lfilt_e)
+        self.lb = np.asarray(lfilt_b)
+
+    def hashdict(self):
+        return {'ivfs': self.ivfs.hashdict(), 'lt': clhash(self.lt),
+                'le': clhash(self.le), 'lb': clhash(self.lb)}
+
+    def get_ftl(self):
+        return self.ivfs.get_ftl()[:len(self.lt)] * self.lt
+
+    def get_fel(self):
+        return self.ivfs.get_fel()[:len(self.le)] * self.le
+
+    def get_fbl(self):
+        return self.ivfs.get_fbl()[:len(self.lb)] * self.lb
+
+    def get_tal(self, a):
+        return self.ivfs.get_tal(a)
+
+    def _apply(self, alm, fl):
+        lmax = ualm.getlmax(alm.shape[-1])
+        return ualm.almxfl(alm, lmax, np.pad(fl, (0, max(0, lmax + 1 - len(fl)))))
+
+    def get_sim_tlm(self, idx):
+        return self._apply(self.ivfs.get_sim_tlm(idx), self.lt)
+
+    def get_sim_elm(self, idx):
+        return self._apply(self.ivfs.get_sim_elm(idx), self.le)
+
+    def get_sim_blm(self, idx):
+        return self._apply(self.ivfs.get_sim_blm(idx), self.lb)
+
+    def get_sim_tmliklm(self, idx):
+        return self._apply(self.ivfs.get_sim_tmliklm(idx), self.lt)
+
+    def get_sim_emliklm(self, idx):
+        return self._apply(self.ivfs.get_sim_emliklm(idx), self.le)
+
+    def get_sim_bmliklm(self, idx):
+        return self._apply(self.ivfs.get_sim_bmliklm(idx), self.lb)

@@ -1,8 +1,8 @@
 r"""Simulation libraries: reproducible Gaussian CMB + noise skies in harmonic space.
 
-Port of plancklens_tpu/models/sims.py:22-194 and 343-389 (`unit_phases`,
-`cls_to_coloring`, `CMBUnlLib`, `MapsNlevLib`, `ExternalAlmLib`). Determinism comes from
-one `torch.Generator` per (library seed, simulation index), seeded through numpy's
+Port of plancklens_tpu/models/sims.py:22-194, 343-389 and 508-532 (`unit_phases`,
+`cls_to_coloring`, `CMBUnlLib`, `MapsNlevLib`, `ExternalAlmLib`, `AlmMapLib`). Determinism
+comes from one `torch.Generator` per (library seed, simulation index), seeded through numpy's
 SeedSequence; the streams differ from the reference's `jax.random` draws. For parity
 tests each library also takes `phases=`, a callable idx -> numpy (nfields, nalm) complex
 unit phases (e.g. the reference's own, through `compat.phases_from_numpy`), which
@@ -243,3 +243,37 @@ class ExternalAlmLib:
         """3-tuple of (nsims, nalm) alms."""
         idxs = [int(i) for i in np.atleast_1d(idxs)]
         return tuple(torch.stack([self._get(f, i) for i in idxs]) for f in 'teb')
+
+
+class AlmMapLib:
+    """Map-space view of an alm simulation library on a ring geometry: the 'observed sky'
+    interface the masked (cinv) filters consume (reference: plancklens_tpu/models/sims.py
+    AlmMapLib; role of plancklens/sims/maps.py cmb_maps). The maps are synthesised on the
+    solver grid from the library's alms, in real dtype `dtype` on `device` (the alms must
+    lie there too, as for SHT).
+
+    Args:
+        alm_lib: library with get_sim_tlm/elm/blm (e.g. MapsNlevLib)
+        geom: RingGeometry of the maps
+        lmax: band limit of the alms
+    """
+
+    def __init__(self, alm_lib, geom, lmax, dtype=torch.float64, *, device):
+        from ..ops.sht import SHT
+        self.alm_lib = alm_lib
+        self.lmax = lmax
+        self.sht = SHT(geom, lmax, dtype=dtype, device=device)
+
+    def hashdict(self):
+        return {'alm_lib': self.alm_lib.hashdict(), 'lmax': self.lmax,
+                'geom': self.sht.geom.hashdict()}
+
+    def get_sim_tmap(self, idx):
+        """(nrings, nphi) temperature map of simulation idx."""
+        return self.sht.alm2map(self.alm_lib.get_sim_tlm(idx))
+
+    def get_sim_pmap(self, idx):
+        """(Q, U) maps of simulation idx, from its E and B alms."""
+        elm = self.alm_lib.get_sim_elm(idx)
+        blm = self.alm_lib.get_sim_blm(idx)
+        return self.sht.alm2map_spin((elm, blm), 2)

@@ -1,1 +1,1 @@
-from . import gauleg, sht
+from . import gauleg, sht, cg

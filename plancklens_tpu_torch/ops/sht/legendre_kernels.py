@@ -45,9 +45,10 @@ DTYPES = ('f32', 'f64')
 # show that the main path went through the kernels). A call of `anal_pair`/`anal` counts
 # once, whether or not its ring sum takes a second pass.
 launches = {'synth_pair': 0, 'anal_pair': 0, 'synth': 0, 'anal': 0}
-# K1's launches by (mode, batch, 'f32' or 'f64'), reset with `launches`: the shapes a path
-# really runs it at
+# K1's and K2's launches by (mode, batch, 'f32' or 'f64'), reset with `launches`: the
+# shapes a path really runs them at
 synth_pair_shapes = {}
+anal_pair_shapes = {}
 # the segment plan of the last `anal_pair` and `anal` call
 last_plan = {}
 
@@ -80,6 +81,7 @@ def reset_launches():
     for k in launches:
         launches[k] = 0
     synth_pair_shapes.clear()
+    anal_pair_shapes.clear()
 
 
 SegmentPlan = collections.namedtuple(
@@ -378,8 +380,11 @@ def anal_pair(Qp, Qm, spin, lmax, t_m, t_p, nseg=None):
     A = torch.empty((B, L, M), dtype=Qp.dtype, device=dev)
     Bc = None if Qm is None else torch.empty_like(A)
     plan, ws = _plan('anal_pair', Qp, (R + 1) // 2, L, 1 if Qm is None else 2, nseg)
-    _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R,
-                 _mode(spin, Qm is not None), dev, _ptr(ws), plan.nseg)
+    mode = _mode(spin, Qm is not None)
+    _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R, mode, dev, _ptr(ws),
+                 plan.nseg)
+    shape = (mode, B, _suffix(Qp.dtype))
+    anal_pair_shapes[shape] = anal_pair_shapes.get(shape, 0) + 1
     return A, Bc
 
 
