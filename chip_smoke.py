@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Builds the hand-written Hopper Legendre kernels from this checkout, holds each against its
-plain torch version, and drives the port's two paths, counting kernel launches on the way:
+plain torch version, and drives the port's paths, counting kernel launches on the way:
 the main path — the idealized full-sky parameter file through the staged driver's
 functions (filtering, batched ptt and p_p QEs, split-half mean fields, dd/ds/ss spectra)
-at LMAX_IVF = LMAX_QLM = 2048 with 8 simulations, float32 QEs on cuda:0 — and the HEALPix
-entry path at Planck's nside 2048. Phases:
+at LMAX_IVF = LMAX_QLM = 2048 with 8 simulations, float32 QEs on cuda:0 —, the HEALPix
+entry path at Planck's nside 2048, masked filtering, and the lensed masked chain of the
+anisotropic parameter file at lmax 2048. Phases:
 
   0 device      CUDA present (no CPU path), card name and power limit, TF32 off
   1 build       nvcc build of csrc/legendre_pair.cu, all four kernels (timed; registers)
@@ -55,8 +56,25 @@ entry path at Planck's nside 2048. Phases:
                 seconds, K2 workspace <= its cap); (6d) AlmMapLib -> IVFCinv -> IVFFtl(l >=
                 102) -> QELib ptt/p_p on 2 sims, finite, against phase 4's qlm (printed);
                 then K1/K2 at 6b's shape timed against their plain versions (<= 1e-12)
+  7 lensed      the lensed masked chain of params/anisofilt_example_torch.py
+                (examples/lensed_chain_torch.py): (7a) Lensing.alm2lenmap(_spin) on 2 sims,
+                one also deflected by a curl potential, and CMBLenLib.get_sim_tlm/eblm at
+                lmax 64 (dlmax 16), f64, on the card against the CPU plain path (<= 1e-10 of
+                max), K1 launches by (mode, batch, type); (7b) lensed sims 0-3 at lmax 2048
+                (dlmax 128, oversample 4, order 9, f64): cold host table builds of the ECP
+                and GL grids, each sim's time split by step (CUDA events), K1/K2 launches by
+                step, peak < 40 GiB, the step-by-step sim against the libraries (<= 1e-10),
+                binned lensed TT/EE/BB (100 <= l < 1500, bins of 100) against
+                FFP10_wdipole_lensedCls.dat within K sigma of 4 full-sky sims' cosmic
+                variance plus a floor (lensed_chain_torch.SPECTRA_BOUND), and K1 at the ECP
+                T / Q-U and deflection shapes and K2 at the lensed E/B map2alm against their
+                plain versions (<= 1e-12), timed with their bounds; (7c) the parfile at
+                lmax 2048 on sims 0-3 (filt through IVFCinv with phase 6's dense blocks, qe
+                ptt/p_p, qcl dd, responses, nhl of sim 0, the cross with the input phi),
+                each stage timed, all finite, and <q x phi_in> / (R_L C_L^pp fsky) over
+                30 <= L <= 1000 within [0.7, 1.3] for ptt and p_p
 
-Phases 4, 5b and 6 each start with an empty recursion-table cache, so each path's times and
+Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
 
 Any failure raises (non-zero exit). The line before the last is a JSON object with one
@@ -67,6 +85,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -109,6 +128,9 @@ def cuda_ms(fn, reps):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps, out
+
+
+T_START = time.perf_counter()
 
 
 def main():
@@ -640,11 +662,14 @@ def main():
         check(k1 > 0 and h2d == 0 and d2h <= it_w + 2, 'Cinv%s solve trace: %d K1 launches, '
               '%d host-to-device, %d device-to-host copies' % (field.upper(), k1, h2d, d2h))
         del f_gpu, f_cpu, f_n, prof
-    # 6b-6d: lmax 2048, the anisofilt configuration on the idealized parfile's sims
+    # 6b-6d: lmax 2048, the anisofilt configuration on the idealized parfile's sims; the
+    # dense blocks stay in `dense_blocks` for phase 7c's filters (the same keys)
     core.TABLES.clear()
     torch.cuda.empty_cache()
     nalm = ualm.getsize(LMAX)
-    m6 = masked_path(par, dev, LMAX, f32=True, log=lambda s: phase(6, s))
+    dense_blocks = cacher_mem()
+    m6 = masked_path(par, dev, LMAX, f32=True, dense_cacher=dense_blocks,
+                     log=lambda s: phase(6, s))
     for step, batch in (('t', 8), ('p', 4)):
         st = m6[step]
         rels = np.concatenate([st['rel'], st.get('true_rel', [])])
@@ -703,6 +728,49 @@ def main():
           % (nr6, ms_s, pms_s, rel_max(F, PF), ms_a, split('anal_pair'), pms_a, rel_max(A, PA),
              b6[0], b6[1]))
     del C, F0, F, Q6, A0, A, PF, PA, t_0
+    del par
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7 lensed masked chain
+    from lensed_chain_torch import card_vs_cpu, lensed_sims, parfile_chain
+    log7 = lambda s: phase(7, s)
+    t7 = time.perf_counter()
+    r7a = card_vs_cpu(dev, log=log7)
+    check(r7a['maps_err'] <= 1e-10 and r7a['alms_err'] <= 1e-10,
+          'lensing on the card vs the CPU plain path: maps %.2e, alms %.2e > 1e-10'
+          % (r7a['maps_err'], r7a['alms_err']))
+    check(r7a['launches']['synth_pair'] > 0 and r7a['launches']['anal_pair'] > 0
+          and r7a['curl_moves'] > 1e-6, '7a: launches %s, the curl moves T by %.2e'
+          % (r7a['launches'], r7a['curl_moves']))
+    r7b = lensed_sims(dev, LMAX, sims=HP_SIMS, log=log7)
+    path7 = Counter()
+    for v in r7b['launches'].values():
+        path7.update(v)
+    check(sum(v for k, v in path7.items() if k[0] == 'synth_pair') > 0
+          and sum(v for k, v in path7.items() if k[0] == 'anal_pair') > 0,
+          'the lensed sims did not launch K1 and K2: %s' % dict(path7))
+    check(r7b['peak_gib'] < 40., 'lensed sims peak memory %.2f GiB' % r7b['peak_gib'])
+    check(r7b['split_vs_library'] <= 1e-10, 'step-by-step lensed sim vs the libraries: %.2e'
+          % r7b['split_vs_library'])
+    for k, sp in r7b['spectra'].items():
+        dev_k = np.abs(sp['ratio'] - 1.)
+        check(bool(np.all(dev_k <= sp['bound'])), 'lensed %s / FFP10 lensed: %s beyond %s'
+              % (k.upper(), sp['ratio'], sp['bound']))
+    for name, row in r7b['kernels'].items():
+        check(row['rel_err'] <= 1e-12, '%s vs plain: %.2e' % (name, row['rel_err']))
+    r7c = parfile_chain(dev, LMAX, nsims=len(HP_SIMS), dense_cacher=dense_blocks, log=log7)
+    check(r7c['finite'], 'the lensed chain gave non-finite outputs')
+    for k, a in r7c['ampl'].items():
+        check(0.7 <= a <= 1.3, '<q x phi_in> / (R C^pp fsky) of %s: %.4f outside [0.7, 1.3]'
+              % (k, a))
+    phase(7, 'phase 7 wall %.1fs; the whole run so far %.1fs'
+          % (time.perf_counter() - t7, time.perf_counter() - T_START))
+    # launches of the 4 sims' steps, at each new row's shape
+    lens_launches = {'synth_pair_ecp_t': ('ecp_t', ('synth_pair', 0, 1, 'f64')),
+                     'synth_pair_ecp_qu': ('ecp_qu', ('synth_pair', 1, 1, 'f64')),
+                     'synth_pair_deflection': ('deflection', ('synth_pair', 1, 1, 'f64')),
+                     'anal_pair_lensed_eb': ('map2alm', ('anal_pair', 1, 1, 'f64'))}
 
     kernels = []
     for name, st, n in (('synth_pair', stats[8]['synth'], launches['synth_pair']),
@@ -717,6 +785,14 @@ def main():
                         'replaces': REPLACES[name.replace('_cg', '')], 'launches': n,
                         'max_abs_err': err_abs, 'ms': ms_k, 'plain_ms': ms_p,
                         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None})
+    for name, row in r7b['kernels'].items():
+        step, shape_key = lens_launches[name]
+        kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
+                        'replaces': REPLACES[shape_key[0]],
+                        'launches': r7b['launches'].get(step, {}).get(shape_key, 0),
+                        'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+                        'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+                        'bound_by': row['bound_by'], 'library_ms': None})
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -103,11 +103,13 @@ def trace_iterations(cinv, maps, n):
     return summarize(events, window='cinv_iterations')
 
 
-def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, log=print):
+def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cacher=None,
+                log=print):
     """Run the masked filters at lmax on `device` (see the module docstring) and return a
     dict of their outputs and numbers. The launch counts of each step are reset just
     before it and read just after. On a CUDA device, 10 warm T iterations are also traced
-    (`trace_iterations`)."""
+    (`trace_iterations`). The T and E/B dense blocks go to `dense_cacher` (a fresh
+    cacher_mem by default), whose keys params/anisofilt_example_torch.py's filters share."""
     import run_qlms_torch as drv
     from plancklens_tpu_torch import DATAPATH
     from plancklens_tpu_torch.utils import camb_clfile
@@ -136,7 +138,7 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, log=print)
     out = {'lmax': lmax, 'grid': (geom.nrings, geom.nphi)}
 
     # ---- T: host dense block, then one lockstep solve of BATCH_T maps
-    dense_cache = cacher_mem()
+    dense_cache = cacher_mem() if dense_cacher is None else dense_cacher
     t0 = time.perf_counter()
     cinv_t = pcinv.CinvT(lmax, geom, cl_len, transf, ninv['t'], eps_min=1e-5,
                          lmax_dense=dense_t, dense_cacher=dense_cache, device=device)
@@ -182,7 +184,7 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, log=print)
     fresh()
     t0 = time.perf_counter()
     cinv_p = pcinv.CinvP(lmax, geom, cl_len, transf, ninv['p'], eps_min=1e-5,
-                         lmax_dense=dense_p, device=device)
+                         lmax_dense=dense_p, dense_cacher=dense_cache, device=device)
     if cuda:
         torch.cuda.synchronize()
     chunk = pcinv.probe_chunk(geom, lmax, 2, torch.float64)

@@ -4,7 +4,9 @@ With these, the tests run both packages on identical inputs:
   * `tables_from_numpy(tab, device)`: a reference recursion-table set (the `t['np']` dict
     of plancklens_tpu.ops.sht.core.recursion_tables, float64) as the port's device tables;
   * `phases_from_numpy(arr)`: reference unit phases as a `phases=` callable of the port's
-    simulation libraries (models/sims.py).
+    simulation libraries (models/sims.py);
+  * `noise_from_numpy(maps)`: reference unit pixel-noise maps as the `noise=` callable of
+    `sims.MapsLenNlevLib`.
 """
 import numpy as np
 
@@ -30,3 +32,13 @@ def phases_from_numpy(arr):
         return lambda idx: table[int(idx)]
     arr = np.asarray(arr)
     return lambda idx: arr[int(idx)]
+
+
+def noise_from_numpy(maps):
+    """Unit-variance pixel-noise maps -> `noise=` callable (idx, tag) -> numpy array.
+
+    maps: a dict {(idx, tag): array}, tag 0 the (nrings, nphi) T noise and tag 1 the
+    (2, nrings, nphi) Q/U noise of simulation idx (e.g. the reference's
+    `jax.random.normal(MapsLenNlevLib._noise_key(idx, tag), shape)` draws)."""
+    table = {(int(i), int(t)): np.asarray(v) for (i, t), v in maps.items()}
+    return lambda idx, tag: table[int(idx), int(tag)]

@@ -1,13 +1,16 @@
 r"""QE power spectra with split-half mean-field subtraction.
 
-Port of plancklens_tpu/models/qecl.py:112-266 (reference semantics: plancklens/qecl.py:
+Port of plancklens_tpu/models/qecl.py:112-305 (reference semantics: plancklens/qecl.py:
 29-145): the mean-field is estimated from two disjoint halves of mc_sims_mf (even indices
 for leg A, odd for leg B) so the MF noise does not bias the cross-spectrum. Requesting the
 spectrum of a sim inside mc_sims_mf raises by default (the MF leg would correlate with
 it — reference qecl.py:102); leave_out=True subtracts a mean-field recomputed without
-that sim on the leg(s) containing it. Spectra are host numpy arrays.
+that sim on the leg(s) containing it. Spectra are host numpy arrays. `InputPlmLib` is
+the qlm-library view of a simulation library's input potentials (the B leg of the
+parameter files' `qlms_x_in`).
 """
 import numpy as np
+import torch
 
 from ..utils import alm as ualm
 from ..utils.hashing import mchash
@@ -180,3 +183,46 @@ class QeClLib:
         for j, fn in enumerate(fns):
             self.cacher.cache(fn, cls[j])
         return cls
+
+
+class InputPlmLib:
+    """qlm-library view over a sim library's input lensing potentials, the B leg of a
+    `qlms_x_in` cross-spectra library (reference: plancklens_tpu/models/qecl.py:269-298;
+    role of plancklens' optional qlms_x_in parfile attribute). The input alms come back on
+    the sim library's device; `device` places the zeros of curl keys and mean fields."""
+
+    def __init__(self, sim_lib, lmax_qlm, *, device):
+        self.sim_lib = sim_lib      # needs get_sim_plm
+        self.lmax_qlm = lmax_qlm
+        self.device = torch.device(device)
+        self.ivfs1 = self.ivfs2 = _FullSkyLeg()
+
+    def hashdict(self):
+        return {'sim_lib': self.sim_lib.hashdict(), 'lmax_qlm': self.lmax_qlm,
+                'input_plm': True}
+
+    def _zeros(self):
+        return torch.zeros(ualm.getsize(self.lmax_qlm), dtype=torch.complex128,
+                           device=self.device)
+
+    def get_sim_qlm(self, k, idx):
+        if k[0] == 'x':   # no input curl: the cross of a curl QE with the input is zero
+            return self._zeros()
+        plm = self.sim_lib.get_sim_plm(int(idx))
+        return ualm.alm_copy(plm, ualm.getlmax(plm.shape[-1]), self.lmax_qlm)
+
+    def get_sim_qlm_mf(self, k, mc_sims):
+        return self._zeros()
+
+    def get_sim_qlm_batch(self, k, idxs):
+        return torch.stack([self.get_sim_qlm(k, int(i)) for i in np.atleast_1d(idxs)])
+
+    def get_lmax_qlm(self, k):
+        return self.lmax_qlm
+
+
+class _FullSkyLeg:
+    """Marker leg with no mask: QeClLib._fskies treats it as the full sky."""
+
+    def hashdict(self):
+        return {'fullsky': True}

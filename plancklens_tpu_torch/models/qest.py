@@ -14,6 +14,7 @@ import torch
 from ..utils import alm as ualm
 from ..utils.hashing import clhash, mchash
 from ..utils.cachers import cacher_mem
+from ..utils.cls import cli
 from ..ops.sht import SHT, gl_geometry
 from . import qresp
 from .qe import qe_compress
@@ -141,19 +142,21 @@ class QELib:
         lmax_ivf: max CMB multipole used
         lmax_qlm: output band limit
         cacher: optional cacher for computed qlms (host numpy products)
+        resplib: qresp.RespLib, needed by the bias-hardened '_bh_' keys
         transf, profile: beam / source profile for the 'ntt' / 'dtt' keys
         dtype: SHT real dtype (None = float64; torch.float32 in production)
         device: device the QEs are evaluated on
     """
 
     def __init__(self, ivfs1, ivfs2, cls_weight, lmax_ivf, lmax_qlm, cacher=None,
-                 transf=None, profile=None, dtype=None, *, device):
+                 resplib=None, transf=None, profile=None, dtype=None, *, device):
         self.ivfs1 = ivfs1
         self.ivfs2 = ivfs2
         self.cls_weight = cls_weight
         self.lmax_ivf = lmax_ivf
         self.lmax_qlm = lmax_qlm
         self.cacher = cacher if cacher is not None else cacher_mem(maxsize=64)
+        self.resplib = resplib
         self.transf = transf
         self.profile = profile
         self.dtype = dtype
@@ -214,6 +217,28 @@ class QELib:
         """QE on the data map (index -1 convention; reference: plancklens/qest.py:203)."""
         return self.get_sim_qlm(k, -1, **kwargs)
 
+    def get_mask(self, leg):
+        """Sky mask of leg 1 or 2 (full-sky scalar 1. when the filtering library carries
+        no mask; reference: plancklens/qest.py:151-153)."""
+        assert leg in (1, 2), leg
+        from .filt import base_ivfs
+        base = base_ivfs(self.ivfs1 if leg == 1 else self.ivfs2)
+        return np.asarray(base.get_fmask()) if hasattr(base, 'get_fmask') else 1.
+
+    def get_fsky(self, id):
+        """Mask-product sky fractions <m_i m_j> for id in {11, 22, 12} (reference:
+        plancklens/qest.py:86-105, 143-145). Ring-grid masks are quadrature-weighted."""
+        assert id in (11, 22, 12), id
+        if not hasattr(self, '_fskies'):
+            from .filt import mask_geom, fsky_mean
+            ms, mean = fsky_mean([mask_geom(i) for i in (self.ivfs1, self.ivfs2)])
+            if ms is None:  # maskless, or legs on different grids: degrade to 1
+                self._fskies = {11: 1., 22: 1., 12: 1.}
+            else:
+                self._fskies = {11: mean(ms[0] * ms[0]), 22: mean(ms[1] * ms[1]),
+                                12: mean(ms[0] * ms[1])}
+        return self._fskies[id]
+
     def _get_alm_fn(self, ivfs, idx):
         def get_alm(f):
             return {'t': ivfs.get_sim_tlm, 'e': ivfs.get_sim_elm,
@@ -233,22 +258,28 @@ class QELib:
             return {'t': t, 'e': e, 'b': b}[f]
         return get_alm
 
-    @staticmethod
-    def _no_bh(k):
-        if '_bh_' in k:
-            raise NotImplementedError(
-                "'_bh_' keys need qresp.RespLib, which is not ported yet")
+    def _bh_qlm(self, k, get_qlm):
+        """Bias-hardened qlm^{bh} = qlm^{QE} - w_L qlm^{src-est}, with
+        w_L = R^{QE,src} / R^{src-est,src} (reference: plancklens/qest.py:173-181)."""
+        assert self.resplib is not None, \
+            "'_bh_' keys need the resplib argument (a qresp.RespLib)"
+        kQE, ksource = k.split('_bh_')
+        assert len(ksource) == 1, (kQE, ksource)
+        wL = np.asarray(self.resplib.get_response(kQE, ksource)) \
+            * cli(np.asarray(self.resplib.get_response(ksource + kQE[1:], ksource)))
+        return get_qlm(kQE) - _almxfl(get_qlm(ksource + kQE[1:]), wL)
 
     def get_sim_qlm(self, k, idx):
-        """Gradient (or curl) QE alm tensor for simulation idx; composite keys resolve
-        recursively as in the reference (reference: plancklens/qest.py:155-201)."""
+        """Gradient (or curl) QE alm tensor for simulation idx; composite and '_bh_' keys
+        resolve recursively as in the reference (reference: plancklens/qest.py:155-201)."""
         assert k[0] in ['p', 'x', 's', 'f', 'a', 'n', 'd'], k
         if k in ['p_tp', 'x_tp', 'f_tp', 's_tp']:
             return self.get_sim_qlm('%stt' % k[0], idx) + self.get_sim_qlm('%s_p' % k[0], idx)
         if k in ['p_te', 'p_tb', 'p_eb', 'x_te', 'x_tb', 'x_eb']:
             return (self.get_sim_qlm(k[0] + k[2] + k[3], idx)
                     + self.get_sim_qlm(k[0] + k[3] + k[2], idx))
-        self._no_bh(k)
+        if '_bh_' in k:
+            return self._bh_qlm(k, lambda kk: self.get_sim_qlm(kk, idx))
         fn = 'qlm%s_%s_%04d' % (self._ctag, k, idx)
         fnx = 'qlm%s_%s_%04d' % (self._ctag, 'x' + k[1:], idx)
         if not self.cacher.is_cached(fn):
@@ -277,7 +308,8 @@ class QELib:
         if k in ['p_te', 'p_tb', 'p_eb', 'x_te', 'x_tb', 'x_eb']:
             return (self.get_sim_qlm_batch(k[0] + k[2] + k[3], idxs)
                     + self.get_sim_qlm_batch(k[0] + k[3] + k[2], idxs))
-        self._no_bh(k)
+        if '_bh_' in k:
+            return self._bh_qlm(k, lambda kk: self.get_sim_qlm_batch(kk, idxs))
         idxs = np.atleast_1d(np.asarray(idxs, dtype=int))
         fns = ['qlm%s_%s_%04d' % (self._ctag, k, i) for i in idxs]
         if all(self.cacher.is_cached(fn) for fn in fns):

@@ -1,12 +1,14 @@
 r"""Simulation libraries: reproducible Gaussian CMB + noise skies in harmonic space.
 
-Port of plancklens_tpu/models/sims.py:22-194, 343-389 and 508-532 (`unit_phases`,
-`cls_to_coloring`, `CMBUnlLib`, `MapsNlevLib`, `ExternalAlmLib`, `AlmMapLib`). Determinism
-comes from one `torch.Generator` per (library seed, simulation index), seeded through numpy's
-SeedSequence; the streams differ from the reference's `jax.random` draws. For parity
+Port of plancklens_tpu/models/sims.py:22-284, 343-389 and 508-622 (`unit_phases`,
+`cls_to_coloring`, `CMBUnlLib`, `MapsNlevLib`, `CMBLenLib`, `ExternalAlmLib`, `AlmMapLib`,
+`MapsLenNlevLib`). Determinism comes from one `torch.Generator` per (library seed,
+simulation index), seeded through numpy's SeedSequence (pixel noise: per (seed, index,
+field tag)); the streams differ from the reference's `jax.random` draws. For parity
 tests each library also takes `phases=`, a callable idx -> numpy (nfields, nalm) complex
 unit phases (e.g. the reference's own, through `compat.phases_from_numpy`), which
-replaces the generator.
+replaces the generator; `MapsLenNlevLib` takes `noise=`, a callable (idx, tag) -> numpy
+unit-variance pixel noise (`compat.noise_from_numpy`).
 
 Correlated fields are coloured by a per-multipole eigen-decomposition of the N_f x N_f
 spectral matrix, as in the reference (reference: plancklens/sims/cmbs.py:25-101).
@@ -22,10 +24,12 @@ from ..utils.hashing import clhash
 _CDTYPE = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
-def sim_generator(seed, idx, device):
+def sim_generator(seed, idx, device, tag=None):
     """Generator of simulation idx of a library seeded `seed`; idx -1 is the 'data'
-    convention (reference: plancklens/sims/planck2018_sims.py:47-49)."""
-    state = np.random.SeedSequence([int(seed), int(idx) + 1]).generate_state(1, np.uint64)[0]
+    convention (reference: plancklens/sims/planck2018_sims.py:47-49). `tag` picks one of
+    several independent streams of the same simulation (the pixel-noise fields)."""
+    entropy = [int(seed), int(idx) + 1] + ([] if tag is None else [int(tag)])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) & ((1 << 63) - 1))
 
 
@@ -116,6 +120,11 @@ class CMBUnlLib:
 
     def get_sim_plm(self, idx):
         return self.get_sim_alms(idx)[self._field_index('p')]
+
+    def get_sim_olm(self, idx):
+        """Curl deflection potential (field rotation) alm: drawn whenever 'o' is in
+        `fields` and the cls carry 'oo' (reference: plancklens/sims/cmbs.py:79-81)."""
+        return self.get_sim_alms(idx)[self._field_index('o')]
 
     def get_sim_alm(self, idx, field):
         """Generic per-field accessor (reference: plancklens/sims/cmbs.py:71-77)."""
@@ -277,3 +286,179 @@ class AlmMapLib:
         elm = self.alm_lib.get_sim_elm(idx)
         blm = self.alm_lib.get_sim_blm(idx)
         return self.sht.alm2map_spin((elm, blm), 2)
+
+
+class CMBLenLib:
+    """Lensed CMB simulations: unlensed T/E/B + phi (and an optional curl potential) drawn
+    from their joint spectra at lmax + dlmax, lensed by the deflection-remap operator
+    (reference: plancklens_tpu/models/sims.py:196-284; plancklens/sims/cmbs.py:104-233).
+    Maps are made on the given geometry; harmonic-space observations come from re-analysing
+    the lensed maps (exact on the GL grid for the band-limited part).
+
+    Args:
+        cls_unl: dict of unlensed spectra incl. 'pp' (and 'oo' with 'o' in fields)
+        lmax: band limit of the outputs
+        geom: output RingGeometry
+        fields, seed: as CMBUnlLib's, at lmax + dlmax
+        dlmax: extra band-limit margin of the unlensed skies entering the remapping
+        oversample, order: the interpolation's source grid and stencil (ops/lensing)
+        dtype, device: precision and place of the sims, the lensing and the transforms
+        phases: optional callable idx -> numpy (nfields, nalm) unit phases at lmax + dlmax
+    """
+
+    def __init__(self, cls_unl, lmax, geom, fields=('t', 'e', 'b', 'p'), seed=0,
+                 dlmax=128, oversample=4.0, order=9, dtype=torch.float64, *, device,
+                 phases=None):
+        from ..ops.lensing import Lensing
+        from ..ops.sht import SHT
+        self.lmax = lmax
+        self.lmax_unl = lmax + dlmax
+        self.geom = geom
+        self.dtype = dtype
+        self.unl_lib = CMBUnlLib(cls_unl, self.lmax_unl, fields=fields, seed=seed,
+                                 device=device, dtype=dtype, phases=phases)
+        self.device = self.unl_lib.device
+        self.lensing = Lensing(geom, self.lmax_unl, lmax_p=self.lmax_unl,
+                               oversample=oversample, order=order, dtype=dtype,
+                               device=device)
+        self.sht = SHT(geom, lmax, dtype=dtype, device=device)
+
+    def hashdict(self):
+        return {'unl': self.unl_lib.hashdict(), 'lmax': self.lmax,
+                'geom': self.geom.hashdict()}
+
+    def get_sim_plm(self, idx):
+        return ualm.alm_copy(self.unl_lib.get_sim_plm(idx), self.lmax_unl, self.lmax)
+
+    def get_sim_olm(self, idx):
+        """Curl potential alm of sim idx, band-limited to lmax. A drawn curl potential also
+        deflects the maps (ops.lensing.deflection_field's curl term), as in the reference
+        package (plancklens itself draws it but does not lens with it, cmbs.py:79-81, 196)."""
+        return ualm.alm_copy(self.unl_lib.get_sim_olm(idx), self.lmax_unl, self.lmax)
+
+    def get_sim_alm(self, idx, field):
+        """Generic per-field accessor (reference: plancklens/sims/cmbs.py:169-182)."""
+        return {'t': self.get_sim_tlm, 'e': self.get_sim_elm, 'b': self.get_sim_blm,
+                'p': self.get_sim_plm, 'o': self.get_sim_olm}[field](idx)
+
+    def _olm_unl(self, alms):
+        """Curl potential entering the deflection (None when 'o' is not simulated)."""
+        if 'o' not in self.unl_lib.fields:
+            return None
+        return alms[self.unl_lib._field_index('o')]
+
+    def get_sim_tmap(self, idx):
+        """Lensed temperature map on the geometry, (nrings, nphi)."""
+        alms = self.unl_lib.get_sim_alms(idx)
+        f = self.unl_lib._field_index
+        return self.lensing.alm2lenmap(alms[f('t')], alms[f('p')], olm=self._olm_unl(alms))[0]
+
+    def get_sim_pmap(self, idx):
+        """Lensed (Q, U) maps on the geometry."""
+        alms = self.unl_lib.get_sim_alms(idx)
+        f = self.unl_lib._field_index
+        q, u = self.lensing.alm2lenmap_spin((alms[f('e')], alms[f('b')]), alms[f('p')], 2,
+                                            olm=self._olm_unl(alms))
+        return q[0], u[0]
+
+    def get_sim_tlm(self, idx):
+        """Lensed tlm, band-limited to lmax (GL analysis of the lensed map)."""
+        return self.sht.map2alm(self.get_sim_tmap(idx))
+
+    def get_sim_eblm(self, idx):
+        return self.sht.map2alm_spin(self.get_sim_pmap(idx), 2)
+
+    def get_sim_elm(self, idx):
+        return self.get_sim_eblm(idx)[0]
+
+    def get_sim_blm(self, idx):
+        return self.get_sim_eblm(idx)[1]
+
+
+class MapsLenNlevLib:
+    """Beam-convolved lensed CMB maps + homogeneous white pixel noise on a ring geometry
+    (reference: plancklens_tpu/models/sims.py:534-622; plancklens/sims/maps.py:101-173): the
+    map-space observed sky the masked (cinv) filters consume.
+
+    Pixel noise: sigma_pix = (nlev in uK arcmin, as rad) / sqrt(Omega_pix), with Omega_pix
+    from the geometry's quadrature weights (the filters' per-steradian convention). It is
+    drawn on the library's device from a generator per (seed, idx, tag), tag 0 for T and 1
+    for the (Q, U) pair, or taken from `noise`, a callable (idx, tag) -> numpy unit-variance
+    maps of shape (nrings, nphi) for tag 0 and (2, nrings, nphi) for tag 1.
+
+    Args:
+        len_lib: CMBLenLib-like with get_sim_tmap/get_sim_eblm and its `sht` on the geometry
+        transf: beam b_l; applied in harmonic space before the final synthesis
+        nlev_t, nlev_p: white noise levels in uK-arcmin
+        seed: noise seed (independent of the CMB seed)
+        noise: optional callable (idx, tag) -> numpy unit noise maps
+    """
+
+    def __init__(self, len_lib, transf, nlev_t, nlev_p, seed=2000, noise=None):
+        self.len_lib = len_lib
+        self.geom = len_lib.geom
+        self.lmax = len_lib.lmax
+        self.device = len_lib.device
+        self.dtype = len_lib.sht.dtype
+        self.transf = np.asarray(transf)[:self.lmax + 1]
+        self.nlev_t = nlev_t
+        self.nlev_p = nlev_p
+        self.seed = seed
+        self.noise = noise
+        g = self.geom
+        omega = np.outer(g.weight, np.full(g.nphi, 2. * np.pi / g.nphi))
+        self._sig_t_np = (nlev_t / 60. / 180. * np.pi) / np.sqrt(omega)
+        self._sig_p_np = (nlev_p / 60. / 180. * np.pi) / np.sqrt(omega)
+        self._sig_t = torch.as_tensor(self._sig_t_np, dtype=self.dtype, device=self.device)
+        self._sig_p = torch.as_tensor(self._sig_p_np, dtype=self.dtype, device=self.device)
+
+    def hashdict(self):
+        return {'len': self.len_lib.hashdict(), 'transf': clhash(self.transf),
+                'nlev_t': self.nlev_t, 'nlev_p': self.nlev_p, 'seed': self.seed}
+
+    def ninv_t(self):
+        """Inverse pixel noise variance of T, host numpy (nrings, nphi)."""
+        return 1. / self._sig_t_np ** 2
+
+    def ninv_p(self):
+        """Inverse pixel noise variance of Q and U, host numpy (nrings, nphi)."""
+        return 1. / self._sig_p_np ** 2
+
+    def _unit_noise(self, idx, tag):
+        shape = ((2,) if tag == 1 else ()) + (self.geom.nrings, self.geom.nphi)
+        if self.noise is not None:
+            n = torch.as_tensor(np.array(self.noise(int(idx), tag)))
+            assert tuple(n.shape) == shape, (tuple(n.shape), shape)
+            return n.to(device=self.device, dtype=self.dtype)
+        return torch.randn(shape, generator=sim_generator(self.seed, idx, self.device, tag),
+                           device=self.device, dtype=self.dtype)
+
+    def get_sim_tmap(self, idx):
+        sht = self.len_lib.sht
+        tlm = ualm.almxfl(sht.map2alm(self.len_lib.get_sim_tmap(idx)), self.lmax, self.transf)
+        return sht.alm2map(tlm) + self.get_sim_tnoise(idx)
+
+    def get_sim_pmap(self, idx):
+        elm, blm = self.len_lib.get_sim_eblm(idx)
+        elm = ualm.almxfl(elm, self.lmax, self.transf)
+        blm = ualm.almxfl(blm, self.lmax, self.transf)
+        q, u = self.len_lib.sht.alm2map_spin((elm, blm), 2)
+        nq, nu = self._pnoise(idx)
+        return q + nq, u + nu
+
+    def get_sim_tnoise(self, idx):
+        """Noise-only T map of sim idx: the realisation entering get_sim_tmap (reference:
+        plancklens/sims/maps.py:136-148)."""
+        return self._unit_noise(idx, 0) * self._sig_t
+
+    def _pnoise(self, idx):
+        n = self._unit_noise(idx, 1)
+        return n[0] * self._sig_p, n[1] * self._sig_p
+
+    def get_sim_qnoise(self, idx):
+        """Noise-only Q map (reference: plancklens/sims/maps.py:150-160)."""
+        return self._pnoise(idx)[0]
+
+    def get_sim_unoise(self, idx):
+        """Noise-only U map (reference: plancklens/sims/maps.py:162-172)."""
+        return self._pnoise(idx)[1]

@@ -1,7 +1,8 @@
 """Port parity of the quadratic estimators: plancklens_tpu_torch.models.qest.eval_qe for
 ptt, p_p, p and x against plancklens_tpu.models.qest.eval_qe at f64 on the same filtered
 alms (<= 1e-10 of max), plain and symmetrised (two different legs); the copied key
-grammar; and QELib's key resolution, cache names and '_bh_' refusal."""
+grammar; and QELib's key resolution, cache names and the '_bh_' keys' need of a
+response library (tests/test_torch_qresp_nhl.py holds a '_bh_' qlm to the reference)."""
 import numpy as np
 import pytest
 import torch
@@ -107,9 +108,10 @@ def test_qelib_keys_cache_and_refusals():
     mf = lib.get_sim_qlm_mf('ptt', [0, 2])
     assert _err(mf, (b[0] + b[2]) / 2) <= 1e-14
     assert lib.get_fundkeys(['p_tp', 'ptt_bh_s']) == ['ptt', 'p_p', 'stt']
-    with pytest.raises(NotImplementedError):
+    # '_bh_' keys need a response library, as in the reference (qest.py:313-316)
+    with pytest.raises(AssertionError, match='resplib'):
         lib.get_sim_qlm('ptt_bh_s', 0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(AssertionError, match='resplib'):
         lib.get_sim_qlm_batch('ptt_bh_s', [0])
     lib32 = pqest.QELib(ivfs, ivfs, cls, LMAX, LMAX, dtype=torch.float32, device='cpu')
     assert lib32._ctag == '_float32'
