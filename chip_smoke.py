@@ -73,6 +73,22 @@ anisotropic parameter file at lmax 2048. Phases:
                 ptt/p_p, qcl dd, responses, nhl of sim 0, the cross with the input phi),
                 each stage timed, all finite, and <q x phi_in> / (R_L C_L^pp fsky) over
                 30 <= L <= 1000 within [0.7, 1.3] for ptt and p_p
+  8 band-powers the end of the masked chain, N1 and the band-powers
+                (examples/bandpowers_demo_torch.py), on the parfile at lmax 2048 with 10
+                sims (data -1, mc_sims_bias 0-1, mc_sims_var 2-9) and phase 6's dense blocks:
+                (8a) the N1 quadrature (ops/n1kern, plain torch f64) on the card against the
+                CPU: n1L_batch of (ptt, ptt), (pee, peb), (xtt, xtt) and n1L_jtp_batch on
+                three combinations (one with a shorter leg) at lmax 120, dL 20 (<= 1e-12 of
+                max), and (ptt, ptt) at L = 10, 500, 2000 at the parfile configuration
+                (<= 1e-10 of max); (8b) Binner.get_n1 of ptt and p_p at lmax 2048 (dL 10,
+                38 source knots to 2500): seconds per fundamental curve (CUDA events), peak
+                < 40 GiB, all finite, binned |N1| below the fiducial band-power in the agr2
+                bins with L <= 900; (8c) the band-power chain: filt, qe (ptt, p_p, stt on the
+                dd/ds/ss legs), qcl, responses, nhl, n1, every Binner output (agr2 bins),
+                each stage timed, all finite, K1/K2 launched, dat - rdn0 - n1 within 5
+                sigma_b (get_mcn0_cov) + 0.3 |fid| of fid, RDN0/MCN0 and the data's
+                semi-analytic N0/MCN0 in stated bands per bin, and get_ampl_x_input's mean
+                in [0.7, 1.3] in the bins with L <= 900 (bounds: bandpowers_demo_torch.py)
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
@@ -100,6 +116,7 @@ REPLACES = {'synth_pair': 'plancklens_tpu/ops/sht/pallas_kernel.py:497',
             'anal': 'plancklens_tpu/ops/sht/pallas_kernel.py:267'}
 NSIDE = 2048
 HP_SIMS = [0, 1, 2, 3]
+NSIMS8 = 10
 
 
 def check(cond, msg):
@@ -131,6 +148,52 @@ def cuda_ms(fn, reps):
 
 
 T_START = time.perf_counter()
+
+
+def phase8(dev, dense_blocks=None):
+    """Phase 8 (module docstring): N1 and the band-powers of the masked chain at lmax 2048;
+    `dense_blocks` is phase 6's dense-block cacher (None: the parfile builds its own)."""
+    import torch
+    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    import bandpowers_demo_torch as bpd
+    log8 = lambda s: phase(8, s)
+    t8 = time.perf_counter()
+    par8, setup8 = bpd.load_aniso(dev, LMAX, NSIMS8, dense_cacher=dense_blocks)
+    r8a = bpd.n1_card_vs_cpu(dev, par8, log=log8)
+    for name, err in r8a['small'].items():
+        check(err <= 1e-12, 'N1 %s on the card vs the CPU: %.2e > 1e-12' % (name, err))
+    check(r8a['full'] <= 1e-10 and bool(np.all(np.isfinite(r8a['full_values']))),
+          'N1 (ptt, ptt) at L = %s on the card vs the CPU: %.2e > 1e-10'
+          % (r8a['knots'], r8a['full']))
+    r8b = bpd.n1_full(par8, keys=KEYS, log=log8)
+    check(r8b['finite'], 'N1 curves at lmax %d are not finite' % LMAX)
+    check(r8b['peak_gib'] < 40., 'N1 peak memory %.2f GiB' % r8b['peak_gib'])
+    for k, ratio in r8b['ratio'].items():
+        low = r8b['low_bins']
+        check(bool(np.all(ratio[low] < 1.)), 'binned |N1| / fid of %s at L <= %d: %s'
+              % (k, bpd.AMPL_LMAX, ratio[low]))
+    lk.reset_launches()
+    r8c = bpd.bandpower_chain(par8, keys=KEYS, setup_s=setup8, log=log8)
+    bp_launches = dict(lk.launches)
+    check(bp_launches['synth_pair'] > 0 and bp_launches['anal_pair'] > 0,
+          'the band-power chain did not launch K1 and K2: %s' % bp_launches)
+    check(r8c['finite'], 'the band-power chain gave non-finite outputs')
+    check(r8c['peak_gib'] < 40., 'band-power chain peak memory %.2f GiB' % r8c['peak_gib'])
+    for k, r in r8c['res'].items():
+        check(bool(np.all(r['bp_dev'] <= r['bp_bound'])),
+              '%s: |dat - rdn0 - n1 - fid| %s beyond %s' % (k, r['bp_dev'], r['bp_bound']))
+        for name, (lo, hi) in (('rdn0_ratio', bpd.RDN0_BAND), ('nhl_ratio', bpd.NHL_BAND)):
+            check(bool(np.all((r[name] >= lo) & (r[name] <= hi))),
+                  '%s: %s %s outside [%g, %g]' % (k, name, r[name], lo, hi))
+        lo, hi = bpd.AMPL_BAND
+        a = r['ampl'][r['low']]
+        check(bool(np.all((a >= lo) & (a <= hi))), '%s: <q x phi_in> amplitude %s outside '
+              '[%g, %g] at L <= %d' % (k, a, lo, hi, bpd.AMPL_LMAX))
+    phase(8, '(8c) K1/K2 launches of the band-power chain: %s' % bp_launches)
+    phase(8, 'phase 8 wall %.1fs; the whole run so far %.1fs'
+          % (time.perf_counter() - t8, time.perf_counter() - T_START))
+    del par8
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -766,6 +829,13 @@ def main():
               % (k, a))
     phase(7, 'phase 7 wall %.1fs; the whole run so far %.1fs'
           % (time.perf_counter() - t7, time.perf_counter() - T_START))
+    del r7c
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 8 N1 and band-powers
+    phase8(dev, dense_blocks)
+
     # launches of the 4 sims' steps, at each new row's shape
     lens_launches = {'synth_pair_ecp_t': ('ecp_t', ('synth_pair', 0, 1, 'f64')),
                      'synth_pair_ecp_qu': ('ecp_qu', ('synth_pair', 1, 1, 'f64')),

@@ -7,8 +7,7 @@ plancklens_tpu_torch, driven by examples/run_qlms_torch.py:
   * the synthetic galactic band + holes mask;
   * masked CG inverse-variance filtering (cinv), then the QE / QE-spectra / input-cross /
     response / semi-analytic N0 libraries: ivfs, qlms_{dd,ds,ss}, qcls_{dd,ds,ss},
-    qlms_x_in, qresp_dd, nhl_dd. n1_dd (N1 quadrature) is not ported: ROADMAP queue 1
-    item 6.
+    qlms_x_in, qresp_dd, nhl_dd and the N1 library n1_dd (its quadrature on PLK_DEVICE).
 
 Environment: PLK_ANISO_LMAX (default 2048), PLK_ANISO_NLEV_T / _P (35 / 55 uK-arcmin),
 PLK_ANISO_NSIMS (300) and PLK_CACHE_DIR as in the reference file, and PLK_DEVICE (default
@@ -31,6 +30,7 @@ from plancklens_tpu_torch.models.cinv import CinvT, CinvP, IVFCinv
 from plancklens_tpu_torch.models.filt import IVFFtl, IVFShuffle
 from plancklens_tpu_torch.models.qest import QELib
 from plancklens_tpu_torch.models.qecl import QeClLib, InputPlmLib
+from plancklens_tpu_torch.models.n1 import N1Lib
 
 # --------------------------------------------------------------- analysis constants
 lmax_ivf = int(os.environ.get('PLK_ANISO_LMAX', 2048))
@@ -125,7 +125,7 @@ qcls_ss = QeClLib(qlms_ss, qlms_ss, np.array([]))
 # cross-spectra of the reconstructions with the known input phi of each lensed sim
 qlms_x_in = QeClLib(qlms_dd, InputPlmLib(cmb_len, lmax_qlm, device=DEVICE), np.array([]))
 
-# -------------------------------------------------------- response / N0
+# -------------------------------------------------------- response / N0 / N1
 fal = {'tt': np.nan_to_num(ftl / (cl_len['tt'][:lmax_ivf + 1]
                                   + (nlev_t / 60. / 180. * np.pi) ** 2 / transf ** 2)),
        'ee': np.nan_to_num(fel / (cl_len['ee'][:lmax_ivf + 1]
@@ -135,4 +135,5 @@ fal = {'tt': np.nan_to_num(ftl / (cl_len['tt'][:lmax_ivf + 1]
 
 qresp_dd = qresp.RespLib(lmax_ivf, cl_weight, cl_len, fal, lmax_qlm, device=DEVICE)
 nhl_dd = nhl.NhlLib(ivfs, cl_weight, lmax_qlm, resplib=qresp_dd, device=DEVICE)
-# n1_dd: N1 quadrature (models/n1 + ops/n1kern) is not ported yet (ROADMAP queue 1 item 6)
+n1_dd = N1Lib(cl_len['tt'], cl_len['te'], cl_len['ee'],
+              lmaxphi=min(2500, 2 * lmax_ivf), dL=10, lps=None, device=DEVICE)

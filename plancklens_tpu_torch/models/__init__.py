@@ -1,1 +1,1 @@
-from . import spin, qe, qresp, sims, filt, qest, qecl, cinv
+from . import spin, qe, qresp, sims, filt, qest, qecl, cinv, n1, bandpowers

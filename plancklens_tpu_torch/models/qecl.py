@@ -1,13 +1,15 @@
 r"""QE power spectra with split-half mean-field subtraction.
 
-Port of plancklens_tpu/models/qecl.py:112-305 (reference semantics: plancklens/qecl.py:
+Port of plancklens_tpu/models/qecl.py (reference semantics: plancklens/qecl.py:
 29-145): the mean-field is estimated from two disjoint halves of mc_sims_mf (even indices
 for leg A, odd for leg B) so the MF noise does not bias the cross-spectrum. Requesting the
 spectrum of a sim inside mc_sims_mf raises by default (the MF leg would correlate with
 it — reference qecl.py:102); leave_out=True subtracts a mean-field recomputed without
 that sim on the leg(s) containing it. Spectra are host numpy arrays. `InputPlmLib` is
 the qlm-library view of a simulation library's input potentials (the B leg of the
-parameter files' `qlms_x_in`).
+parameter files' `qlms_x_in`); `QeClAverage` averages several spectra libraries;
+`stats` is the host numpy accumulator of the band-powers (mean, covariance, chi^2,
+rebinning).
 """
 import numpy as np
 import torch
@@ -18,24 +20,97 @@ from ..utils.cachers import cacher_mem
 
 
 class stats:
-    """Running mean of equal-size vectors: the accumulator get_sim_stats_qcl returns
-    (reference: plancklens/utils.py:181-266; its covariance, chi^2 and rebinning helpers
-    serve the band-powers, which are not ported yet)."""
+    """Running mean/covariance accumulator with consistency-test helpers
+    (capability surface of reference plancklens/utils.py:181-266: mean/cov/sigmas,
+    correlation matrix, Hartlap-debiased inverse, chi^2 + PTE, non-overlapping rebin)."""
 
-    def __init__(self, size):
+    def __init__(self, size, xcoord=None, docov=True):
         self.N = 0
         self.size = size
         self.sum = np.zeros(size)
+        self.mom = np.zeros((size, size)) if docov else None
+        self.xcoord = xcoord
+        self.docov = docov
 
     def add(self, v):
         v = np.asarray(v).flatten()
         assert v.size == self.size
         self.sum += v
+        if self.docov:
+            self.mom += np.outer(v, v)
         self.N += 1
 
     def mean(self):
         assert self.N > 0
         return self.sum / self.N
+
+    def avg(self):
+        return self.mean()
+
+    def cov(self):
+        """Unbiased sample covariance (N - 1 normalisation; zeros for a single sample)."""
+        assert self.docov and self.N > 0
+        if self.N == 1:
+            return np.zeros((self.size, self.size))
+        mean = self.mean()
+        return (self.mom - self.N * np.outer(mean, mean)) / (self.N - 1.)
+
+    def sigmas(self):
+        return np.sqrt(np.diag(self.cov()))
+
+    def sigmas_on_mean(self):
+        return self.sigmas() / np.sqrt(self.N)
+
+    def corrcoeffs(self):
+        s = self.sigmas()
+        return self.cov() / np.outer(s, s)
+
+    def inverse(self, bias_p=None):
+        """Inverse covariance, debiased by the Hartlap factor (N - size - 2)/(N - 1) for
+        Gaussian statistics (or an explicit `bias_p`)."""
+        assert self.N > self.size, 'too few samples for an invertible covariance'
+        if bias_p is None:
+            bias_p = (self.N - self.size - 2.) / (self.N - 1.)
+        return bias_p * np.linalg.inv(self.cov())
+
+    def get_chisq(self, data):
+        """(data - mean)^T Cov^-1 (data - mean)."""
+        dx = np.asarray(data).flatten() - self.mean()
+        return float(dx @ self.inverse() @ dx)
+
+    def get_chisq_pte(self, data, ndof=None):
+        """Probability to exceed the data chi^2, for `ndof` degrees of freedom.
+
+        Default ndof is the data-vector dimension `size`: the quadratic form
+        (x - mean)^T Cov^-1 (x - mean) of a `size`-dimensional Gaussian is chi^2_size
+        (the Hartlap factor in `inverse` debiases the estimated-covariance inverse).
+        Deliberate deviation: the reference (plancklens/utils.py:238) passes N - 1 (the
+        *sample count* minus one), which mis-calibrates the PTE whenever the number of
+        sims differs from the number of bins; pass ndof explicitly to reproduce it."""
+        from scipy.stats import chi2 as chi2_dist
+        return chi2_dist.sf(self.get_chisq(data), self.size if ndof is None else ndof)
+
+    def rebin_that_nooverlap(self, orig_coord, lmins, lmaxs, weights=None):
+        """New stats instance over non-overlapping [lmin, lmax] bins of `orig_coord`,
+        weight-averaging entries within each bin (moments mapped as T M T^T)."""
+        orig_coord = np.asarray(orig_coord)
+        lmins, lmaxs = np.asarray(lmins), np.asarray(lmaxs)
+        assert orig_coord.size == self.size
+        assert lmins.size == lmaxs.size and np.all(lmaxs >= lmins)
+        assert np.all(np.diff(lmins) > 0) and np.all(np.diff(lmaxs) > 0), \
+            'bins must be sorted / non-overlapping'
+        w = np.ones(self.size) if weights is None else np.asarray(weights)
+        assert w.size == self.size
+        T = np.zeros((lmins.size, self.size))
+        for k, (lo, hi) in enumerate(zip(lmins, lmaxs)):
+            sel = (orig_coord >= lo) & (orig_coord <= hi)
+            if np.any(sel):
+                T[k, sel] = w[sel] / np.sum(w[sel])
+        out = stats(lmins.size, xcoord=0.5 * (lmins + lmaxs))
+        out.sum = T @ self.sum
+        out.mom = T @ self.mom @ T.T
+        out.N = self.N
+        return out
 
 
 class QeClLib:
@@ -154,7 +229,7 @@ class QeClLib:
         (reference: plancklens/qecl.py:126-145)."""
         if k2 is None:
             k2 = k1
-        st = stats(self.lmax_qlm + 1)
+        st = stats(self.lmax_qlm + 1, docov=False)
         for idx in mc_sims:
             st.add(self.get_sim_qcl(k1, int(idx), k2=k2))
         return st
@@ -226,3 +301,39 @@ class _FullSkyLeg:
 
     def hashdict(self):
         return {'fullsky': True}
+
+
+class QeClAverage:
+    """Average of several QE-spectra libraries (e.g. over data splits)
+    (reference: plancklens/qecl.py:151-224)."""
+
+    def __init__(self, qcls_libs, weights=None):
+        self.libs = list(qcls_libs)
+        self.weights = np.full(len(self.libs), 1. / len(self.libs)) if weights is None \
+            else np.asarray(weights, dtype=float) / np.sum(weights)
+        self.lmax_qlm = self.libs[0].lmax_qlm
+
+    def hashdict(self):
+        return {'libs': [lib.hashdict() for lib in self.libs],
+                'weights': tuple(self.weights)}
+
+    def get_sim_qcl(self, k1, idx, k2=None, idx2=None):
+        ret = 0.
+        for w, lib in zip(self.weights, self.libs):
+            ret = ret + w * lib.get_sim_qcl(k1, idx, k2=k2, idx2=idx2)
+        return ret
+
+    def get_dat_qcl(self, k1, k2=None):
+        """Weighted average of the member libraries' data-map qcls
+        (reference: plancklens/qecl.py:197-202)."""
+        return self.get_sim_qcl(k1, -1, k2=k2)
+
+    def get_lmaxqcl(self, k1, k2):
+        """Common band limit across the member libraries (reference: plancklens/qecl.py:175-176)."""
+        return min(lib.get_lmaxqcl(k1, k2) for lib in self.libs)
+
+    def get_sim_stats_qcl(self, k1, mc_sims, k2=None):
+        st = stats(self.lmax_qlm + 1, docov=False)
+        for idx in mc_sims:
+            st.add(self.get_sim_qcl(k1, int(idx), k2=k2))
+        return st

@@ -1,1 +1,1 @@
-from . import gauleg, sht, cg
+from . import gauleg, sht, cg, n1kern
