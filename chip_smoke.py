@@ -88,7 +88,14 @@ anisotropic parameter file at lmax 2048. Phases:
                 each stage timed, all finite, K1/K2 launched, dat - rdn0 - n1 within 5
                 sigma_b (get_mcn0_cov) + 0.3 |fid| of fid, RDN0/MCN0 and the data's
                 semi-analytic N0/MCN0 in stated bands per bin, and get_ampl_x_input's mean
-                in [0.7, 1.3] in the bins with L <= 900 (bounds: bandpowers_demo_torch.py)
+                in [0.7, 1.3] in the bins with L <= 900 (bounds: bandpowers_demo_torch.py);
+                (8d) ops/lensed_cls of FFP10 (input to l 4000, output to 1600) and
+                models/n0s.get_N0 at 35 / 55 uK-arcmin, 5', l 102-2048 on the card against
+                the CPU (lensed spectra <= 1e-12 of their max, BB of EE's; 1/N0 <= 1e-12 of
+                its max, and N0 per L over 10-2048 within 10x the CPU's own change under a
+                1e-15 change of its spectra, at least 1e-12: N0 = N / R^2 amplifies
+                rounding as 1/L^2 at low L), and the card's lensed spectra against
+                FFP10_wdipole_lensedCls.dat (tests/test_lensed_cls.py's bounds)
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
@@ -190,10 +197,20 @@ def phase8(dev, dense_blocks=None):
         check(bool(np.all((a >= lo) & (a <= hi))), '%s: <q x phi_in> amplitude %s outside '
               '[%g, %g] at L <= %d' % (k, a, lo, hi, bpd.AMPL_LMAX))
     phase(8, '(8c) K1/K2 launches of the band-power chain: %s' % bp_launches)
-    phase(8, 'phase 8 wall %.1fs; the whole run so far %.1fs'
-          % (time.perf_counter() - t8, time.perf_counter() - T_START))
     del par8
     torch.cuda.empty_cache()
+    r8d = bpd.forecasts(dev, log=log8)
+    for k, gap in r8d['lens_gap'].items():
+        check(gap <= 1e-12, 'lensed %s on the card vs the CPU: %.2e > 1e-12' % (k, gap))
+    for k, lo, hi, gap, bound in r8d['vs_ffp10']:
+        check(gap < bound, 'lensed %s over %d-%d vs FFP10: %.2e >= %g' % (k, lo, hi, gap, bound))
+    for k, (inv_gap, band_gap) in r8d['n0_gap'].items():
+        limit = max(1e-12, 10. * r8d['n0_floor'][k])
+        check(inv_gap <= 1e-12 and band_gap <= limit, 'get_N0 %s on the card vs the CPU: '
+              '1/N0 %.2e of max (limit 1e-12), N0 %.2e over 10 <= L <= 2048 (limit %.2e)'
+              % (k, inv_gap, band_gap, limit))
+    phase(8, 'phase 8 wall %.1fs; the whole run so far %.1fs'
+          % (time.perf_counter() - t8, time.perf_counter() - T_START))
 
 
 def main():

@@ -25,6 +25,12 @@ The module also holds the three steps of chip_smoke.py phase 8:
                    RDN0/MCN0 and the data's semi-analytic N0/MCN0 per bin, the amplitude of
                    the cross with the input phi).
 
+  forecasts        ops/lensed_cls of FFP10's unlensed spectra (input to l 4000, output
+                   to 1600) and models/n0s.get_N0 at the parfile's noise and beam (35 / 55
+                   uK-arcmin, 5', l 102-2048) on the device against the CPU, with the
+                   CPU's own change of N0 under a 1e-15 change of its input spectra, and
+                   the device's lensed spectra against FFP10_wdipole_lensedCls.dat.
+
 `load_aniso` loads params/anisofilt_example_torch.py at a size; each step returns a dict
 of its outputs and numbers, and `log` receives one line per step.
 """
@@ -49,6 +55,11 @@ BP_BOUND = (5., 0.3)
 RDN0_BAND = (0.85, 1.15)   # RDN0 / MCN0 per bin
 NHL_BAND = (0.6, 1.25)     # the data's semi-analytic N0 / MCN0 per bin
 AMPL_BAND = (0.7, 1.3)     # get_ampl_x_input's mean, bins with L <= AMPL_LMAX
+# lensed spectra against FFP10_wdipole_lensedCls.dat (tests/test_lensed_cls.py's bounds):
+# (spectrum, l range, bound of |ratio - 1|; TE: of |dTE| / sqrt(TT EE))
+LENSED_BOUNDS = (('tt', (100, 1600), 1e-3), ('ee', (100, 1600), 1e-3),
+                 ('bb', (100, 799), 5e-4), ('bb', (800, 1600), 2e-3),
+                 ('te', (100, 1600), 1e-3))
 
 
 def _sync(device):
@@ -288,6 +299,87 @@ def bandpower_chain(par, keys=('ptt', 'p_p'), setup_s=None, log=print):
         log('(8c) %s: <q x phi_in> amplitude %s (+- %s); bmmc %s; bamc / fid %s'
             % (k, p(r['ampl']), p(r['ampl_sig']), p(r['bmmc']), p(r['bamc'][0] / r['fid'])))
     return out
+
+
+def n0_gaps(a, b, lmax, lmin=10):
+    """(|1/a - 1/b| over max |1/b|, max |a/b - 1| over lmin <= L <= lmax). N0 = N / R^2 is
+    ill-conditioned where the response R_L is small (as 1/L^2 at low L, and a curl key
+    towards 2 lmax), so the first holds the inverse-noise weight everywhere and the
+    second N0 itself inside the CMB band (inf where a and b differ in finiteness)."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+        return np.inf, np.inf
+    ok = np.isfinite(b) & (b != 0.)
+    band = ok.copy()
+    band[:lmin] = False
+    band[lmax + 1:] = False
+    return _rel(1. / a[ok], 1. / b[ok]), float(np.max(np.abs(a[band] / b[band] - 1.)))
+
+
+def forecasts(device, log=print):
+    """lensed_cls and get_N0 on `device` against the CPU (module docstring)."""
+    from plancklens_tpu_torch import DATAPATH
+    from plancklens_tpu_torch.utils import camb_clfile
+    from plancklens_tpu_torch.ops.lensed_cls import lensed_cls
+    from plancklens_tpu_torch.models import n0s
+    cpu = torch.device('cpu')
+    cls = lambda name, lmax: camb_clfile(os.path.join(DATAPATH, 'cls', 'FFP10_wdipole_%s.dat'
+                                                      % name), lmax=lmax)
+    unl, target = cls('lenspotentialCls', 4000), cls('lensedCls', 1600)
+    out, secs = {}, {}
+    for name, d in (('dev', device), ('cpu', cpu)):
+        t0 = time.perf_counter()
+        out[name] = lensed_cls(unl, unl['pp'], lmax_out=1600, nterms=2, device=d)
+        _sync(d)
+        secs['lensed_' + name] = time.perf_counter() - t0
+    # BB is half the difference of two EE-sized analyses: held to EE's scale
+    lens_gap = {k: float(np.abs(out['dev'][k] - out['cpu'][k]).max()
+                         / np.abs(out['cpu']['ee' if k == 'bb' else k]).max())
+                for k in ('tt', 'ee', 'bb', 'te')}
+    vs_ffp10 = []
+    for k, (lo, hi), bound in LENSED_BOUNDS:
+        sl = slice(lo, hi + 1)
+        if k == 'te':
+            dev_k = np.abs(out['dev']['te'][sl] - target['te'][sl]) \
+                / np.sqrt(target['tt'][sl] * target['ee'][sl])
+        else:
+            dev_k = np.abs(out['dev'][k][sl] / target[k][sl] - 1.)
+        vs_ffp10.append((k, lo, hi, float(dev_k.max()), bound))
+    kw = dict(beam_fwhm=5., nlev_t=35., nlev_p=55., lmax_CMB=2048, lmin_CMB=102,
+              lmax_out=2048)
+    # the CPU path's own change under a 1e-15 change of its input spectra: the floor the
+    # conditioning of N0 = N / R^2 sets per L (PERF.md, PR 8; ROADMAP fault 3.9)
+    rng = np.random.RandomState(15)
+    fid = n0s._default_cls()
+    pert = lambda: {k: v * (1. + 1e-15 * rng.standard_normal(v.shape)) for k, v in fid.items()}
+    n0 = {}
+    for name, d, extra in (('dev', device, {}), ('cpu', cpu, {}),
+                           ('cpu_perturbed', cpu, dict(cls_filt=pert(), cls_len=pert(),
+                                                       cls_weight=pert(), cls_sky=pert()))):
+        t0 = time.perf_counter()
+        n0[name] = n0s.get_N0(**kw, **extra, device=d)
+        _sync(d)
+        secs['n0_' + name] = time.perf_counter() - t0
+    n0_gap, n0_floor = {}, {}
+    for i, which in ((0, 'grad'), (1, 'curl')):
+        for k in n0['cpu'][i]:
+            name = '%s %s' % (k, which)
+            n0_gap[name] = n0_gaps(n0['dev'][i][k], n0['cpu'][i][k], 2048)
+            n0_floor[name] = n0_gaps(n0['cpu_perturbed'][i][k], n0['cpu'][i][k], 2048)[1]
+    res = {'lens_gap': lens_gap, 'vs_ffp10': vs_ffp10, 'n0_gap': n0_gap,
+           'n0_floor': n0_floor, 'seconds': secs,
+           'n0': {k: v for k, v in n0['dev'][0].items()}}
+    log('(8d) lensed_cls of FFP10 (input to l 4000, output to 1600) on %s vs the CPU: %s '
+        '(BB of max EE); against FFP10_wdipole_lensedCls.dat: %s'
+        % (device, ', '.join('%s %.2e' % kv for kv in lens_gap.items()),
+           ', '.join('%s %d-%d %.2e (bound %g)' % v for v in vs_ffp10)))
+    log('(8d) get_N0 at 35 / 55 uK-arcmin, 5\', l 102-2048 on %s vs the CPU, 1/N0 of max '
+        'and N0 over 10 <= L <= 2048 (the CPU\'s own change under a 1e-15 change of its '
+        'spectra): %s; seconds %s'
+        % (device, ', '.join('%s %.2e, %.2e (%.2e)' % (k, g[0], g[1], n0_floor[k])
+                             for k, g in n0_gap.items()),
+           ', '.join('%s %.2f' % kv for kv in secs.items())))
+    return res
 
 
 def main():

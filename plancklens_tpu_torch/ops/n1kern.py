@@ -23,6 +23,7 @@ Conventions replicated exactly, including the kernel's 1-based spectrum lookup
 Every entry point takes a required `device`; inputs are host arrays, results host numpy.
 """
 import os
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -175,64 +176,55 @@ def _wf_coded(code, l1x, l2x, l1y, l2y, l1i, l2i, cltt, clte, clee):
 
 
 class _Geo:
-    """_geom of a wavevector pair, each member computed on first use and kept."""
+    """_geom of a wavevector pair, each member computed on first use and kept; the squared
+    norms may be passed in when the caller has them already."""
 
     def __init__(self, l1x, l2x, l1y, l2y, l1sq=None, l2sq=None):
         self.l1x, self.l2x, self.l1y, self.l2y = l1x, l2x, l1y, l2y
         self._l1sq, self._l2sq = l1sq, l2sq
-        self._c = {}
 
-    def _get(self, name, fn):
-        if name not in self._c:
-            self._c[name] = fn()
-        return self._c[name]
-
-    @property
+    @cached_property
     def sx(self):
-        return self._get('sx', lambda: self.l1x + self.l2x)
+        return self.l1x + self.l2x
 
-    @property
+    @cached_property
     def sy(self):
-        return self._get('sy', lambda: self.l1y + self.l2y)
+        return self.l1y + self.l2y
 
+    @cached_property
     def _safe(self):
-        def f():
-            l1sq = self.l1x * self.l1x + self.l1y * self.l1y if self._l1sq is None \
-                else self._l1sq
-            l2sq = self.l2x * self.l2x + self.l2y * self.l2y if self._l2sq is None \
-                else self._l2sq
-            return torch.clamp(l1sq * l2sq, min=1e-30)
-        return self._get('safe', f)
+        l1sq = self.l1x * self.l1x + self.l1y * self.l1y if self._l1sq is None else self._l1sq
+        l2sq = self.l2x * self.l2x + self.l2y * self.l2y if self._l2sq is None else self._l2sq
+        return torch.clamp(l1sq * l2sq, min=1e-30)
 
+    @cached_property
     def _dot(self):
-        return self._get('dot', lambda: self.l1x * self.l2x + self.l1y * self.l2y)
+        return self.l1x * self.l2x + self.l1y * self.l2y
 
-    @property
+    @cached_property
     def cos2p(self):
-        return self._get('cos2p', lambda: 2. * self._dot() * self._dot() / self._safe() - 1.)
+        return 2. * self._dot * self._dot / self._safe - 1.
 
-    @property
+    @cached_property
     def sin2p(self):
-        def f():
-            cross = -self.l1y * self.l2x + self.l1x * self.l2y
-            return 2. * self._dot() * cross / self._safe()
-        return self._get('sin2p', f)
+        cross = -self.l1y * self.l2x + self.l1x * self.l2y
+        return 2. * self._dot * cross / self._safe
 
-    @property
+    @cached_property
     def Lql1(self):
-        return self._get('Lql1', lambda: self.sx * self.l1x + self.sy * self.l1y)
+        return self.sx * self.l1x + self.sy * self.l1y
 
-    @property
+    @cached_property
     def Lql2(self):
-        return self._get('Lql2', lambda: self.sx * self.l2x + self.sy * self.l2y)
+        return self.sx * self.l2x + self.sy * self.l2y
 
-    @property
+    @cached_property
     def Lxl1(self):
-        return self._get('Lxl1', lambda: -self.sy * self.l1x + self.sx * self.l1y)
+        return -self.sy * self.l1x + self.sx * self.l1y
 
-    @property
+    @cached_property
     def Lxl2(self):
-        return self._get('Lxl2', lambda: -self.sy * self.l2x + self.sx * self.l2y)
+        return -self.sy * self.l2x + self.sx * self.l2y
 
     def ang(self, a):
         return (None, lambda: self.cos2p, lambda: self.sin2p)[a]
@@ -539,11 +531,6 @@ def n1L_jtp(L, kA, kB, Xp, Yp, Ip, Jp, kI, cl_kI, cltt, clte, clee,
             device):
     """Joint-TP-filtering N1 at a single L (reference: n1f.f90:280-396): the QE legs couple
     to primed fields (Xp, Yp, Ip, Jp) through explicit filtering-matrix elements."""
-    lmaxA, lmaxB = len(fXXp), len(fIIp)
-    codes = [wf_code(kI + Xp + Ip), wf_code(kI + Yp + Jp),
-             wf_code(kI + Xp + Jp), wf_code(kI + Yp + Ip)]
-    return float(_n1_core(np.array([float(L)]), kA, kB, codes, cl_kI,
-                          (cltt, clte, clee), (clttfid, cltefid, cleefid),
-                          [np.asarray(f) for f in (fXXp, fYYp, fIIp, fJJp)],
-                          lminA, lmaxA, lminB, lmaxB, lmaxA, lmaxB, dL, lps, None,
-                          device)[0])
+    return float(n1L_jtp_batch([L], kA, kB, [(Xp + Yp + Ip + Jp, fXXp, fYYp, fIIp, fJJp)],
+                               kI, cl_kI, cltt, clte, clee, clttfid, cltefid, cleefid,
+                               lminA, lminB, dL, lps, device=device)[0, 0])
