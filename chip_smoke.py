@@ -7,7 +7,8 @@ the main path — the idealized full-sky parameter file through the staged drive
 functions (filtering, batched ptt and p_p QEs, split-half mean fields, dd/ds/ss spectra)
 at LMAX_IVF = LMAX_QLM = 2048 with 8 simulations, float32 QEs on cuda:0 —, the HEALPix
 entry path at Planck's nside 2048, masked filtering, and the lensed masked chain of the
-anisotropic parameter file at lmax 2048. Phases:
+anisotropic parameter file at lmax 2048 through N1, the band-powers and the N0 forecasts.
+Phases:
 
   0 device      CUDA present (no CPU path), card name and power limit, TF32 off
   1 build       nvcc build of csrc/legendre_pair.cu, all four kernels (timed; registers)
@@ -144,10 +145,17 @@ def rel_rms(a, b):
 
 
 def cuda_ms(fn, reps):
+    """Milliseconds a call of fn over reps calls (CUDA events), and the last output. With
+    reps > 1 a first untimed call caches the output's memory blocks and each output is
+    freed before the next call, so no cudaMalloc stall lands between the events (without
+    this, K3 f64 on all 8191 rings read 36.7, 87.5 and 232.5 ms in three runs of one tree
+    on an NVIDIA H100 80GB HBM3 at 700 W, and K1 at the CG shape 18.0 and 51.6 ms)."""
     import torch
+    out = fn() if reps > 1 else None
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(reps):
+        out = None
         out = fn()
     e1.record()
     e1.synchronize()

@@ -50,7 +50,7 @@ import torch
 
 AMPL_LMAX = 900          # amplitude and N1 checks over bins with upper edge <= this
 # the debiased data band-powers dat - rdn0 - n1 against fid: within K sigma_b + F |fid|,
-# sigma_b from get_mcn0_cov over mc_sims_var (the reckoning is in PERF.md, PR 8)
+# sigma_b from get_mcn0_cov over mc_sims_var (the reckoning is in PERF.md, section 6)
 BP_BOUND = (5., 0.3)
 RDN0_BAND = (0.85, 1.15)   # RDN0 / MCN0 per bin
 NHL_BAND = (0.6, 1.25)     # the data's semi-analytic N0 / MCN0 per bin
@@ -348,7 +348,7 @@ def forecasts(device, log=print):
     kw = dict(beam_fwhm=5., nlev_t=35., nlev_p=55., lmax_CMB=2048, lmin_CMB=102,
               lmax_out=2048)
     # the CPU path's own change under a 1e-15 change of its input spectra: the floor the
-    # conditioning of N0 = N / R^2 sets per L (PERF.md, PR 8; ROADMAP fault 3.9)
+    # conditioning of N0 = N / R^2 sets per L (PERF.md section 6; ROADMAP fault 3.9)
     rng = np.random.RandomState(15)
     fid = n0s._default_cls()
     pert = lambda: {k: v * (1. + 1e-15 * rng.standard_normal(v.shape)) for k, v in fid.items()}

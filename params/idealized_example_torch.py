@@ -1,8 +1,8 @@
 """Idealized full-sky parameter file for the PyTorch port (plancklens_tpu_torch).
 
-Same pipeline as params/idealized_example.py minus its analytic layers (qresp_dd, nhl_dd,
-n1_dd, not ported yet): FFP10-like spectra, 35 uK-arcmin T noise (x sqrt(2) pol),
-isotropic filtering, and the ptt/p_p/MV QEs with their dd/ds/ss spectra. Module-level
+Same pipeline as params/idealized_example.py: FFP10-like spectra, 35 uK-arcmin T noise
+(x sqrt(2) pol), isotropic filtering, the ptt/p_p/MV QEs with their dd/ds/ss spectra, and
+the analytic layers (qresp_dd, nhl_dd, n1_dd; their products run on the device). Module-level
 globals follow the reference's parameter-file contract; drive the file with
 examples/run_qlms_torch.py.
 
@@ -22,6 +22,9 @@ from plancklens_tpu_torch.models.sims import CMBUnlLib, MapsNlevLib
 from plancklens_tpu_torch.models.filt import IVFSepTP, IVFShuffle
 from plancklens_tpu_torch.models.qest import QELib
 from plancklens_tpu_torch.models.qecl import QeClLib
+from plancklens_tpu_torch.models.qresp import RespLib
+from plancklens_tpu_torch.models.nhl import NhlLib
+from plancklens_tpu_torch.models.n1 import N1Lib
 
 LMAX_IVF = int(os.environ.get('PLK_LMAX_IVF', 512))
 LMAX_QLM = int(os.environ.get('PLK_LMAX_QLM', 512))
@@ -91,3 +94,10 @@ qcls_ds = QeClLib(qlms_ds, qlms_ds, mc_sims_mf_ds, lmax_qlm=LMAX_QLM,
                   cacher=_cacher('qcls_ds'))
 qcls_ss = QeClLib(qlms_ss, qlms_ss, mc_sims_mf_ss, lmax_qlm=LMAX_QLM,
                   cacher=_cacher('qcls_ss'))
+
+# --- analytic layers
+fal = {'tt': ftl, 'ee': fel, 'bb': fbl}
+qresp_dd = RespLib(LMAX_IVF, cl_len, cl_len, fal, LMAX_QLM, cacher=_cacher('qresp'),
+                   device=DEVICE)
+nhl_dd = NhlLib(ivfs, cl_len, LMAX_QLM, cacher=_cacher('nhl'), device=DEVICE)
+n1_dd = N1Lib(cl_len['tt'], cl_len['te'], cl_len['ee'], lmaxphi=2048, device=DEVICE)
