@@ -93,9 +93,10 @@ Phases:
                 (8d) ops/lensed_cls of FFP10 (input to l 4000, output to 1600) and
                 models/n0s.get_N0 at 35 / 55 uK-arcmin, 5', l 102-2048 on the card against
                 the CPU (lensed spectra <= 1e-12 of their max, BB of EE's; 1/N0 <= 1e-12 of
-                its max, and N0 per L over 10-2048 within 10x the CPU's own change under a
-                1e-15 change of its spectra, at least 1e-12: N0 = N / R^2 amplifies
-                rounding as 1/L^2 at low L), and the card's lensed spectra against
+                its max, and N0 per L over 10-2048 within 10x the largest of four changes of
+                the CPU path under a 1e-15 change of its spectra, at least 1e-12: N0 =
+                N / R^2 amplifies rounding as 1/L^2 at low L; N0 from f32-rounded spectra
+                must exceed that limit), and the card's lensed spectra against
                 FFP10_wdipole_lensedCls.dat (tests/test_lensed_cls.py's bounds)
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
@@ -213,10 +214,13 @@ def phase8(dev, dense_blocks=None):
     for k, lo, hi, gap, bound in r8d['vs_ffp10']:
         check(gap < bound, 'lensed %s over %d-%d vs FFP10: %.2e >= %g' % (k, lo, hi, gap, bound))
     for k, (inv_gap, band_gap) in r8d['n0_gap'].items():
-        limit = max(1e-12, 10. * r8d['n0_floor'][k])
+        limit = bpd.n0_limit(r8d['n0_floor'][k])
         check(inv_gap <= 1e-12 and band_gap <= limit, 'get_N0 %s on the card vs the CPU: '
               '1/N0 %.2e of max (limit 1e-12), N0 %.2e over 10 <= L <= 2048 (limit %.2e)'
               % (k, inv_gap, band_gap, limit))
+        # the per-L limit must see a precision fault: N0 from f32-rounded spectra
+        check(r8d['n0_f32'][k] > limit, 'get_N0 %s from f32-rounded spectra reads %.2e per '
+              'L, within the limit %.2e' % (k, r8d['n0_f32'][k], limit))
     phase(8, 'phase 8 wall %.1fs; the whole run so far %.1fs'
           % (time.perf_counter() - t8, time.perf_counter() - T_START))
 

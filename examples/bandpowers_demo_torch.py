@@ -27,9 +27,11 @@ The module also holds the three steps of chip_smoke.py phase 8:
 
   forecasts        ops/lensed_cls of FFP10's unlensed spectra (input to l 4000, output
                    to 1600) and models/n0s.get_N0 at the parfile's noise and beam (35 / 55
-                   uK-arcmin, 5', l 102-2048) on the device against the CPU, with the
-                   CPU's own change of N0 under a 1e-15 change of its input spectra, and
-                   the device's lensed spectra against FFP10_wdipole_lensedCls.dat.
+                   uK-arcmin, 5', l 102-2048) on the device against the CPU
+                   (`n0_card_vs_cpu`: with the CPU's own change of N0 under 1e-15
+                   changes of its input spectra, and the device's N0 from spectra
+                   rounded to f32), and the device's lensed spectra against
+                   FFP10_wdipole_lensedCls.dat.
 
 `load_aniso` loads params/anisofilt_example_torch.py at a size; each step returns a dict
 of its outputs and numbers, and `log` receives one line per step.
@@ -60,6 +62,10 @@ AMPL_BAND = (0.7, 1.3)     # get_ampl_x_input's mean, bins with L <= AMPL_LMAX
 LENSED_BOUNDS = (('tt', (100, 1600), 1e-3), ('ee', (100, 1600), 1e-3),
                  ('bb', (100, 799), 5e-4), ('bb', (800, 1600), 2e-3),
                  ('te', (100, 1600), 1e-3))
+# get_N0 on the device against the CPU, per L over 10 <= L <= lmax: N0_FLOOR_X times the
+# largest change of the CPU path under N0_DRAWS 1e-15 changes of its spectra (PERF.md
+# section 6, ROADMAP fault 3.9)
+N0_FLOOR_X, N0_DRAWS = 10., 4
 
 
 def _sync(device):
@@ -292,8 +298,11 @@ def bandpower_chain(par, keys=('ptt', 'p_p'), setup_s=None, log=print):
     p = lambda v: np.array2string(np.asarray(v), precision=4, max_line_width=200)
     for k, r in res.items():
         log('(8c) %s: fid %s' % (k, p(r['fid'])))
-        log('(8c) %s: (dat - rdn0 - n1) / fid %s; |dat - rdn0 - n1 - fid| / bound %s'
-            % (k, p(r['bp'] / r['fid']), p(r['bp_dev'] / r['bp_bound'])))
+        # where bound / |fid| >= 1 the bound would pass a band-power of zero: those bins
+        # cannot see a wrong debias
+        log('(8c) %s: (dat - rdn0 - n1) / fid %s; |dat - rdn0 - n1 - fid| / bound %s; '
+            'bound / |fid| %s' % (k, p(r['bp'] / r['fid']), p(r['bp_dev'] / r['bp_bound']),
+                                  p(r['bp_bound'] / np.abs(r['fid']))))
         log('(8c) %s: rdn0 / mcn0 %s; dat_nhl / mcn0 %s; n1 / fid %s'
             % (k, p(r['rdn0_ratio']), p(r['nhl_ratio']), p(r['n1'] / r['fid'])))
         log('(8c) %s: <q x phi_in> amplitude %s (+- %s); bmmc %s; bamc / fid %s'
@@ -321,7 +330,6 @@ def forecasts(device, log=print):
     from plancklens_tpu_torch import DATAPATH
     from plancklens_tpu_torch.utils import camb_clfile
     from plancklens_tpu_torch.ops.lensed_cls import lensed_cls
-    from plancklens_tpu_torch.models import n0s
     cpu = torch.device('cpu')
     cls = lambda name, lmax: camb_clfile(os.path.join(DATAPATH, 'cls', 'FFP10_wdipole_%s.dat'
                                                       % name), lmax=lmax)
@@ -345,41 +353,66 @@ def forecasts(device, log=print):
         else:
             dev_k = np.abs(out['dev'][k][sl] / target[k][sl] - 1.)
         vs_ffp10.append((k, lo, hi, float(dev_k.max()), bound))
-    kw = dict(beam_fwhm=5., nlev_t=35., nlev_p=55., lmax_CMB=2048, lmin_CMB=102,
-              lmax_out=2048)
-    # the CPU path's own change under a 1e-15 change of its input spectra: the floor the
-    # conditioning of N0 = N / R^2 sets per L (PERF.md section 6; ROADMAP fault 3.9)
-    rng = np.random.RandomState(15)
-    fid = n0s._default_cls()
-    pert = lambda: {k: v * (1. + 1e-15 * rng.standard_normal(v.shape)) for k, v in fid.items()}
-    n0 = {}
-    for name, d, extra in (('dev', device, {}), ('cpu', cpu, {}),
-                           ('cpu_perturbed', cpu, dict(cls_filt=pert(), cls_len=pert(),
-                                                       cls_weight=pert(), cls_sky=pert()))):
-        t0 = time.perf_counter()
-        n0[name] = n0s.get_N0(**kw, **extra, device=d)
-        _sync(d)
-        secs['n0_' + name] = time.perf_counter() - t0
-    n0_gap, n0_floor = {}, {}
-    for i, which in ((0, 'grad'), (1, 'curl')):
-        for k in n0['cpu'][i]:
-            name = '%s %s' % (k, which)
-            n0_gap[name] = n0_gaps(n0['dev'][i][k], n0['cpu'][i][k], 2048)
-            n0_floor[name] = n0_gaps(n0['cpu_perturbed'][i][k], n0['cpu'][i][k], 2048)[1]
-    res = {'lens_gap': lens_gap, 'vs_ffp10': vs_ffp10, 'n0_gap': n0_gap,
-           'n0_floor': n0_floor, 'seconds': secs,
-           'n0': {k: v for k, v in n0['dev'][0].items()}}
+    res = {'lens_gap': lens_gap, 'vs_ffp10': vs_ffp10, 'seconds': secs}
     log('(8d) lensed_cls of FFP10 (input to l 4000, output to 1600) on %s vs the CPU: %s '
         '(BB of max EE); against FFP10_wdipole_lensedCls.dat: %s'
         % (device, ', '.join('%s %.2e' % kv for kv in lens_gap.items()),
            ', '.join('%s %d-%d %.2e (bound %g)' % v for v in vs_ffp10)))
-    log('(8d) get_N0 at 35 / 55 uK-arcmin, 5\', l 102-2048 on %s vs the CPU, 1/N0 of max '
-        'and N0 over 10 <= L <= 2048 (the CPU\'s own change under a 1e-15 change of its '
-        'spectra): %s; seconds %s'
-        % (device, ', '.join('%s %.2e, %.2e (%.2e)' % (k, g[0], g[1], n0_floor[k])
-                             for k, g in n0_gap.items()),
-           ', '.join('%s %.2f' % kv for kv in secs.items())))
+    n0 = n0_card_vs_cpu(device, log=log)
+    secs.update(n0.pop('seconds'))
+    res.update(n0)
     return res
+
+
+def n0_limit(floor):
+    """The per-L limit of N0 on the device against the CPU: N0_FLOOR_X times the floor
+    (the CPU path's own change under a 1e-15 change of its inputs), at least 1e-12."""
+    return max(1e-12, N0_FLOOR_X * floor)
+
+
+def n0_card_vs_cpu(device, lmax=2048, draws=N0_DRAWS, log=print):
+    """models/n0s.get_N0 at the parfile's noise and beam (35 / 55 uK-arcmin, 5', l 102 to
+    `lmax`) on `device` against the CPU (`n0_gaps`), with
+      n0_floor  the largest per-L change of the CPU path under `draws` independent 1e-15
+                relative changes of its four input spectra: what the conditioning of
+                N0 = N / R^2 makes of rounding, the floor the per-L check scales;
+      n0_f32    the per-L gap of the device's N0 from the same spectra rounded to f32,
+                against the CPU: a precision fault the per-L check has to see."""
+    from plancklens_tpu_torch.models import n0s
+    cpu = torch.device('cpu')
+    kw = dict(beam_fwhm=5., nlev_t=35., nlev_p=55., lmax_CMB=lmax, lmin_CMB=102,
+              lmax_out=lmax)
+    names = ('cls_filt', 'cls_len', 'cls_weight', 'cls_sky')
+    rng = np.random.RandomState(15)
+    fid = n0s._default_cls()
+    pert = lambda: {k: v * (1. + 1e-15 * rng.standard_normal(v.shape)) for k, v in fid.items()}
+    f32 = {k: v.astype(np.float32).astype(float) for k, v in fid.items()}
+    runs = [('dev', device, {}), ('cpu', cpu, {}), ('dev_f32', device, dict.fromkeys(names, f32))]
+    runs += [('cpu_perturbed%d' % i, cpu, {n: pert() for n in names}) for i in range(draws)]
+    n0, secs = {}, {}
+    for name, d, extra in runs:
+        t0 = time.perf_counter()
+        n0[name] = n0s.get_N0(**kw, **extra, device=d)
+        _sync(d)
+        secs['n0_' + name] = time.perf_counter() - t0
+    gap, floor, f32_gap = {}, {}, {}
+    for i, which in ((0, 'grad'), (1, 'curl')):
+        for k in n0['cpu'][i]:
+            name = '%s %s' % (k, which)
+            ref = n0['cpu'][i][k]
+            gap[name] = n0_gaps(n0['dev'][i][k], ref, lmax)
+            floor[name] = max(n0_gaps(n0['cpu_perturbed%d' % j][i][k], ref, lmax)[1]
+                              for j in range(draws))
+            f32_gap[name] = n0_gaps(n0['dev_f32'][i][k], ref, lmax)[1]
+    log('(8d) get_N0 at 35 / 55 uK-arcmin, 5\', l 102-%d on %s vs the CPU: 1/N0 of max, N0 '
+        'over 10 <= L <= %d (limit: %g x the largest of %d CPU changes under a 1e-15 change '
+        'of the spectra), and N0 from f32-rounded spectra on %s: %s; seconds %s'
+        % (lmax, device, lmax, N0_FLOOR_X, draws, device,
+           ', '.join('%s %.2e, %.2e (floor %.2e, limit %.2e; f32 %.2e)'
+                     % (k, g[0], g[1], floor[k], n0_limit(floor[k]), f32_gap[k])
+                     for k, g in gap.items()),
+           ', '.join('%s %.2f' % kv for kv in secs.items())))
+    return {'n0_gap': gap, 'n0_floor': floor, 'n0_f32': f32_gap, 'seconds': secs}
 
 
 def main():

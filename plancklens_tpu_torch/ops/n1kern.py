@@ -22,7 +22,6 @@ Conventions replicated exactly, including the kernel's 1-based spectrum lookup
 
 Every entry point takes a required `device`; inputs are host arrays, results host numpy.
 """
-import os
 from functools import cached_property
 
 import numpy as np
@@ -42,18 +41,8 @@ def _cl_at(cl, li, lmin, lmax):
 def _geom(l1x, l2x, l1y, l2y):
     """Shared angular/radial geometry of a wavevector pair: (cos2phi12, sin2phi12,
     L.l1, L.l2, Lxl1, Lxl2) with L = l1 + l2."""
-    l1sq = l1x * l1x + l1y * l1y
-    l2sq = l2x * l2x + l2y * l2y
-    dot12 = l1x * l2x + l1y * l2y
-    cross12 = -l1y * l2x + l1x * l2y
-    safe = torch.clamp(l1sq * l2sq, min=1e-30)
-    cos2p = 2. * dot12 * dot12 / safe - 1.
-    sin2p = 2. * dot12 * cross12 / safe
-    Lql1 = (l1x + l2x) * l1x + (l1y + l2y) * l1y   # L . l1
-    Lql2 = (l1x + l2x) * l2x + (l1y + l2y) * l2y   # L . l2
-    Lxl1 = -(l1y + l2y) * l1x + (l1x + l2x) * l1y  # L x l1
-    Lxl2 = -(l1y + l2y) * l2x + (l1x + l2x) * l2y  # L x l2
-    return cos2p, sin2p, Lql1, Lql2, Lxl1, Lxl2
+    g = _Geo(l1x, l2x, l1y, l2y)
+    return g.cos2p, g.sin2p, g.Lql1, g.Lql2, g.Lxl1, g.Lxl2
 
 
 def _wf(k, l1x, l2x, l1y, l2y, l1i, l2i, cltt, clte, clee):
@@ -62,53 +51,9 @@ def _wf(k, l1x, l2x, l1y, l2y, l1i, l2i, cltt, clte, clee):
     k is a 3-char key: source in 'pxsf' + field pair in tt/te/et/tb/bt/ee/eb/be/bb.
     Index tensors l1i/l2i are rounded integer moduli; spectra are (len lmax) tensors.
     """
-    ctt = lambda li: _cl_at(cltt, li, 1, cltt.shape[0])
-    cte = lambda li: _cl_at(clte, li, 1, clte.shape[0])
-    cee = lambda li: _cl_at(clee, li, 1, clee.shape[0])
-    cos2p, sin2p, Lql1, Lql2, Lxl1, Lxl2 = _geom(l1x, l2x, l1y, l2y)
-
-    if k == 'ptt':
-        return ctt(l1i) * Lql1 + ctt(l2i) * Lql2
-    if k == 'pte':
-        return cte(l1i) * cos2p * Lql1 + cte(l2i) * Lql2
-    if k == 'pet':
-        return cte(l2i) * cos2p * Lql2 + cte(l1i) * Lql1
-    if k == 'ptb':
-        return cte(l1i) * Lql1 * sin2p
-    if k == 'pbt':
-        return cte(l2i) * Lql2 * (-sin2p)
-    if k == 'pee':
-        return (cee(l1i) * Lql1 + cee(l2i) * Lql2) * cos2p
-    if k == 'peb':
-        return cee(l1i) * Lql1 * sin2p
-    if k == 'pbe':
-        return cee(l2i) * Lql2 * (-sin2p)
-    if k in ('pbb', 'xbb', 'sbb', 'fbb'):
-        return torch.zeros_like(l1x)
-    if k == 'xtt':
-        return ctt(l1i) * Lxl1 + ctt(l2i) * Lxl2
-    if k == 'xte':
-        return cte(l1i) * cos2p * Lxl1 + cte(l2i) * Lxl2
-    if k == 'xet':
-        return cte(l2i) * cos2p * Lxl2 + cte(l1i) * Lxl1
-    if k == 'xtb':
-        return cte(l1i) * Lxl1 * sin2p
-    if k == 'xbt':
-        return cte(l2i) * Lxl2 * (-sin2p)
-    if k == 'xee':
-        return (cee(l1i) * Lxl1 + cee(l2i) * Lxl2) * cos2p
-    if k == 'xeb':
-        return cee(l1i) * Lxl1 * sin2p
-    if k == 'xbe':
-        return cee(l2i) * Lxl2 * (-sin2p)
-    if k == 'stt':
-        return torch.ones_like(l1x)
-    if k == 'ftt':
-        return ctt(l1i) + ctt(l2i)
-    if k in ('ste', 'set', 'stb', 'sbt', 'seb', 'sbe', 'see',
-             'fte', 'fet', 'ftb', 'fbt', 'feb', 'fbe', 'fee'):
-        return torch.zeros_like(l1x)
-    raise ValueError('unknown N1 weight key ' + k)
+    if k not in _WF_CODES:
+        raise ValueError('unknown N1 weight key ' + k)
+    return _wf_coded(_WF_CODES[k], l1x, l2x, l1y, l2y, l1i, l2i, cltt, clte, clee)
 
 
 # ----------------------------------------------------------------------------- coded W^k
@@ -163,8 +108,7 @@ def wf_code(k):
 
 
 def _wf_coded(code, l1x, l2x, l1y, l2y, l1i, l2i, cltt, clte, clee):
-    """W^k from its 8-int code (host integers): equal to _wf(k, ...) with
-    code = wf_code(k), up to the order of the products."""
+    """W^k from its 8-int code (host integers), code = wf_code(k)."""
     spectra = (cltt, clte, clee)
     geo = _Geo(l1x, l2x, l1y, l2y)
     look = (lambda c: _cl_at(spectra[c - 1], l1i, 1, spectra[c - 1].shape[0]),
@@ -291,9 +235,6 @@ def _grids(lminA, lmaxA, dL, lps):
 
 
 def _default_chunk(device):
-    env = os.environ.get('PLK_N1_CHUNK')
-    if env:
-        return int(env)
     return 1 << 24 if device.type == 'cuda' else 1 << 20
 
 
@@ -482,7 +423,7 @@ def n1L_batch(Ls, kA, kB, kI, cl_kI, cltt, clte, clee, clttfid, cltefid, cleefid
     """The N1 curve on the output knots `Ls` (reference: n1kern.n1L_batch).
 
     Spectrum and filter arrays follow the reference convention: entry [i] is multipole
-    i + 1, valid range [lmin, len(array)]. `chunk` (or PLK_N1_CHUNK) is the number of box
+    i + 1, valid range [lmin, len(array)]. `chunk` is the number of box
     points evaluated at once (default 2^24 on a CUDA device, 2^20 on the CPU). Returns a
     numpy (len(Ls),) array."""
     lmaxA, lmaxB = len(ftlA), len(ftlB)

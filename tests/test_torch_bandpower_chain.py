@@ -4,6 +4,9 @@
     on params/anisofilt_example_torch.py at PLK_ANISO_LMAX=32, PLK_ANISO_NSIMS=10 on the
     CPU, with the shapes, keys and checks that the phase reads (the device is the CPU
     here, so the card-vs-CPU differences are exactly zero);
+  * phase 8d's get_N0 check (`n0_card_vs_cpu`, `n0_limit`) at lmax 256 on the CPU: the
+    floor is positive and small, and the per-L limit sees both N0 from f32-rounded spectra
+    and N0 from d-matrices rounded to f32 (the Wigner products of a precision fault);
   * the demo run as a subprocess (`PLK_DEVICE=cpu python examples/bandpowers_demo_torch.py`,
     lmax 32, 5 sims), printing the reference demo's lines.
 """
@@ -89,3 +92,37 @@ def test_bandpowers_demo_runs_on_cpu():
                  'data band-powers', 'MCN0', 'RDN0', 'N1', 'debiased band-powers',
                  'fiducial C_L^kk bins'):
         assert line in out.stdout, (line, out.stdout)
+
+
+def test_n0_check_rehearsed():
+    r = bd.n0_card_vs_cpu('cpu', lmax=256, draws=2, log=lambda s: None)
+    assert set(r['n0_gap']) == {'%s %s' % (k, w) for k in ('ptt', 'p_p', 'p')
+                                for w in ('grad', 'curl')}
+    for k, (inv_gap, band_gap) in r['n0_gap'].items():
+        assert inv_gap == 0. and band_gap == 0., k         # the device is the CPU here
+        assert 0. < r['n0_floor'][k] < 1e-10, k
+        assert r['n0_f32'][k] > bd.n0_limit(r['n0_floor'][k]), k
+    assert bd.n0_limit(1e-15) == 1e-12 and bd.n0_limit(1e-11) == 1e-11 * bd.N0_FLOOR_X
+
+
+def test_n0_limit_sees_f32_wigner(monkeypatch):
+    from plancklens_tpu_torch.models import n0s
+    from plancklens_tpu_torch.ops import wigner
+    kw = dict(beam_fwhm=5., nlev_t=35., nlev_p=55., lmax_CMB=256, lmin_CMB=102,
+              lmax_out=256, device='cpu')
+    wigner.clear_cache()
+    ref = n0s.get_N0(**kw)
+    r = bd.n0_card_vs_cpu('cpu', lmax=256, draws=2, log=lambda s: None)
+    f64_dmat = wigner._dmat_ab_np
+    monkeypatch.setattr(wigner, '_dmat_ab_np', lambda *a: f64_dmat(*a).astype(np.float32)
+                        .astype(np.float64))
+    wigner.clear_cache()
+    try:
+        bad = n0s.get_N0(**kw)
+    finally:
+        wigner.clear_cache()
+    for i, which in ((0, 'grad'), (1, 'curl')):
+        for k in ref[i]:
+            name = '%s %s' % (k, which)
+            gap = bd.n0_gaps(bad[i][k], ref[i][k], 256)[1]
+            assert gap > 100. * bd.n0_limit(r['n0_floor'][name]), (name, gap)
