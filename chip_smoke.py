@@ -98,6 +98,33 @@ Phases:
                 N / R^2 amplifies rounding as 1/L^2 at low L; N0 from f32-rounded spectra
                 must exceed that limit), and the card's lensed spectra against
                 FFP10_wdipole_lensedCls.dat (tests/test_lensed_cls.py's bounds)
+  9 joint T/P   joint T/P filtering and the GMV estimator (examples/gmv_jtp_torch.py):
+                (9a) cinv.CinvTP at lmax 64 (the anisofilt mask, 35 / 55 uK-arcmin, batch 2,
+                monopole and dipole marginalised, dense block to l 16), f64, on the card
+                against the CPU plain path: the same iteration count (> 5), the right-hand
+                side and forward op within 1e-12 of max, the card's solution below 1e-5 in
+                the CPU system and within 10x the CPU solution's change under a 1e-15 change
+                of its maps and inverted dense block, the dense block probed on the card
+                within 1e-12 of the CPU's probe, get_fal within 1e-12; IVFJTP's alms and
+                Wiener legs and the GMV 'p' qlm on them within 1e-12 of max; smooth_map,
+                apodize_mask, IVFApoSepTP, IVFFml, AlmNlevLib, CMBUnlLibFixedPhi,
+                CMBLenLibFixedPhi, CinvKK and template_uptolmin at lmax 32 on the card
+                against the CPU (gmv_jtp_torch.STAGE_B_LIMITS); (9b) CinvTP at
+                lmax 2048 on the parfile's lensed masked sims 0-3 in one lockstep batch
+                (dense T/E/B block to l 32 probed on the card at band limit 32): every row
+                below 1e-5 (recurred and recomputed) in < 400 iterations, iterations,
+                seconds, seconds an iteration, setup seconds, K1/K2 launches by (mode, batch,
+                type), peak < 40 GiB (probe and solve), and K1/K2 at the joint operator's
+                shapes (spin 0 and the spin-2 pair, f64, batch 4, 2049 rings) against their
+                plain versions (<= 1e-12 of max, bitwise equal on a second run), timed; (9c)
+                the bar alms through an IVFCinvJTP cacher under the reference's names ->
+                IVFFtl -> QELib 'p', <q x phi_in> / (R_L^GMV C_L^pp fsky) over 30 <= L <=
+                1000 in [0.7, 1.3] with R from RespLib on CinvTP.get_fal(), and the
+                semi-analytic N0 of the GMV 'p' below that of the separately filtered 'p'
+                at every 10 <= L <= 2000 (ratio <= 1 + 1e-6); (9d) IVFJTP on 4 Gaussian sims
+                of the lensed spectra at lmax 2048 (35 / 35 sqrt 2 uK-arcmin): the mean GMV
+                spectrum over its N0 over 30 <= L <= 1500 within gmv_jtp_torch.SPEC_BOUND
+                of 1
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
@@ -223,6 +250,67 @@ def phase8(dev, dense_blocks=None):
               'L, within the limit %.2e' % (k, r8d['n0_f32'][k], limit))
     phase(8, 'phase 8 wall %.1fs; the whole run so far %.1fs'
           % (time.perf_counter() - t8, time.perf_counter() - T_START))
+
+
+def phase9(dev, dense_blocks=None):
+    """Phase 9 (module docstring): joint T/P filtering and the GMV estimator. Returns 9b's
+    numbers and the kernel rows at the joint operator's shapes."""
+    import torch
+    from plancklens_tpu_torch.ops.sht import core
+    import gmv_jtp_torch as gj
+    log9 = lambda s: phase(9, s)
+    t9 = time.perf_counter()
+    r = gj.card_vs_cpu(dev, log=log9)
+    it_d, it_c, it_n = r['it']
+    check(it_d == it_c == it_n and it_d > 5 and bool(np.all(r['rel'] < 1e-5))
+          and bool(np.all(r['res'] < 1e-5)),
+          'CinvTP at lmax 64: iterations %s, card solution residual %s' % (r['it'], r['res']))
+    check(r['err'] <= 10. * r['floor'], 'CinvTP card vs CPU: %.2e > 10 x %.2e'
+          % (r['err'], r['floor']))
+    check(max(r['ops'], r['probe_err'], r['fal_err'], r['ivfjtp_err'], r['qlm_err']) <= 1e-12,
+          'CinvTP / IVFJTP card vs CPU: ops %.2e, probe %.2e, fal %.2e, IVFJTP %.2e, qlm %.2e'
+          % (r['ops'], r['probe_err'], r['fal_err'], r['ivfjtp_err'], r['qlm_err']))
+    check(r['launches']['synth_pair'] > 0 and r['launches']['anal_pair'] > 0,
+          'CinvTP at lmax 64 did not launch K1/K2: %s' % r['launches'])
+    rb = gj.stage_b_card_vs_cpu(dev, log=log9)
+    for name, limit in gj.STAGE_B_LIMITS.items():
+        check(rb[name] <= limit, '%s card vs CPU: %.2e > %g' % (name, rb[name], limit))
+    check(rb['CinvKK_it'][0] == rb['CinvKK_it'][1], 'CinvKK iterations card / CPU: %s'
+          % (rb['CinvKK_it'],))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    r9b = gj.masked_gmv(dev, LMAX, nsims=len(HP_SIMS), dense_cacher=dense_blocks, log=log9)
+    rels = np.concatenate([r9b['rel'], r9b['true_rel']])
+    check(r9b['it'] < 400 and bool((rels < 1e-5).all()),
+          'CinvTP at lmax %d: %d iterations, residuals %s' % (LMAX, r9b['it'], rels))
+    check(max(r9b['peak_gib'], r9b['probe_peak_gib']) < 40., 'CinvTP peak memory %.2f / %.2f '
+          'GiB' % (r9b['probe_peak_gib'], r9b['peak_gib']))
+    batch = len(HP_SIMS)
+    for mode in (0, 1):
+        check(r9b['k1'].get((mode, batch, 'f64'), 0) > 0
+              and r9b['k2'].get((mode, batch, 'f64'), 0) > 0,
+              'CinvTP did not run K1/K2 mode %d at batch %d: %s %s'
+              % (mode, batch, r9b['k1'], r9b['k2']))
+    check(r9b['finite'] and 0.7 <= r9b['ampl'] <= 1.3, 'GMV <q x phi_in> / (R C^pp fsky) '
+          '%.4f outside [0.7, 1.3] (finite: %s)' % (r9b['ampl'], r9b['finite']))
+    torch.cuda.empty_cache()
+    rows = gj.kernel_rows(dev, LMAX, batch=batch, log=log9)
+    for name, row in rows.items():
+        check(row['rel_err'] <= 1e-12 and row['equal'], '%s vs plain: %.2e, bitwise equal on '
+              'a second run: %s' % (name, row['rel_err'], row['equal']))
+    r9n = gj.n0_ratio(dev, LMAX, log=log9)
+    check(bool(np.all(r9n['ratio'] <= 1. + 1e-6)), 'N0 GMV / N0 SQE above 1 + 1e-6: max %.8f'
+          % r9n['ratio'].max())
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    r9d = gj.ivfjtp_full(dev, LMAX, nsims=4, log=log9)
+    check(r9d['finite'] and abs(r9d['ratio'] - 1.) <= gj.SPEC_BOUND,
+          'IVFJTP GMV spectrum / N0: mean %.4f, bound %g' % (r9d['ratio'], gj.SPEC_BOUND))
+    phase(9, 'phase 9 wall %.1fs; the whole run so far %.1fs'
+          % (time.perf_counter() - t9, time.perf_counter() - T_START))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    return r9b, rows
 
 
 def main():
@@ -865,6 +953,9 @@ def main():
     # ---------------------------------------------------------------- 8 N1 and band-powers
     phase8(dev, dense_blocks)
 
+    # ---------------------------------------------------------------- 9 joint T/P, GMV
+    r9b, rows9 = phase9(dev, dense_blocks)
+
     # launches of the 4 sims' steps, at each new row's shape
     lens_launches = {'synth_pair_ecp_t': ('ecp_t', ('synth_pair', 0, 1, 'f64')),
                      'synth_pair_ecp_qu': ('ecp_qu', ('synth_pair', 1, 1, 'f64')),
@@ -889,6 +980,15 @@ def main():
         kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
                         'replaces': REPLACES[shape_key[0]],
                         'launches': r7b['launches'].get(step, {}).get(shape_key, 0),
+                        'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+                        'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+                        'bound_by': row['bound_by'], 'library_ms': None})
+    # launches of 9b's lockstep solve at each joint-operator shape
+    for name, row in rows9.items():
+        shapes = r9b['k1'] if name.startswith('synth') else r9b['k2']
+        kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
+                        'replaces': REPLACES[name.split('_tp')[0]],
+                        'launches': shapes.get((row['mode'], row['batch'], 'f64'), 0),
                         'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
                         'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
                         'bound_by': row['bound_by'], 'library_ms': None})

@@ -1,7 +1,8 @@
 r"""Simulation libraries: reproducible Gaussian CMB + noise skies in harmonic space.
 
-Port of plancklens_tpu/models/sims.py:22-284, 343-389 and 508-622 (`unit_phases`,
-`cls_to_coloring`, `CMBUnlLib`, `MapsNlevLib`, `CMBLenLib`, `ExternalAlmLib`, `AlmMapLib`,
+Port of plancklens_tpu/models/sims.py (`unit_phases`, `cls_to_coloring`, `CMBUnlLib` and
+its fixed-phi variant, `MapsNlevLib`, `CMBLenLib` and its fixed-phi variant,
+`ExternalAlmLib`, `AlmNlevLib`, `SimLibShuffle`, `SimLibAdd`, `AlmMapLib`,
 `MapsLenNlevLib`). Determinism comes from one `torch.Generator` per (library seed,
 simulation index), seeded through numpy's SeedSequence (pixel noise: per (seed, index,
 field tag)); the streams differ from the reference's `jax.random` draws. For parity
@@ -132,6 +133,45 @@ class CMBUnlLib:
         return self.get_sim_alms(idx)[self._field_index(field)]
 
 
+class CMBUnlLibFixedPhi(CMBUnlLib):
+    """Unlensed CMB sims sharing ONE lensing potential across all indices (reference:
+    plancklens/sims/cmbs.py:236-261 sims_cmb_unl_fixed_phi): the phi slot of every
+    simulation returns the same plm (the base library's sim-`phi_idx` draw, or an explicit
+    `plm`), the other fields keep their per-index draws (including the component that
+    would correlate them with their own per-index phi, as in the reference). The fixed plm
+    is a copy held on the library's device; each draw gets its own tensor."""
+
+    def __init__(self, cls, lmax, fields=('t', 'e', 'b', 'p'), seed=0, plm=None,
+                 phi_idx=0, *, device, dtype=torch.float64, phases=None):
+        super().__init__(cls, lmax, fields=fields, seed=seed, device=device, dtype=dtype,
+                         phases=phases)
+        assert 'p' in self.fields, self.fields
+        self._phi_idx = int(phi_idx)
+        self._external_plm = plm is not None
+        if plm is not None:
+            plm = torch.as_tensor(np.asarray(plm) if not torch.is_tensor(plm) else plm)
+            assert tuple(plm.shape) == (ualm.getsize(lmax),), (tuple(plm.shape), lmax)
+            self._plm_fix = plm.to(device=self.device, dtype=_CDTYPE[dtype]).clone()
+        else:
+            self._plm_fix = super().get_sim_alms(self._phi_idx)[self._field_index('p')].clone()
+
+    def hashdict(self):
+        d = super().hashdict()
+        d['fixed_phi'] = clhash(np.abs(self._plm_fix.cpu().numpy())) \
+            if self._external_plm else ('sim', self._phi_idx)
+        return d
+
+    def get_sim_alms(self, idx):
+        alms = super().get_sim_alms(idx).clone()
+        alms[self._field_index('p')] = self._plm_fix
+        return alms
+
+    def get_sim_alms_batch(self, idxs):
+        alms = super().get_sim_alms_batch(idxs).clone()
+        alms[:, self._field_index('p')] = self._plm_fix[None]
+        return alms
+
+
 class MapsNlevLib:
     """Beam-convolved CMB + homogeneous white noise, in harmonic space: the observed sky
     is transf * alm + noise alm with N_l = (nlev * pi/180/60)^2, and
@@ -254,6 +294,135 @@ class ExternalAlmLib:
         return tuple(torch.stack([self._get(f, i) for i in idxs]) for f in 'teb')
 
 
+class AlmNlevLib:
+    """Beam-convolved observations from any harmonic sim library plus homogeneous white
+    noise (role of reference plancklens/sims/planck2018_sims.py:122-158 ffp10cmb_widnoise:
+    noise-free CMB alms, e.g. an ExternalAlmLib over FFP10 products, re-observed with a
+    chosen white noise level). The noise of sim idx and field tag (0 t, 1 e, 2 b; idx -1
+    the data) is drawn from the generator of (seed, idx, tag) on `device`, or taken from
+    `noise`, a callable (idx, tag) -> numpy (nalm,) complex unit phases (the reference's
+    jax.random draws differ from these, ROADMAP fault 3.3)."""
+
+    def __init__(self, alm_lib, lmax, transf, nlev_t, nlev_p, seed=3000,
+                 dtype=torch.float64, *, device, noise=None):
+        self.alm_lib = alm_lib
+        self.lmax = lmax
+        self.transf = np.asarray(transf)[:lmax + 1]
+        self.nlev_t = nlev_t
+        self.nlev_p = nlev_p
+        self.seed = seed
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.noise = noise
+
+    def hashdict(self):
+        return {'alms': self.alm_lib.hashdict(), 'transf': clhash(self.transf),
+                'nlev_t': self.nlev_t, 'nlev_p': self.nlev_p, 'seed': self.seed}
+
+    def _unit(self, idx, tag):
+        if self.noise is not None:
+            n = torch.as_tensor(np.array(self.noise(int(idx), tag)))
+            assert tuple(n.shape) == (ualm.getsize(self.lmax),), tuple(n.shape)
+            return n.to(device=self.device, dtype=_CDTYPE[self.dtype])
+        return unit_phases(sim_generator(self.seed, idx, self.device, tag), 1, self.lmax,
+                           self.device, self.dtype)[0]
+
+    def _obs(self, alm, idx, tag, nlev):
+        alm = torch.as_tensor(alm).to(device=self.device, dtype=_CDTYPE[self.dtype])
+        alm = ualm.alm_copy(alm, ualm.getlmax(alm.shape[-1]), self.lmax)
+        noise = self._unit(idx, tag) * (nlev / 60. / 180. * np.pi)
+        return ualm.almxfl(alm, self.lmax, self.transf) + noise
+
+    def get_sim_tlm(self, idx):
+        return self._obs(self.alm_lib.get_sim_tlm(idx), idx, 0, self.nlev_t)
+
+    def get_sim_elm(self, idx):
+        return self._obs(self.alm_lib.get_sim_elm(idx), idx, 1, self.nlev_p)
+
+    def get_sim_blm(self, idx):
+        return self._obs(self.alm_lib.get_sim_blm(idx), idx, 2, self.nlev_p)
+
+    def get_sim_teblm_batch(self, idxs):
+        """3-tuple of (nsims, nalm) observed alms."""
+        idxs = [int(i) for i in np.atleast_1d(idxs)]
+        return tuple(torch.stack([getattr(self, 'get_sim_%slm' % f)(i) for i in idxs])
+                     for f in 'teb')
+
+
+class SimLibShuffle:
+    """Index-remapped view of a sim library (reference: plancklens/sims/utils.py:3-17)."""
+
+    def __init__(self, sim_lib, idx_map):
+        self.sim_lib = sim_lib
+        self.idx_map = idx_map if callable(idx_map) \
+            else (lambda i, d=dict(idx_map): d.get(i, i))
+
+    def hashdict(self):
+        return {'sim_lib': self.sim_lib.hashdict(), 'shuffled': True}
+
+    def __getattr__(self, name):
+        if name.startswith('get_sim_'):
+            inner = getattr(self.sim_lib, name)
+            return lambda idx, *a, **kw: inner(self.idx_map(idx), *a, **kw)
+        return getattr(self.sim_lib, name)
+
+
+class SimLibAdd:
+    """Weighted sum of two sim libraries, applied to sim and/or data indices (reference:
+    plancklens/sims/utils.py:20-91, used to add extra power to noise sims)."""
+
+    def __init__(self, lib_a, lib_b, w_a=1., w_b=1., sims_only=False, dat_only=False):
+        self.a = lib_a
+        self.b = lib_b
+        self.wa, self.wb = w_a, w_b
+        self.sims_only = sims_only
+        self.dat_only = dat_only
+
+    def hashdict(self):
+        return {'a': self.a.hashdict(), 'b': self.b.hashdict(), 'wa': self.wa,
+                'wb': self.wb, 'sims_only': self.sims_only, 'dat_only': self.dat_only}
+
+    def _active(self, idx):
+        if self.sims_only:
+            return idx >= 0
+        if self.dat_only:
+            return idx == -1
+        return True
+
+    def _add(self, ra, rb):
+        """wa ra + wb rb elementwise, tuple returns (get_sim_pmap's (Q, U)) included."""
+        if isinstance(ra, (tuple, list)):
+            return type(ra)(self.wa * x + self.wb * y for x, y in zip(ra, rb))
+        return self.wa * ra + self.wb * rb
+
+    def __getattr__(self, name):
+        if name.endswith('_batch') and name.startswith('get_sim_'):
+            # batched accessors take an index array: the scalar gate is ambiguous there,
+            # so a batch must be all active or all inactive
+            fa = getattr(self.a, name)
+
+            def get_batch(idxs, *args, **kw):
+                idxs = np.atleast_1d(idxs)
+                ra = fa(idxs, *args, **kw)
+                if all(self._active(int(i)) for i in idxs):
+                    return self._add(ra, getattr(self.b, name)(idxs, *args, **kw))
+                if not any(self._active(int(i)) for i in idxs):
+                    return ra
+                raise ValueError('SimLibAdd batch mixing active and inactive indices '
+                                 '(sims_only/dat_only): split the batch')
+            return get_batch
+        if name.startswith('get_sim_'):
+            fa = getattr(self.a, name)
+
+            def get(idx, *args, **kw):
+                ra = fa(idx, *args, **kw)
+                if self._active(idx):
+                    return self._add(ra, getattr(self.b, name)(idx, *args, **kw))
+                return ra
+            return get
+        return getattr(self.a, name)
+
+
 class AlmMapLib:
     """Map-space view of an alm simulation library on a ring geometry: the 'observed sky'
     interface the masked (cinv) filters consume (reference: plancklens_tpu/models/sims.py
@@ -373,6 +542,23 @@ class CMBLenLib:
 
     def get_sim_blm(self, idx):
         return self.get_sim_eblm(idx)[1]
+
+
+class CMBLenLibFixedPhi(CMBLenLib):
+    """Lensed CMB sims with a common deflection field for every index (reference:
+    plancklens/sims/cmbs.py:263-280 sims_cmb_len_fixed_phi): the unlensed library is a
+    CMBUnlLibFixedPhi, so every sim is lensed by the same potential while the unlensed
+    T/E/B vary. `plm`, if given, is at the internal band limit lmax + dlmax."""
+
+    def __init__(self, cls_unl, lmax, geom, fields=('t', 'e', 'b', 'p'), seed=0,
+                 dlmax=128, oversample=4.0, order=9, plm=None, phi_idx=0,
+                 dtype=torch.float64, *, device, phases=None):
+        super().__init__(cls_unl, lmax, geom, fields=fields, seed=seed, dlmax=dlmax,
+                         oversample=oversample, order=order, dtype=dtype, device=device,
+                         phases=phases)
+        self.unl_lib = CMBUnlLibFixedPhi(cls_unl, self.lmax_unl, fields=fields, seed=seed,
+                                         plm=plm, phi_idx=phi_idx, device=device,
+                                         dtype=dtype, phases=phases)
 
 
 class MapsLenNlevLib:

@@ -149,3 +149,34 @@ def rlm2alm(rlm, lmax):
     # scaled in f64 and rounded once, as the reference does
     return (torch.complex(re, im)
             * torch.as_tensor(inv_scale, dtype=torch.float64, device=dev)).to(cdt)
+
+
+_SYM3 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+class TEBMatrix:
+    """A real symmetric 3x3 matrix per multipole, (lmax+1, 3, 3) host numpy, applied to
+    stacked (..., 3, nalm) T/E/B alms: out_i = sum_j M_ij(l) x_j. Its six entries are
+    expanded over the alm layout once, on `device`, in the real `dtype` (the (nalm, 3, 3)
+    gather of the reference takes 151 MB at lmax 2048 in f64); the product of complex alms
+    keeps their complex dtype. An entry that is zero at every l is skipped (its terms add
+    exact zeros). The matrix is read from its upper triangle."""
+
+    def __init__(self, mat, lmax, dtype=torch.float64, *, device):
+        mat = np.asarray(mat, dtype=np.float64)[:lmax + 1]
+        idx = _dev_index(lmax, torch.device(device), 'l')
+        self.lmax = lmax
+        self.ent = {ij: torch.as_tensor(np.ascontiguousarray(mat[:, ij[0], ij[1]]),
+                                        dtype=dtype, device=device)[idx]
+                    for ij in _SYM3 if np.any(mat[:, ij[0], ij[1]])}
+
+    def __call__(self, x):
+        rows = []
+        for i in range(3):
+            acc = None
+            for j in range(3):
+                e = self.ent.get((min(i, j), max(i, j)))
+                if e is not None:
+                    acc = x[..., j, :] * e if acc is None else acc + x[..., j, :] * e
+            rows.append(torch.zeros_like(x[..., i, :]) if acc is None else acc)
+        return torch.stack(rows, dim=-2)

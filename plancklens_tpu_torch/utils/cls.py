@@ -2,8 +2,8 @@
 
 Pure numpy (these are config-time operations on O(lmax) arrays); the hot per-multipole work
 lives in :mod:`plancklens_tpu_torch.ops`.
-Copied from plancklens_tpu/utils/cls.py; the mask helpers (smooth_map, apodize_mask)
-belong to the masked pipeline and are not ported yet.
+Copied from plancklens_tpu/utils/cls.py; the mask helpers (smooth_map, apodize_mask) run
+their transforms on a given device and return host numpy maps.
 
 Behaviour matched to the reference helpers:
  - camb_clfile      (reference: plancklens/utils.py:307-333)
@@ -140,6 +140,42 @@ def cl_inverse(cls):
         if np.any(arr):
             clsi[k] = arr
     return clsi
+
+
+def smooth_map(m, geom, sigma_rad, lmax=None, *, device):
+    """Gaussian smoothing of a map on a ring geometry (healpy hp.smoothing role), the
+    transforms on `device`; host numpy out."""
+    import torch
+    from ..ops.sht import SHT
+    from . import alm as ualm
+    if lmax is None:
+        lmax = geom.nrings - 1
+    sht = SHT(geom, lmax, device=device)
+    alm = sht.map2alm(torch.as_tensor(np.asarray(m, dtype=float), device=sht.device))
+    ls = np.arange(lmax + 1)
+    bl = np.exp(-0.5 * ls * (ls + 1.) * sigma_rad ** 2)
+    return sht.alm2map(ualm.almxfl(alm, lmax, bl)).cpu().numpy()
+
+
+def apodize_mask(mask, geom, sigma_arcmin=12., lmax=None, method='hybrid',
+                 mult_factor=3, min_factor=0.1, verbose=False, *, device):
+    """Apodize a binary mask for pseudo-CL use (reference: plancklens/utils.py:268-305):
+    Gaussian smoothing, or the hybrid scheme (enlarge + truncate + re-smooth) that mostly
+    smooths outside the existing mask. The smoothings run on `device`."""
+    if not sigma_arcmin:
+        return mask
+    sigma_rad = sigma_arcmin / 180. / 60. * np.pi
+    ap = smooth_map(mask, geom, sigma_rad, lmax=lmax, device=device)
+    if method == 'gaussian':
+        return ap
+    if method != 'hybrid':
+        raise ValueError('Unknown apodization method ' + method)
+    ap = 1 - np.minimum(1., np.maximum(0., mult_factor * (1 - ap) - min_factor))
+    ap = smooth_map(ap, geom, sigma_rad / 2, lmax=lmax, device=device)
+    if verbose:
+        w = np.outer(geom.weight, np.full(geom.nphi, 1. / geom.nphi)) / 2.
+        print('apodize_mask: fsky = %.4f' % np.sum(w * ap ** 2))
+    return ap
 
 
 def cls2dls(cls):
