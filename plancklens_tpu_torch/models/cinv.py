@@ -1,14 +1,16 @@
 r"""Exact C^{-1} (Wiener / inverse-variance) filtering by conjugate gradients, in torch.
 
-Port of plancklens_tpu/models/cinv.py:30-1193 (reference: plancklens/qcinv/opfilt_tt.py,
+Port of plancklens_tpu/models/cinv.py (reference: plancklens/qcinv/opfilt_tt.py,
 opfilt_pp.py, opfilt_tp.py, plancklens/filt/filt_cinv.py:56-626). The linear system
 
     (S^{-1} + B^T Y^T N^{-1} Y B) x = B^T Y^T N^{-1} m
 
 is solved by the PCG of ops/cg.py; its forward op costs one synthesis and one analysis
 (kernels K1/K2 on the card: spin 0 for T, the spin-2 pair for P, both for the joint T/P
-filter CinvTP), and a batch of maps is a leading axis of one lockstep solve. The system is D_l-rescaled for a scale-balanced
-criterion (filt_cinv.py:82-92). Templates (monopole/dipole or arbitrary maps) are
+filter CinvTP), and a batch of maps is a leading axis of one lockstep solve. The system
+is D_l-rescaled for a scale-balanced criterion (filt_cinv.py:82-92). Preconditioners:
+the diagonal, a dense low-l block (analytic for T, probed for P and T/E/B), the
+reference's descriptor grammar (`parse_pre_op_descr`) and its multigrid chains. Templates (monopole/dipole or arbitrary maps) are
 deprojected from N^{-1} exactly (opfilt_tt.py:99-205).
 
 Every operator constant (N^{-1} per steradian, templates, (P^T N^{-1} P)^{-1}, the
@@ -1261,3 +1263,224 @@ class IVFCinvJTP:
 
     def get_sim_bmliklm(self, idx):
         return self._wiener(idx, 'b')
+
+
+def parse_pre_op_descr(descr, cinv, dense_cacher=None, stages=None):
+    """Build a CG preconditioner from the reference's descriptor-string grammar
+    (reference: plancklens/qcinv/multigrid.py:163-210 parse_pre_op_descr), against an
+    existing CinvT / CinvP / CinvTP / CinvKK solver object, on its device:
+
+      - ``diag_cl``                  the solver's diagonal preconditioner
+      - ``dense`` / ``dense(key)``   dense low-l block over the enclosing band limit
+                                     (analytic for T-like solvers, probed for the stacked
+                                     P / TEB operators); a non-empty ``key`` names the
+                                     entry in `dense_cacher`
+      - ``split(low, lsplit, high)`` `low` built at band limit lsplit, `high` above
+      - ``stage(i)``                 entry i of `stages` (prebuilt pre-ops, e.g. from
+                                     make_multigrid_pre_op)
+
+    e.g. the reference's production T chain descriptor ``split(dense(""), 64, diag_cl)``
+    gives what ``CinvT(..., lmax_dense=64)`` wires by construction."""
+    descr = descr.strip()
+    if descr.startswith('split(') and descr.endswith(')'):
+        # balance-parse the three arguments at top-level commas (a greedy regex mis-parses
+        # a split nested in the high slot, e.g. 'split(dense, 24, split(dense, 8, diag_cl))')
+        args = _split_top_level(descr[len('split('):-1])
+        assert len(args) == 3, 'split() takes exactly 3 arguments: %r' % descr
+        low_descr, lsplit, high_descr = args[0], int(args[1]), args[2]
+        low = _parse_pre_op_at(low_descr, cinv, lsplit, dense_cacher, stages)
+        high = _parse_pre_op_at(high_descr, cinv, cinv.lmax, dense_cacher, stages)
+        return split_pre_op(low, high, min(lsplit, cinv.lmax), cinv.lmax, device=cinv.device)
+    return _parse_pre_op_at(descr, cinv, cinv.lmax, dense_cacher, stages)
+
+
+def _split_top_level(s):
+    """Split a descriptor argument list on commas at paren depth 0, honouring quoted
+    strings (dense cache keys may carry commas, e.g. ``split(dense("a,b"), 64, ...)``)."""
+    parts, depth, start, quote = [], 0, 0, None
+    for i, c in enumerate(s):
+        if quote is not None:
+            if c == quote:
+                quote = None
+        elif c in '"\'':
+            quote = c
+        elif c == '(':
+            depth += 1
+        elif c == ')':
+            depth -= 1
+            assert depth >= 0, 'unbalanced parens in descriptor: %r' % s
+        elif c == ',' and depth == 0:
+            parts.append(s[start:i].strip())
+            start = i + 1
+    assert depth == 0 and quote is None, 'unbalanced descriptor: %r' % s
+    parts.append(s[start:].strip())
+    return parts
+
+
+def _parse_pre_op_at(descr, cinv, ctx_lmax, dense_cacher, stages):
+    """One descriptor at an enclosing band limit (the role of the lmax the reference
+    threads through nested parse_pre_op_descr calls). Cache keys are the reference's."""
+    import re
+    descr = descr.strip()
+    if re.match(r'split\(', descr):
+        return parse_pre_op_descr(descr, cinv, dense_cacher=dense_cacher, stages=stages)
+    if descr == 'diag_cl':
+        return cinv.pre_diag
+    m = re.match(r'dense(?:\((.*)\))?\Z', descr)
+    if m:
+        ld = min(ctx_lmax, cinv.lmax)
+        key = m.group(1) or None
+        kw = dict(cacher=dense_cacher, dtype=cinv.dtype, device=cinv.device)
+        if isinstance(cinv, CinvP):
+            if key is None:
+                key = _dense_cache_key('pp', ld, cinv.lmax,
+                                       list(cinv.filt.ninv)
+                                       + [cinv.cl['ee'][:cinv.lmax + 1],
+                                          cinv.cl['bb'][:cinv.lmax + 1], cinv.transf,
+                                          cinv.filt.templates.ravel(),
+                                          [float(cinv.filt.templates.shape[0])]])
+            return dense_pre_op_stacked(cinv.fwd_op, ld, cinv.lmax, 2, cache_key=key,
+                                        chunk=probe_chunk(cinv.geom, cinv.lmax, 2,
+                                                          cinv.dtype), **kw)
+        if isinstance(cinv, CinvTP):
+            if key is None:
+                key = _dense_cache_key('tp', ld, cinv.lmax,
+                                       [cinv.filt.filt_t.ninv] + list(cinv.filt.filt_p.ninv)
+                                       + [np.asarray(cinv.cls[k])[:cinv.lmax + 1]
+                                          for k in sorted(cinv.cls)] + [cinv.transf])
+            fwd_ld = cinv.filt.make_ops(ld, cinv.cls, rescal_cl=cinv.rescal_cl[:ld + 1])[0]
+            return dense_pre_op_stacked(fwd_ld, ld, cinv.lmax, 3, cache_key=key, op_lmax=ld,
+                                        chunk=probe_chunk(cinv.geom, ld, 3, cinv.dtype),
+                                        **kw)
+        # T-like (CinvT and its CinvKK subclass): the analytic f64 assembly
+        if key is None:
+            key = _dense_cache_key('tta', ld, cinv.lmax,
+                                   [cinv.filt.ninv, cinv.cl['tt'][:cinv.lmax + 1],
+                                    cinv.transf, cinv.filt.templates.ravel(),
+                                    [float(cinv.filt.templates.shape[0])]])
+        bdl = cinv.transf[:cinv.lmax + 1] * cli(cinv.rescal_cl)
+        return dense_pre_op_analytic_t(cinv.filt, ld, cinv.lmax, cinv.dl, bdl,
+                                       cacher=dense_cacher, cache_key=key)
+    m = re.match(r'stage\((.*)\)\Z', descr)
+    if m:
+        assert stages is not None, 'stage(%s) needs the stages argument' % m.group(1)
+        return stages[int(m.group(1))]
+    raise ValueError('pre_op descriptor %r is unrecognized' % descr)
+
+
+def degrade_ninv(ninv, geom_fine, geom_coarse, lmax_interp=None, *, device):
+    """Restrict an inverse pixel-variance map to a coarser ring geometry: interpolate the
+    per-steradian inverse variance spectrally (transforms on `device`) and convert back to
+    per-pixel units (role of hp.ud_grade(ninv, power=-2) in the reference,
+    opfilt_tt.py:172-181). Host numpy."""
+    lmax = geom_coarse.nrings - 1 if lmax_interp is None else lmax_interp
+    sht_f = SHT(geom_fine, lmax, device=device)
+    sht_c = SHT(geom_coarse, lmax, device=device)
+    alm = sht_f.map2alm(torch.as_tensor(np.asarray(ninv) / _omega(geom_fine),
+                                        device=sht_f.device))
+    out = sht_c.alm2map(alm).cpu().numpy()
+    return np.maximum(out, 0.) * _omega(geom_coarse)
+
+
+def make_multigrid_pre_op(geom, ninv, b_transf, cltt, lmax, stage_lmaxs, stage_iters,
+                          lmax_dense=32, marge_monopole=False, marge_dipole=False, *,
+                          device):
+    """Multigrid-style preconditioner chain (reference: plancklens/qcinv/multigrid.py):
+    each stage solves the same system restricted to a coarser band limit and geometry with
+    a few fixed PCG iterations (ops/cg.pcg_fixed), preconditioned by the next stage; the
+    innermost stage uses the dense low-l block. Returns a pre_op for the full-resolution
+    system; modes above stage_lmaxs[0] get the full-resolution diagonal.
+
+    Structurally the reference's chain but not the recommended preconditioner: plain diag
+    and split(dense, diag) reach a lower residual in the same iterations at a fraction of
+    the cost in every measured configuration (docs/PERF.md round-4 arms)."""
+    from ..ops.sht import gl_geometry
+    device = _resolve_device(device)
+
+    def build(level):
+        lm = stage_lmaxs[level]
+        geom_l = gl_geometry(lm)
+        ninv_l = degrade_ninv(ninv, geom, geom_l, device=device)
+        filt_l = NinvFilterT(geom_l, ninv_l, b_transf[:lm + 1], marge_monopole=marge_monopole,
+                             marge_dipole=marge_dipole, device=device)
+        fwd_l, _, diag_l, _ = filt_l.make_ops(lm, cltt)
+        if level + 1 < len(stage_lmaxs):
+            inner_pre = split_pre_op(build(level + 1), diag_l, stage_lmaxs[level + 1], lm,
+                                     device=device)
+        else:
+            dense = dense_pre_op(fwd_l, min(lmax_dense, lm), lm, device=device)
+            inner_pre = split_pre_op(dense, diag_l, min(lmax_dense, lm), lm, device=device)
+        ms_l = torch.as_tensor(_lm_ms(lm), device=device)
+        n_it = stage_iters[level]
+
+        def pre_op(r):
+            # r at the parent's band limit; restrict, solve approximately, prolongate
+            lmax_parent = ualm.getlmax(r.shape[-1])
+            r_c = ualm.alm_copy(r, lmax_parent, lm)
+            x_c = cg.pcg_fixed(fwd_l, inner_pre, r_c, torch.zeros_like(r_c), n_it, ms_l)
+            return ualm.alm_copy(x_c, lm, lmax_parent)
+
+        return pre_op
+
+    chain = build(0)
+    if stage_lmaxs[0] >= lmax:
+        return chain
+    filt_top = NinvFilterT(geom, ninv, b_transf[:lmax + 1], marge_monopole=marge_monopole,
+                           marge_dipole=marge_dipole, device=device)
+    _, _, diag_top, _ = filt_top.make_ops(lmax, cltt)
+    return split_pre_op(chain, diag_top, stage_lmaxs[0], lmax, device=device)
+
+
+def make_multigrid_pre_op_p(geom, ninv, b_transf, clee, clbb, lmax, stage_lmaxs,
+                            stage_iters, lmax_dense=16, *, device):
+    """Polarisation multigrid preconditioner chain for the coupled E/B (spin-2) system
+    (reference: plancklens/qcinv/multigrid.py with opfilt_pp, multigrid.py:113-160): the
+    T chain's structure (make_multigrid_pre_op) on stacked (batch, 2, nalm) E/B vectors,
+    the innermost stage preconditioned by the probed dense E/B block. Like the T chain,
+    not the recommended preconditioner (docs/PERF.md round-4 pol arm)."""
+    from ..ops.sht import gl_geometry
+    device = _resolve_device(device)
+    trip = ninv if isinstance(ninv, (list, tuple)) else (ninv,)
+
+    def build(level):
+        lm = stage_lmaxs[level]
+        geom_l = gl_geometry(lm)
+        ninv_l = tuple(degrade_ninv(m, geom, geom_l, device=device) for m in trip)
+        filt_l = NinvFilterP(geom_l, ninv_l, b_transf[:lm + 1], device=device)
+        fwd_l, _, diag_l, _ = filt_l.make_ops(lm, clee, clbb)
+        if level + 1 < len(stage_lmaxs):
+            inner_pre = split_pre_op(build(level + 1), diag_l, stage_lmaxs[level + 1], lm,
+                                     device=device)
+        else:
+            dense = dense_pre_op_stacked(fwd_l, min(lmax_dense, lm), lm, 2, device=device)
+            inner_pre = split_pre_op(dense, diag_l, min(lmax_dense, lm), lm, device=device)
+        ms2_l = torch.as_tensor(np.concatenate([_lm_ms(lm)] * 2), device=device)
+        nalm_l = ualm.getsize(lm)
+        n_it = stage_iters[level]
+
+        def pre_op(r):
+            # r stacked (batch, 2, nalm) at the parent's band limit
+            lmax_parent = ualm.getlmax(r.shape[-1])
+            r_c = ualm.alm_copy(r, lmax_parent, lm)
+            bsz = r_c.shape[0]
+
+            def fwd_flat(xf):
+                return fwd_l(xf.reshape(bsz, 2, nalm_l)).reshape(bsz, -1)
+
+            def pre_flat(rf):
+                return inner_pre(rf.reshape(bsz, 2, nalm_l)).reshape(bsz, -1)
+
+            x_c = cg.pcg_fixed(fwd_flat, pre_flat, r_c.reshape(bsz, -1),
+                               torch.zeros((bsz, 2 * nalm_l), dtype=r_c.dtype,
+                                           device=r_c.device),
+                               n_it, ms2_l).reshape(bsz, 2, nalm_l)
+            return ualm.alm_copy(x_c, lm, lmax_parent)
+
+        return pre_op
+
+    chain = build(0)
+    if stage_lmaxs[0] >= lmax:
+        return chain
+    filt_top = NinvFilterP(geom, ninv, b_transf[:lmax + 1], device=device)
+    _, _, diag_top, _ = filt_top.make_ops(lmax, clee, clbb)
+    return split_pre_op(chain, diag_top, stage_lmaxs[0], lmax, device=device)
