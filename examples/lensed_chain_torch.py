@@ -215,10 +215,11 @@ def binned_ratios(cls_sims, cl_theory, lmax):
 SPECTRA_BOUND = {'tt': (5., 0.01), 'ee': (5., 0.01), 'bb': (15., 0.03)}
 
 
-def _kernel_row(kind, spin, mode, L, geom, device):
-    """K1 (kind 'synth') or K2 ('anal') on `geom` at band limit L, batch 1, f64: kernel ms
-    (3 calls after a warm-up), plain-version ms (one call), max abs / relative difference,
-    and the bound (roofline.pair_bound)."""
+def _kernel_row(kind, spin, mode, L, geom, device, batch=1):
+    """K1 (kind 'synth') or K2 ('anal') on `geom` at band limit L, f64, `batch` maps: kernel
+    ms (3 calls after a warm-up), plain-version ms (one call), max abs / relative
+    difference, whether the warm-up and the last call are bitwise equal, and the bound
+    (roofline.pair_bound)."""
     from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
     from plancklens_tpu_torch.ops.sht.roofline import pair_bound
     dev = torch.device(device)
@@ -227,19 +228,19 @@ def _kernel_row(kind, spin, mode, L, geom, device):
     R = geom.nrings
     two = mode == 1
     if kind == 'synth':
-        x = [torch.randn((1, L + 1, L + 1), generator=gen, device=dev, dtype=torch.complex128)
-             for _ in range(2)]
+        x = [torch.randn((batch, L + 1, L + 1), generator=gen, device=dev,
+                         dtype=torch.complex128) for _ in range(2)]
         xm = x[1] if two else None
         run = lambda: lk.synth_pair(x[0], xm, spin, R, t_m, t_p)
         plain = lambda: core.legendre_synth_pair_plain(x[0], xm, spin, R, t_m, t_p)
     else:
-        x = [torch.randn((1, R, L + 1), generator=gen, device=dev, dtype=torch.complex128)
+        x = [torch.randn((batch, R, L + 1), generator=gen, device=dev, dtype=torch.complex128)
              for _ in range(2)]
         xm = x[1] if two else None
         run = lambda: lk.anal_pair(x[0], xm, spin, L, t_m, t_p)
         plain = lambda: core.legendre_anal_pair_plain(x[0], xm, spin, L, t_m, t_p)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    run()
+    first = run()
     e0.record()
     for _ in range(3):
         k = run()
@@ -253,9 +254,10 @@ def _kernel_row(kind, spin, mode, L, geom, device):
     pms = e0.elapsed_time(e1)
     err_abs = max(float((a - b).abs().max()) for a, b in zip(k, p) if b is not None)
     err = max(_rel_max(a, b) for a, b in zip(k, p) if b is not None)
-    bound_ms, bound_by = pair_bound((t_m,) if mode == 0 else (t_m, t_p), mode, 1, R, True)
-    return dict(ms=ms, plain_ms=pms, max_abs_err=err_abs, rel_err=err, bound_ms=bound_ms,
-                bound_by=bound_by, rings=R, lmax=L, mode=mode)
+    equal = all(torch.equal(a, b) for a, b, c in zip(first, k, p) if c is not None)
+    bound_ms, bound_by = pair_bound((t_m,) if mode == 0 else (t_m, t_p), mode, batch, R, True)
+    return dict(ms=ms, plain_ms=pms, max_abs_err=err_abs, rel_err=err, equal=equal,
+                bound_ms=bound_ms, bound_by=bound_by, rings=R, lmax=L, mode=mode, batch=batch)
 
 
 def lensed_sims(device, lmax=2048, dlmax=DLMAX, sims=(0, 1, 2, 3), log=print):

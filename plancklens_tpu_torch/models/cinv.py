@@ -953,14 +953,6 @@ def template_uptolmin(geom, lmin, *, device):
     return sht.alm2map(ualm.rlm2alm(rlm, lmin)).cpu().numpy()
 
 
-def _teb_cls(cls, lmax):
-    """(lmax+1, 3, 3) signal matrix of the 'tt', 'ee', 'bb' and 'te' entries of cls (a
-    missing one is zero)."""
-    S = cldict2arr({k: cls[k][:lmax + 1] for k in ['tt', 'ee', 'bb', 'te']
-                    if k in cls})[:, :, :lmax + 1]
-    return np.moveaxis(S, -1, 0)
-
-
 class NinvFilterTP:
     """Joint T/E/B pixel-space inverse-noise filtering (reference:
     plancklens/qcinv/opfilt_tp.py:164-326): T and (Q, U) noise treated jointly with the
@@ -995,7 +987,9 @@ class NinvFilterTP:
         'te'. The forward op costs one spin-0 and one spin-2 synthesis and analysis."""
         if rescal_cl is None:
             rescal_cl = _default_rescal(lmax)
-        S = _teb_cls(cls, lmax) * (rescal_cl ** 2)[:, None, None]
+        S = cldict2arr({k: cls[k][:lmax + 1] for k in ['tt', 'ee', 'bb', 'te']
+                        if k in cls})[:, :, :lmax + 1]
+        S = np.moveaxis(S, -1, 0) * (rescal_cl ** 2)[:, None, None]
         Sinv = np.linalg.pinv(S)
         bdl = self.b_transf[:lmax + 1] * cli(rescal_cl)
         sht = SHT(self.geom, lmax, dtype=self.dtype, device=self.device)

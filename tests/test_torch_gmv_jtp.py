@@ -195,7 +195,8 @@ def test_phase9_rehearsal_small():
     r9d = gmv.ivfjtp_full('cpu', lmax=64, nsims=4, log=log.append)
     assert r9d['finite'] and abs(r9d['ratio'] - 1.) <= gmv.SPEC_BOUND, r9d['ratio']
     rb = gmv.stage_b_card_vs_cpu('cpu', lmax=16, log=log.append)
-    assert all(rb[k] <= lim for k, lim in gmv.STAGE_B_LIMITS.items())
-    assert rb['CinvKK_it'][0] == rb['CinvKK_it'][1] > 1
+    assert all(rb[k] <= gmv.stage_b_limit(k, rb) for k in gmv.STAGE_B_LIMITS)
+    assert len(set(rb['CinvKK_it'])) == 1 and rb['CinvKK_it'][0] > 1
+    assert 0. < rb['CinvKK_floor'] < 1e-6
     assert len(log) == 5 + len(gmv.STAGE_B_LIMITS)
     assert all(line.startswith('(9') for line in log)

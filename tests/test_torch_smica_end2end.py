@@ -4,7 +4,8 @@ params/smica_dx12_planck2018_torch.py (mirror of tests/test_smica_end2end.py).
 The Planck products (SMICA / FFP10 alm FITS files and the lensing mask) are not in the
 repository. The port's parameter file runs its own code on reduced-scale synthetic
 products in the reference's on-disk formats, written once in a temporary directory with
-the port's libraries: healpy alm FITS files of beam-convolved lensed CMB plus white noise
+the port's libraries (examples/smica_synth_torch.write_products, which chip_smoke.py phase
+10 runs at full size): healpy alm FITS files of beam-convolved lensed CMB plus white noise
 (sims.CMBLenLib, sims.AlmNlevLib) for sims 0..NSIMS-1 and 'dat', the input phi alms, and
 a RING HEALPix lensing mask (galactic band and two holes) that the file resamples onto its
 ring grid.
@@ -20,6 +21,7 @@ ring grid.
 """
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -33,73 +35,28 @@ NLEV_P = 1.4
 KEY = 'p_p'
 SEED = 7
 _HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(os.path.dirname(_HERE), 'examples'))
+import smica_synth_torch as synth   # noqa: E402
 
 torch.set_num_threads(1)
-
-
-class _LenAlms:
-    """Harmonic view of CMBLenLib's lensed skies (exact re-analysis on the GL grid)."""
-
-    def __init__(self, cmb_len):
-        self.c = cmb_len
-
-    def hashdict(self):
-        return {'lensed': self.c.hashdict()}
-
-    def get_sim_tlm(self, idx):
-        return self.c.get_sim_tlm(idx)
-
-    def get_sim_elm(self, idx):
-        return self.c.get_sim_elm(idx)
-
-    def get_sim_blm(self, idx):
-        return self.c.get_sim_blm(idx)
 
 
 @pytest.fixture(scope='module')
 def products(tmp_path_factory):
     """The synthetic Planck-like products, written once: (directory, CMBLenLib)."""
-    import plancklens_tpu_torch
-    from plancklens_tpu_torch.utils import camb_clfile
-    from plancklens_tpu_torch.utils.fitsio import write_alm, write_map
-    from plancklens_tpu_torch.models.n0s import gauss_beam
-    from plancklens_tpu_torch.models.sims import CMBLenLib, AlmNlevLib
     from plancklens_tpu_torch.ops.sht import gl_geometry
-    from plancklens_tpu_torch.ops.sht.healpix import HealpixGeometry, pixwin
     tdir = str(tmp_path_factory.mktemp('planck'))
-    cl_unl = camb_clfile(os.path.join(plancklens_tpu_torch.DATAPATH, 'cls',
-                                      'FFP10_wdipole_lenspotentialCls.dat'))
-    transf = gauss_beam(5., lmax=LMAX) * pixwin(NSIDE, LMAX, device='cpu')
-    cmb_len = CMBLenLib(cl_unl, LMAX, gl_geometry(LMAX + 16), seed=SEED, dlmax=16,
-                        device='cpu')
-    obs = AlmNlevLib(_LenAlms(cmb_len), LMAX, transf, NLEV_T, NLEV_P, seed=3000,
-                     device='cpu')
-    smica = os.path.join(tdir, 'smica_dx12')
-    os.makedirs(smica)
-    for i in range(NSIMS + 1):
-        tag = 'dat' if i == NSIMS else '%04d' % i     # the extra realisation is 'data'
-        for f in 'teb':
-            write_alm(os.path.join(smica, 'sim_%slm_%s.fits' % (f, tag)),
-                      getattr(obs, 'get_sim_%slm' % f)(i).numpy())
-        write_alm(os.path.join(smica, 'sim_plm_%s.fits' % tag),
-                  cmb_len.get_sim_plm(i).numpy())
-    hg = HealpixGeometry(NSIDE)
-    z = np.concatenate([np.full(n, zr) for zr, n in zip(np.cos(hg.theta), hg.nphi)])
-    phi = np.concatenate([p0 + 2. * np.pi * np.arange(n) / n
-                          for p0, n in zip(hg.phi0, hg.nphi)])
-    mask = (np.abs(z) > 0.15).astype(float)
-    for zc, pc, r in ((0.6, 1.0, 0.08), (-0.5, 4.0, 0.06)):
-        mask *= ((z - zc) ** 2 + (np.cos(phi) - np.cos(pc)) ** 2 * (1 - z ** 2)
-                 + (np.sin(phi) - np.sin(pc)) ** 2 * (1 - z ** 2) > r ** 2)
-    write_map(os.path.join(tdir, 'lensing_mask.fits'), mask, nside=NSIDE)
+    cmb_len = synth.write_products(tdir, LMAX, NSIDE, NSIMS, NLEV_T, NLEV_P, 'cpu',
+                                   seed=SEED, dlmax=16, geom=gl_geometry(LMAX + 16))
     return tdir, cmb_len
 
 
 def _load(name, tdir, nsims=NSIMS):
-    env = {'PLK_PLANCK_DATA': tdir, 'PLK_DEVICE': 'cpu',
-           'PLK_SMICA_LMAX': str(LMAX), 'PLK_SMICA_NSIDE': str(NSIDE),
-           'PLK_SMICA_NSIMS': str(nsims),
-           'PLK_SMICA_NLEV_T': str(NLEV_T), 'PLK_SMICA_NLEV_P': str(NLEV_P)}
+    env = {'PLK_SMICA_NLEV_T': str(NLEV_T), 'PLK_SMICA_NLEV_P': str(NLEV_P)}
+    if name.endswith('_torch'):
+        return synth.load_parfile(tdir, LMAX, NSIDE, nsims, 'cpu', **env)
+    env.update({'PLK_PLANCK_DATA': tdir, 'PLK_SMICA_LMAX': str(LMAX),
+                'PLK_SMICA_NSIDE': str(NSIDE), 'PLK_SMICA_NSIMS': str(nsims)})
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
