@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from plancklens_tpu import DATAPATH
-from plancklens_tpu.utils import camb_clfile, cli, alm as ralm
+from plancklens_tpu.utils import camb_clfile, cli
 from plancklens_tpu.utils import cls as rcls
-from plancklens_tpu.ops.sht import SHT as RSHT, gl_geometry as rgl
+from plancklens_tpu.ops.sht import gl_geometry as rgl
 from plancklens_tpu.models import sims as rsims, filt as rfilt, cinv as rcinv
 from plancklens_tpu_torch import compat
 from plancklens_tpu_torch.ops.sht import gl_geometry as pgl
