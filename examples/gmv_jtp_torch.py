@@ -55,7 +55,7 @@ SMALL = 64          # 9a's band limit
 AMPL_L = (30, 1000)
 N0_L = (10, 2000)
 SPEC_L = (30, 1500)
-SPEC_BOUND = 0.05   # |mean(C_L^qq / N0_L) - 1| over SPEC_L in 9d (PERF.md, PR 9)
+SPEC_BOUND = 0.05   # |mean(C_L^qq / N0_L) - 1| over SPEC_L in 9d, set before its first run
 
 
 def _cls(lmax):
