@@ -1,7 +1,8 @@
 """Gauss-Legendre quadrature nodes and weights (host numpy, float64).
 
-Copy of plancklens_tpu/ops/gauleg.py without the optional native C++ path: scipy's
-`roots_legendre` when available, else a vectorised Newton iteration on P_N.
+Copy of plancklens_tpu/ops/gauleg.py: scipy's `roots_legendre` when available, else a
+vectorised Newton iteration on P_N; with PLK_NATIVE=1 the native C++/OpenMP kernel
+(plancklens_tpu_torch.native, built at first use; a failed build raises).
 """
 import numpy as np
 from functools import lru_cache
@@ -36,10 +37,26 @@ def _gauleg_newton(n):
     return x[::-1].copy(), w[::-1].copy()
 
 
-@lru_cache(maxsize=64)
 def gauleg(n):
-    """n-point Gauss-Legendre nodes (ascending in x = cos(theta)) and weights, float64."""
+    """n-point Gauss-Legendre nodes (ascending in x = cos(theta)) and weights, float64.
+
+    PLK_NATIVE=1 serves them from the native kernel (role of reference
+    plancklens/wigners/wigners.f90:132-184 `get_xgwg`; its edge weights are more accurate
+    than scipy's, plancklens_tpu/ops/gauleg.py:48-53), else scipy, else the pure-numpy
+    Newton iteration. Results are cached per (n, route)."""
     assert n >= 1, n
+    from .. import native
+    return _gauleg_native(n) if native.enabled() else _gauleg_host(n)
+
+
+@lru_cache(maxsize=64)
+def _gauleg_native(n):
+    from .. import native
+    return native.gauleg(n)
+
+
+@lru_cache(maxsize=64)
+def _gauleg_host(n):
     if _scipy_roots is not None:
         x, w = _scipy_roots(n)
         return np.asarray(x, dtype=np.float64), np.asarray(w, dtype=np.float64)

@@ -17,6 +17,11 @@ Normalisations (identical to the reference):
   wignerpos(cl, x, s1, s2)        = sum_l cl_l (2l+1)/(4 pi) d^l_{s1 s2}(x)
   wignercoeff(xi, x, s1, s2, lmax) = 2 pi sum_i xi_i d^l_{s1 s2}(x_i)
 
+Native dispatch (reference: plancklens_tpu/ops/wigner.py:135-176): with PLK_NATIVE=1, a
+1-D real host numpy operand (`cl` or `xi`, and the nodes `x`) is served by the C++/OpenMP
+kernels of plancklens_tpu_torch.native, and the result placed on `device`; a failed build
+of that library raises. Batched, complex or tensor operands keep the d-matrix path.
+
 Cache: an LRU of device d-matrices keyed by (a, b, lmax, grid token, device), PLK_DMAT_CACHE
 entries (default 24, as the reference's). The responses and N0 of lmax 2048 (spectra cut at
 lmax 2048) use matrices of 2049 x 3073 f64, 50 MB each; `cache_bytes()` reports what the
@@ -173,9 +178,23 @@ def _as_tensor(v, device):
     return torch.as_tensor(v if np.iscomplexobj(v) else v.astype(_F64), device=device)
 
 
+def _native_dispatch(*arrays):
+    """True when the opt-in native host kernels serve this call: PLK_NATIVE=1 and every
+    operand a 1-D real host numpy array (the reference's conditions; the library is
+    built at first use and raises if it cannot be)."""
+    from .. import native
+    if not native.enabled():
+        return False
+    return all(isinstance(a, np.ndarray) and a.ndim == 1 and not np.iscomplexobj(a)
+               for a in arrays)
+
+
 def wignerpos(cl, x, s1, s2, grid_token=None, *, device):
     """Position-space synthesis sum_l cl_l (2l+1)/(4 pi) d^l_{s1 s2}(x), a device tensor.
     `cl` may have leading batch dimensions; real or complex."""
+    if _native_dispatch(cl, x):
+        from .. import native
+        return torch.as_tensor(native.wignerpos(cl, x, s1, s2), device=device)
     cl = _as_tensor(cl, device)
     lmax = cl.shape[-1] - 1
     dmat = wigner_dmat(lmax, s1, s2, x, grid_token=grid_token, device=device)
@@ -186,6 +205,9 @@ def wignerpos(cl, x, s1, s2, grid_token=None, *, device):
 def wignercoeff(xi, x, s1, s2, lmax, grid_token=None, *, device):
     """Analysis 2 pi sum_i xi_i d^l_{s1 s2}(x_i) for l = 0..lmax, a device tensor. For exact
     quadrature xi must include the GL weights. `xi` may have leading batch dimensions."""
+    if _native_dispatch(xi, x):
+        from .. import native
+        return torch.as_tensor(native.wignercoeff(xi, x, s1, s2, lmax), device=device)
     xi = _as_tensor(xi, device)
     dmat = wigner_dmat(lmax, s1, s2, x, grid_token=grid_token, device=device)
     dm = dmat.to(xi.dtype) if xi.is_complex() else dmat

@@ -87,6 +87,16 @@ def alm_copy(alm, lmax_in, lmax_out):
     return alm[..., idx] * torch.as_tensor(valid, dtype=alm.dtype, device=alm.device)
 
 
+def alm_splice(alm_lo, alm_hi, lsplit):
+    """Merge two alm tensors: coefficients of `alm_lo` at l <= lsplit, of `alm_hi` above
+    (reference: plancklens/qcinv/util_alm.py:8-24; used to splice coarse/fine solutions).
+    The output carries the band limit of `alm_hi`; both lie on one device."""
+    lmax_hi = getlmax(alm_hi.shape[-1])
+    lo = alm_copy(alm_lo, getlmax(alm_lo.shape[-1]), lmax_hi)
+    ls = _dev_index(lmax_hi, alm_hi.device, 'l')
+    return torch.where(ls <= lsplit, lo, alm_hi)
+
+
 def alm2lm(alm, lmax):
     """Triangular alm -> dense (..., lmax+1, lmax+1) zero-padded (l, m) matrix."""
     out = torch.zeros(alm.shape[:-1] + ((lmax + 1) ** 2,), dtype=alm.dtype,
