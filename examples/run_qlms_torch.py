@@ -13,6 +13,17 @@ has qlms_x_in), qcl (MF-subtracted dd/ds/ss spectra), nhl (semi-analytic N0 of t
 sim, when the parfile has nhl_dd). Sims inside the mean-field set make the qcl stage raise
 (the reference's MF-containment guard): run it on the parfile's mc_sims_var. Each stage's time is measured with CUDA events on a CUDA device and with
 the host clock otherwise. The stage functions are importable (chip_smoke.py drives them).
+
+Several processes (--mesh, as examples/run_qlms.py's; one process a GPU):
+
+    torchrun --nproc_per_node N examples/run_qlms_torch.py <parfile> --mesh ...
+
+joins the ranks over torch.distributed (NCCL on CUDA devices, each rank on
+cuda:$LOCAL_RANK; gloo with --device cpu, or with --backend gloo for ranks that share a
+card) and puts the filtered batches of par.ivfs and of the QE libraries' ivfs1/ivfs2
+behind parallel.mesh.ShardedIVFS: the filt and mf stages split their sims over the ranks
+and all-gather them, and the qe, xin and qcl stages run each rank's `local_jobs` of the
+sims (the reference's jobs[rank::size]). Without a launcher --mesh runs one rank.
 """
 import argparse
 import importlib.util
@@ -127,6 +138,42 @@ def stage_nhl(par, keys, idx):
     return out, t.seconds
 
 
+def setup_mesh(device, idxs, backend=None):
+    """Join the ranks of a torch.distributed run (one rank without a launcher) on
+    `device` (a CUDA rank takes cuda:$LOCAL_RANK). Returns (device, this rank's jobs of
+    idxs, a '[rank r/n] ' tag for its lines); the mesh is all ranks on 'sims'."""
+    from plancklens_tpu_torch.parallel import distributed as pdist
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)))
+    rank, size = pdist.init_distributed(device, backend=backend)
+    if size == 1:
+        pdist.init_single(device, backend=backend)
+    jobs = np.asarray(pdist.local_jobs(idxs), dtype=int)
+    print('[rank %d/%d] mesh (sims %d, m 1) on %s, backend %s; local jobs %s'
+          % (rank, size, size, device, torch.distributed.get_backend(), jobs.tolist()))
+    return device, jobs, '[rank %d/%d] ' % (rank, size)
+
+
+def wrap_mesh(par):
+    """Put par.ivfs and the QE libraries' ivfs1/ivfs2 behind ShardedIVFS on a mesh of
+    every rank on 'sims' (one wrapper per filter object, as examples/run_qlms.py:58-75)."""
+    from plancklens_tpu_torch.parallel import make_mesh, ShardedIVFS
+    mesh = make_mesh()
+    wrapped = {}
+
+    def _wrap(ivfs):
+        if id(ivfs) not in wrapped:
+            wrapped[id(ivfs)] = ShardedIVFS(ivfs, mesh)
+        return wrapped[id(ivfs)]
+
+    par.ivfs = _wrap(par.ivfs)
+    for lib in (par.qlms_dd, getattr(par, 'qlms_ds', None), getattr(par, 'qlms_ss', None)):
+        if lib is not None:
+            lib.ivfs1 = _wrap(lib.ivfs1)
+            lib.ivfs2 = _wrap(lib.ivfs2)
+    return mesh
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -138,36 +185,49 @@ def main():
                    help='comma list of: filt, qe, mf, xin, qcl, nhl')
     p.add_argument('--device', default='cuda',
                    help="torch device (default 'cuda'; 'cpu' runs the plain torch path)")
+    p.add_argument('--mesh', action='store_true',
+                   help='split the sims over the ranks of a torch.distributed run')
+    p.add_argument('--backend', default=None,
+                   help="--mesh backend (default: 'nccl' on CUDA, 'gloo' on the CPU)")
     args = p.parse_args()
-    if torch.device(args.device).type == 'cuda' and not torch.cuda.is_available():
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
         p.error("no CUDA device is available for --device %s; pass --device cpu to run "
                 "on the CPU" % args.device)
-
-    par = load_parfile(args.parfile, args.device)
     idxs = np.arange(args.imin, args.imax + 1)
+    jobs, tag = idxs, ''
+    if args.mesh:
+        device, jobs, tag = setup_mesh(device, idxs, args.backend)
+    par = load_parfile(args.parfile, device)
+    if args.mesh:
+        wrap_mesh(par)
     stages = args.stages.split(',')
     if 'filt' in stages:
         _, s = stage_filt(par, idxs)
-        print('[filt] %d sims filtered in %.3fs' % (len(idxs), s))
+        print('%s[filt] %d sims filtered in %.3fs' % (tag, len(idxs), s))
     if 'qe' in stages:
-        _, s = stage_qe(par, args.keys, idxs)
-        print('[qe]   %s: %d sims in %.3fs' % (','.join(args.keys), len(idxs), s))
+        _, s = stage_qe(par, args.keys, jobs)
+        print('%s[qe]   %s: %d sims in %.3fs' % (tag, ','.join(args.keys), len(jobs), s))
     if 'mf' in stages:
         _, s = stage_mf(par, args.keys)
-        print('[mf]   %s: split-half mean fields in %.3fs' % (','.join(args.keys), s))
+        print('%s[mf]   %s: split-half mean fields in %.3fs' % (tag, ','.join(args.keys), s))
     if 'xin' in stages and hasattr(par, 'qlms_x_in'):
-        _, s = stage_xin(par, args.keys, idxs)
-        print('[xin]  %s: %d crosses with the input phi in %.3fs'
-              % (','.join(args.keys), len(idxs), s))
+        _, s = stage_xin(par, args.keys, jobs)
+        print('%s[xin]  %s: %d crosses with the input phi in %.3fs'
+              % (tag, ','.join(args.keys), len(jobs), s))
     if 'qcl' in stages:
-        out, s = stage_qcl(par, args.keys, idxs)
-        print('[qcl]  %s: dd/ds/ss spectra %s in %.3fs'
-              % (','.join(args.keys), next(iter(out.values())).shape, s))
+        out, s = stage_qcl(par, args.keys, jobs)
+        print('%s[qcl]  %s: dd/ds/ss spectra %s in %.3fs'
+              % (tag, ','.join(args.keys), next(iter(out.values())).shape, s))
     if 'nhl' in stages and hasattr(par, 'nhl_dd'):
         _, s = stage_nhl(par, args.keys, idxs[0])
-        print('[nhl]  %s: semi-analytic N0 of sim %d in %.3fs'
-              % (','.join(args.keys), idxs[0], s))
-    print('done.')
+        print('%s[nhl]  %s: semi-analytic N0 of sim %d in %.3fs'
+              % (tag, ','.join(args.keys), idxs[0], s))
+    if args.mesh:
+        from plancklens_tpu_torch.parallel import distributed as pdist
+        pdist.barrier()
+        pdist.shutdown()
+    print('%sdone.' % tag)
 
 
 if __name__ == '__main__':

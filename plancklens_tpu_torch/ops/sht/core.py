@@ -47,22 +47,24 @@ def _xi_sign(m, n):
     return -1.0 if (m > n and (m - n) % 2 == 1) else 1.0
 
 
-def recursion_tables(lmax, mmax, n, theta):
+def recursion_tables(lmax, mmax, n, theta, m0=0):
     """Per-(l, m) recursion coefficients and scaled seed values for d^l_{m, n}(theta),
-    host numpy float64 (copy of plancklens_tpu/ops/sht/core.py:71-138 at dtype float64).
+    host numpy float64 (copy of plancklens_tpu/ops/sht/core.py:71-138 at dtype float64),
+    for the columns m = m0..mmax (an m-block of a transform split over ranks builds only
+    its own columns; m0 = 0 is the whole set).
 
-    Returns dict with:
-      alpha, beta, gamma: (lmax+1, mmax+1) float arrays; step l -> l+1 reads row l
-      l0:       (mmax+1,) int32, first nonzero degree max(m, |n|)
-      seed_v:   (nrings, mmax+1) scaled seed value at l = l0(m)
-      seed_k:   (nrings, mmax+1) int32 exponent: true seed = seed_v * 2^(S k)
+    Returns dict with (M = mmax + 1 - m0 columns, column j holding m = m0 + j):
+      alpha, beta, gamma: (lmax+1, M) float arrays; step l -> l+1 reads row l
+      l0:       (M,) int32, first nonzero degree max(m, |n|)
+      seed_v:   (nrings, M) scaled seed value at l = l0(m)
+      seed_k:   (nrings, M) int32 exponent: true seed = seed_v * 2^(S k)
       x:        (nrings,) cos(theta)
       S:        exponent chunk size (256, sized to the f64 exponent range: these seeds
                 overflow when cast to f32)
     """
     ls = np.arange(lmax + 1, dtype=np.float64)[:, None]
-    ms = np.arange(mmax + 1, dtype=np.float64)[None, :]
-    l0 = np.maximum(np.abs(n), np.arange(mmax + 1)).astype(np.int64)
+    ms = np.arange(m0, mmax + 1, dtype=np.float64)[None, :]
+    l0 = np.maximum(np.abs(n), np.arange(m0, mmax + 1)).astype(np.int64)
     with np.errstate(divide='ignore', invalid='ignore'):
         D = ls * np.sqrt(((ls + 1.) ** 2 - ms ** 2) * ((ls + 1.) ** 2 - float(n) ** 2))
         alpha = (2. * ls + 1.) * ls * (ls + 1.) / D
@@ -73,7 +75,7 @@ def recursion_tables(lmax, mmax, n, theta):
     for arr in (alpha, beta, gamma):
         arr[invalid] = 0.
         arr[~np.isfinite(arr)] = 0.
-    if n == 0 and mmax >= 0 and l0[0] == 0:
+    if n == 0 and m0 == 0 and mmax >= 0 and l0[0] == 0:
         # explicit l=0 step for the m=0 Legendre branch: d^1 = x d^0
         alpha[0, 0], beta[0, 0], gamma[0, 0] = 1., 0., 0.
 
@@ -85,7 +87,7 @@ def recursion_tables(lmax, mmax, n, theta):
     lnsin = np.log(np.sin(0.5 * np.asarray(theta, dtype=np.float64)))[:, None]
     lncos = np.log(np.cos(0.5 * np.asarray(theta, dtype=np.float64)))[:, None]
     log2v = (lnr0 + a * lnsin + b * lncos) / np.log(2.)
-    xi = np.array([_xi_sign(int(m), n) for m in range(mmax + 1)])[None, :]
+    xi = np.array([_xi_sign(int(m), n) for m in range(m0, mmax + 1)])[None, :]
     seed_k = np.minimum(np.floor(log2v / S), 0.).astype(np.int32)
     seed_v = xi * np.exp2(log2v - S * seed_k.astype(np.float64))
     return dict(S=S, alpha=alpha, beta=beta, gamma=gamma, l0=l0.astype(np.int32),
@@ -101,25 +103,26 @@ def tables_to_device(tab, device):
 
 
 class _TableCache:
-    """LRU of f64 device table sets keyed by (lmax, mmax, n, grid token, device). A QE at
+    """LRU of f64 device table sets keyed by (lmax, mmax, n, grid token, device, m0). A QE at
     one band limit touches ~7 sets (spins 0..3 of the legs, the output spin); one set at
     lmax 2048 on the 3073-ring QE grid is ~150 MB, one on all 8191 rings of HEALPix
     nside 2048 ~300 MB. The token says which rings a set covers: ('ns', grid) the
-    northern half of a pair grid, ('full', grid) every ring of a plain one."""
+    northern half of a pair grid, ('full', grid) every ring of a plain one; m0 says which
+    columns (m0..mmax: a rank's m-block of a split transform)."""
 
     def __init__(self, maxsize=16):
         self.maxsize = maxsize
         self._d = OrderedDict()
 
-    def get(self, lmax, mmax, n, theta_half, grid_token, device):
+    def get(self, lmax, mmax, n, theta_half, grid_token, device, m0=0):
         key = None if grid_token is None else \
-            (lmax, mmax, n, grid_token, str(torch.device(device)))
+            (lmax, mmax, n, grid_token, str(torch.device(device)), m0)
         if key is not None and key in self._d:
             self._d.move_to_end(key)
             return self._d[key]
         # a named span in profiler traces (examples/profile_qlms_torch.py sums them)
         with torch.profiler.record_function('sht.recursion_tables'):
-            tab = tables_to_device(recursion_tables(lmax, mmax, n, theta_half), device)
+            tab = tables_to_device(recursion_tables(lmax, mmax, n, theta_half, m0), device)
         if key is not None:
             self._d[key] = tab
             while len(self._d) > self.maxsize:
@@ -134,22 +137,24 @@ class _TableCache:
 TABLES = _TableCache()
 
 
-def pair_tables(lmax, mmax, spin, theta, grid_token, device):
-    """(t_m, t_p): f64 device tables of d^l_{m,-spin} and d^l_{m,+spin} on the northern
-    half (equator included) of the symmetric grid `theta`; t_p is t_m for spin 0."""
+def pair_tables(lmax, mmax, spin, theta, grid_token, device, m0=0):
+    """(t_m, t_p): f64 device tables of d^l_{m,-spin} and d^l_{m,+spin}, m = m0..mmax, on
+    the northern half (equator included) of the symmetric grid `theta`; t_p is t_m for
+    spin 0."""
     theta = np.asarray(theta)
     nh = (len(theta) + 1) // 2
     th = theta[:nh]
     tok = None if grid_token is None else ('ns', grid_token)
-    t_m = TABLES.get(lmax, mmax, -spin, th, tok, device)
-    t_p = t_m if spin == 0 else TABLES.get(lmax, mmax, spin, th, tok, device)
+    t_m = TABLES.get(lmax, mmax, -spin, th, tok, device, m0)
+    t_p = t_m if spin == 0 else TABLES.get(lmax, mmax, spin, th, tok, device, m0)
     return t_m, t_p
 
 
-def full_tables(lmax, mmax, n, theta, grid_token, device):
-    """f64 device tables of d^l_{m,n} on every ring of `theta` (the plain transforms)."""
+def full_tables(lmax, mmax, n, theta, grid_token, device, m0=0):
+    """f64 device tables of d^l_{m,n}, m = m0..mmax, on every ring of `theta` (the plain
+    transforms)."""
     tok = None if grid_token is None else ('full', grid_token)
-    return TABLES.get(lmax, mmax, n, np.asarray(theta), tok, device)
+    return TABLES.get(lmax, mmax, n, np.asarray(theta), tok, device, m0)
 
 
 def is_symmetric(theta):
@@ -310,49 +315,67 @@ def legendre_anal_pair_plain(Qp, Qm, spin, lmax, t_m, t_p):
 
 
 # ------------------------------------------------------------------ public API
-def legendre_synth(C, n, theta, grid_token=None):
+# Every entry point takes `m0`, the true m of the data's first column (default 0: columns
+# 0..M-1). A rank of a transform split over m (parallel/mesh.shard_sht) passes its block's
+# first m, and gets the tables of its own columns. The pair kernels K1/K2 and their twins
+# read the parity of the mirror sign (-1)^m off the column index, so a pair call's block
+# must start at an even m; an odd m0 raises.
+def _check_m0(m0):
+    if m0 < 0 or m0 % 2:
+        raise ValueError('an m-block of a pair transform starts at an even m (got m0=%d): '
+                         'the kernels take the mirror sign from the column parity' % m0)
+
+
+def legendre_synth(C, n, theta, grid_token=None, m0=0):
     """G_jm = sum_l C_lm d^l_{m,n}(theta_j) on any ring set; C (B, lmax+1, M) complex64
-    or complex128. CUDA tensors run kernel K3, CPU tensors the plain engine."""
+    or complex128, columns m0..m0+M-1. CUDA tensors run kernel K3, CPU tensors the plain
+    engine."""
     lmax, M = C.shape[-2] - 1, C.shape[-1]
-    t = full_tables(lmax, M - 1, n, theta, grid_token, C.device)
+    t = full_tables(lmax, m0 + M - 1, n, theta, grid_token, C.device, m0)
     if C.is_cuda:
         return legendre_kernels.synth(C, len(theta), t)
     return legendre_synth_plain(C, t)
 
 
-def legendre_anal(Q, n, theta, lmax, grid_token=None):
+def legendre_anal(Q, n, theta, lmax, grid_token=None, m0=0):
     """A_lm = sum_j Q_jm d^l_{m,n}(theta_j); Q (B, nrings, M) complex, quadrature-
-    weighted. CUDA tensors run kernel K4, CPU tensors the plain engine."""
-    t = full_tables(lmax, Q.shape[-1] - 1, n, theta, grid_token, Q.device)
+    weighted, columns m0..m0+M-1. CUDA tensors run kernel K4, CPU tensors the plain
+    engine."""
+    t = full_tables(lmax, m0 + Q.shape[-1] - 1, n, theta, grid_token, Q.device, m0)
     if Q.is_cuda:
         return legendre_kernels.anal(Q, lmax, t)
     return legendre_anal_plain(Q, lmax, t)
 
 
-def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None):
+def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None, m0=0):
     """(Fp, Fm) = (sum_l Cp d^l_{m,-spin}, sum_l Cm d^l_{m,+spin}) on the rings `theta`;
-    Cm may be None (then Fm is None). Cp (B, lmax+1, M) complex64 or complex128. On a
-    symmetric grid CUDA tensors run kernel K1, CPU tensors the plain pair engine; on any
-    other grid it makes two plain calls (reference: core.py:704-710)."""
+    Cm may be None (then Fm is None). Cp (B, lmax+1, M) complex64 or complex128, columns
+    m0..m0+M-1 (m0 even). On a symmetric grid CUDA tensors run kernel K1, CPU tensors the
+    plain pair engine; on any other grid it makes two plain calls (reference:
+    core.py:704-710)."""
     if not is_symmetric(theta):
-        Fp = legendre_synth(Cp, -spin, theta, grid_token)
-        return Fp, (None if Cm is None else legendre_synth(Cm, spin, theta, grid_token))
+        Fp = legendre_synth(Cp, -spin, theta, grid_token, m0)
+        return Fp, (None if Cm is None else legendre_synth(Cm, spin, theta, grid_token, m0))
+    _check_m0(m0)
     lmax, M = Cp.shape[-2] - 1, Cp.shape[-1]
-    t_m, t_p = pair_tables(lmax, M - 1, spin, theta, grid_token, Cp.device)
+    t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Cp.device, m0)
     if Cp.is_cuda:
         return legendre_kernels.synth_pair(Cp, Cm, spin, len(theta), t_m, t_p)
     return legendre_synth_pair_plain(Cp, Cm, spin, len(theta), t_m, t_p)
 
 
-def legendre_anal_pair(Qp, Qm, spin, theta, lmax, grid_token=None):
+def legendre_anal_pair(Qp, Qm, spin, theta, lmax, grid_token=None, m0=0):
     """(A, Bc) = (sum_j Qp d^l_{m,-spin}, sum_j Qm d^l_{m,+spin}); Qm may be None. Qp
-    (B, nrings, M) complex, quadrature-weighted. On a symmetric grid CUDA tensors run
-    kernel K2, CPU tensors the plain pair engine; on any other grid two plain calls."""
+    (B, nrings, M) complex, quadrature-weighted, columns m0..m0+M-1 (m0 even). On a
+    symmetric grid CUDA tensors run kernel K2, CPU tensors the plain pair engine; on any
+    other grid two plain calls."""
     if not is_symmetric(theta):
-        A = legendre_anal(Qp, -spin, theta, lmax, grid_token)
-        return A, (None if Qm is None else legendre_anal(Qm, spin, theta, lmax, grid_token))
+        A = legendre_anal(Qp, -spin, theta, lmax, grid_token, m0)
+        return A, (None if Qm is None else legendre_anal(Qm, spin, theta, lmax, grid_token,
+                                                          m0))
+    _check_m0(m0)
     M = Qp.shape[-1]
-    t_m, t_p = pair_tables(lmax, M - 1, spin, theta, grid_token, Qp.device)
+    t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Qp.device, m0)
     if Qp.is_cuda:
         return legendre_kernels.anal_pair(Qp, Qm, spin, lmax, t_m, t_p)
     return legendre_anal_pair_plain(Qp, Qm, spin, lmax, t_m, t_p)
