@@ -7,7 +7,8 @@ filtering, with and without inverse-variance spectrum re-weighting)
 (reference: plancklens/patchy/patchy.py:13-172). The patches (percentiles over a pixel map)
 and the spectra algebra are host numpy, as in the JAX package; the responses and N0s run
 on the port's `qresp.get_response` and `nhl.get_nhl`, whose Wigner products run on the
-required `device`. Pixel maps may be numpy arrays or tensors.
+required `device`. Pixel maps may be numpy arrays or tensors. One departure from the JAX
+package: `mk_patches`' fiducial level (see there).
 """
 import numpy as np
 
@@ -69,8 +70,12 @@ def mk_patches(Np, pix_ivmap, omega_pix, rvmap_uKamin_data=None, method='percent
                 masks.append(this)
     if rvmap_uKamin_data is None:
         nlevs_data = list(nlevs)
-    nlev_fid = np.sqrt(np.sum(w * mask) * 4. * np.pi / np.sum(omega * pix_ivmap)) \
-        * 180. * 60. / np.pi
+    # the level of the map's total inverse variance: sum(Omega) / sum(1 / sigma_pix^2) over
+    # the unmasked pixels, sigma_pix^2 = nlev^2 / Omega (reference: plancklens/patchy/
+    # patchy.py:170, there for equal pixel areas). Departure from the JAX package, whose
+    # denominator sum(omega * pix_ivmap) carries an extra pixel area and returns the level
+    # over sqrt(mean Omega): 374 uK-arcmin for a uniform 30 uK-arcmin map on gl_geometry(32)
+    nlev_fid = np.sqrt(np.sum(omega * mask) / np.sum(pix_ivmap[mask])) * 180. * 60. / np.pi
     if verbose:
         for nf, nd in zip(nlevs, nlevs_data):
             print('%.2f (filt)  %.2f (dat) uK-amin' % (nf, nd))

@@ -27,7 +27,9 @@ from ..ops.sht.transforms import _to_rings, _from_rings
 def make_mesh(n_sims=None, n_m=1, *, device=None):
     """DeviceMesh over ('sims', 'm') of every rank of the process group (rank = i_sims *
     n_m + i_m). Defaults to all ranks on the sims axis. Without a process group (no
-    launcher), a group of this process alone is created on `device`."""
+    launcher), a group of this process alone is created on `device`. The mesh's device
+    type says where its backend runs collectives: the device's under NCCL, 'cpu' under
+    gloo (whose CUDA tensors are staged through the host)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     if not dist.is_initialized():
@@ -39,7 +41,8 @@ def make_mesh(n_sims=None, n_m=1, *, device=None):
     if n_sims is None:
         n_sims = n // n_m
     assert n_sims * n_m == n, (n_sims, n_m, n)
-    return DeviceMesh(device.type, torch.arange(n).reshape(n_sims, n_m),
+    mesh_type = device.type if dist.get_backend() == 'nccl' else 'cpu'
+    return DeviceMesh(mesh_type, torch.arange(n).reshape(n_sims, n_m),
                       mesh_dim_names=('sims', 'm'))
 
 
