@@ -137,6 +137,30 @@ Phases:
                 with the input phi read back from FITS, each timed: all finite, the l-cut
                 kept, K1/K2 launched, peak < 40 GiB, and a finite positive <q x phi_in> /
                 (R_L C_L^pp fsky) over 30 <= L <= 1000
+  11 parallel   the noise-model tools and the parallel layer (examples/parallel_noise_torch.py):
+                (11a) models/freq_weighting with four SMICA-like channels (synthetic
+                l-dependent weights summing to 1, l <= 2047, synthetic scan-pattern variance
+                maps) on gl_geometry(4096), lmax_out 4094: vmaps2vmap_I and _P finite and
+                positive, peak < 40 GiB, K1 (mode 0, batch 1) and K2 (mode 0, batch 4)
+                launched; uniform maps give the monopole identity (1e-10 relative), P's
+                halving and E/B swap hold to 1e-10 of max, the card equals the CPU at lmax 256
+                (1e-12 of max); K1/K2 at that f64 shape against their plain versions (<= 1e-12
+                of max, bitwise equal on a second run), timed; (11b) models/patchy
+                get_patchy_N0s for ptt and p_p at lmax_ivf = lmax_qlm = 2048, 4 patches of the
+                anisofilt mask times a scan pattern (35 / 55 uK-arcmin mean): finite, every
+                scheme between the deepest and the shallowest patch's homogeneous N0 (x 0.95,
+                1.05) and mv-rew <= no-rew x 1.001 over 20 <= L <= 1500, a uniform map's four
+                schemes within 1e-4 and |MC - 1|, |cMC - 1| < 0.1, the card against the CPU at
+                lmax 256 (1/N0 1e-12 of max, N0 per L by bandpowers_demo_torch.n0_limit, MC
+                1e-10); (11c) a world-size-1 NCCL group: the idealized parfile at lmax 2048 on
+                8 sims through ShardedIVFS -> QELib ptt against the unsharded run (1e-10),
+                and K1/K2 on the two balanced even-start m-blocks of lmax 2048 (spin 0 and the
+                spin-2 pair, f64, batch 4) against the unsplit call (1e-12 of max) and their
+                plain versions (1e-12, bitwise equal on a second run), each block timed;
+                (11d) two processes on the one card over gloo (host-staged collectives):
+                shard_sht with n_m = 2 at lmax 2048 (alm2map, map2alm, spins 0 and 2, f64,
+                batch 4) and ShardedIVFS filtering 4 sims, gathered and held to the
+                single-process result (1e-12 of max); both ranks exit 0 within 400 s
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
@@ -344,6 +368,91 @@ def phase10(dev):
           % (time.perf_counter() - t10, time.perf_counter() - T_START))
     core.TABLES.clear()
     torch.cuda.empty_cache()
+
+
+def phase11(dev):
+    """Phase 11 (module docstring): the noise-model tools and the parallel layer. Returns
+    the kernel rows of its new shapes, each with its launches in the run that drove it."""
+    import torch
+    from plancklens_tpu_torch.ops.sht import core
+    import parallel_noise_torch as pn
+    log11 = lambda s: phase(11, s)
+    from plancklens_tpu_torch.native import build as native_build
+    t11 = time.perf_counter()
+    so = native_build.build()
+    phase(11, 'native host kernels (g++, for PLK_NATIVE=1) built in %.1fs: %s'
+          % (time.perf_counter() - t11, os.path.relpath(so, HERE)))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    # 11a
+    ra = pn.freq_weighting_full(dev, log=log11)
+    check(ra['finite_positive'] and ra['peak_gib'] < 40.,
+          'freq_weighting maps finite and positive %s, peak %.2f GiB'
+          % (ra['finite_positive'], ra['peak_gib']))
+    check(max(ra['monopole'], ra['halving'], ra['swap']) <= 1e-10,
+          'freq_weighting identities: monopole %.2e, halving %.2e, swap %.2e'
+          % (ra['monopole'], ra['halving'], ra['swap']))
+    k1 = ra['launches']['synth_pair'].get((0, 1, 'f64'), 0)
+    k2 = ra['launches']['anal_pair'].get((0, 4, 'f64'), 0)
+    check(k1 > 0 and k2 > 0, 'freq_weighting did not launch K1 (mode 0, batch 1) and K2 (mode '
+          '0, batch 4): %s' % ra['launches'])
+    ec = pn.freq_weighting_card_vs_cpu(dev, log=log11)
+    check(max(ec.values()) <= 1e-12, 'freq_weighting card vs CPU: %s' % ec)
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    rows = pn.fw_kernel_rows(dev, log=log11)
+    rows['synth_pair_fw']['launches'] = k1
+    rows['anal_pair_fw']['launches'] = k2
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    # 11b
+    rb = pn.patchy_full(dev, log=log11)
+    for key in ('ptt', 'p_p'):
+        lo = min(v[0] for v in rb['between'][key].values())
+        hi = max(v[1] for v in rb['between'][key].values())
+        check(rb['finite'][key] and lo >= 0.95 and hi <= 1.05,
+              'patchy %s: finite %s, N0 / deepest %.4f, / shallowest %.4f'
+              % (key, rb['finite'][key], lo, hi))
+        check(rb['mv'][key] <= 1.001, 'patchy %s: mv-rew / no-rew %.6f' % (key, rb['mv'][key]))
+    check(rb['uniform_spread'] <= 1e-4 and rb['uniform_mc'] < 0.1,
+          'patchy uniform map: schemes within %.2e, |MC - 1| %.4f'
+          % (rb['uniform_spread'], rb['uniform_mc']))
+    gaps = pn.patchy_card_vs_cpu(dev, log=log11)
+    for name, v in gaps.items():
+        if isinstance(v, tuple):
+            check(v[0] <= 1e-12 and v[1] <= v[2], 'patchy card vs CPU %s: 1/N0 %.2e, N0 per L '
+                  '%.2e > %.2e' % (name, v[0], v[1], v[2]))
+        else:
+            check(v <= 1e-10, 'patchy card vs CPU %s: %.2e' % (name, v))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    # 11c
+    rc = pn.sharded_world1(dev, LMAX, NSIMS, log=log11)
+    check(rc['backend'] == 'nccl' and rc['rel'] <= 1e-10,
+          'ShardedIVFS (%s) vs unsharded QE: %.2e' % (rc['backend'], rc['rel']))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    mrows, merrs = pn.m_block_rows(dev, LMAX, batch=4, log=log11)
+    check(max(merrs.values()) <= 1e-12, 'm-split vs the unsplit call: %s' % merrs)
+    for name, row in list(rows.items()) + list(mrows.items()):
+        check(row['rel_err'] <= 1e-12 and row['equal'], '%s vs plain: %.2e, bitwise equal on '
+              'a second run: %s' % (name, row['rel_err'], row['equal']))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+    # 11d
+    rd = pn.two_ranks_one_card(dev, LMAX, nsims=4, batch=4, log=log11)
+    check(max(rd[0]['errs'].values()) <= 1e-12, 'two ranks on one card vs the single process: '
+          '%s' % rd[0]['errs'])
+    for name, row in mrows.items():
+        b, mode = int(name.split('mblock')[1][0]), row['mode']
+        kind = 'synth_pair' if name.startswith('synth') else 'anal_pair'
+        row['launches'] = rd[b]['launches'][kind].get(str((mode, 4, 'f64')), 0)
+        check(row['launches'] > 0, 'rank %d did not launch %s mode %d at batch 4: %s'
+              % (b, kind, mode, rd[b]['launches']))
+    rows.update(mrows)
+    phase(11, 'phase 11 wall %.1fs; the whole run so far %.1fs'
+          % (time.perf_counter() - t11, time.perf_counter() - T_START))
+    return rows
 
 
 def main():
@@ -993,6 +1102,9 @@ def main():
     # ---------------------------------------------------------------- 10 Planck 2018 file
     phase10(dev)
 
+    # ---------------------------------------------------------------- 11 parallel, noise
+    rows11 = phase11(dev)
+
     # launches of the 4 sims' steps, at each new row's shape
     lens_launches = {'synth_pair_ecp_t': ('ecp_t', ('synth_pair', 0, 1, 'f64')),
                      'synth_pair_ecp_qu': ('ecp_qu', ('synth_pair', 1, 1, 'f64')),
@@ -1029,6 +1141,14 @@ def main():
                         'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
                         'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
                         'bound_by': row['bound_by'], 'library_ms': None})
+    # phase 11's shapes: launches of 11a's run (fw) and of each 11d rank's (m-blocks)
+    for name, row in rows11.items():
+        kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
+                        'replaces': REPLACES[name.split('_pair')[0] + '_pair'],
+                        'launches': row['launches'], 'max_abs_err': row['max_abs_err'],
+                        'ms': row['ms'], 'plain_ms': row['plain_ms'],
+                        'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+                        'library_ms': None})
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -8,10 +8,13 @@ CPU):
       (inverse-noise weights of synthetic beams and white levels, summing to 1 at each l,
       l = 0..2047; Planck's SMICA weights are not in the repository), synthetic scan-pattern
       variance maps on gl_geometry(4096), so lmax_out = 4094 holds the squared weights'
-      whole band: vmaps2vmap_I, then vmaps2vmap_P with E/B weights. Checks: uniform maps
+      whole band: vmaps2vmap_I, then vmaps2vmap_P with E/B weights, with PLK_NATIVE=1
+      (the native kernel's GL nodes: scipy's 4095-point weights are off by up to 7e-7 at
+      the edge nodes, where the squared correlation functions peak). Checks: uniform maps
       s_i^2 give sum_i s_i^2 mean(Omega) sum_l (2l+1) w_il^2 / (4 pi) everywhere (exact
       for a monopole; 1e-10 relative), P's halving identity and E/B swap symmetry (1e-10),
-      and the card against the CPU at lmax 256 (1e-12 of max). `fw_kernel_rows` times K1
+      and the card against the CPU at lmax 256 (1e-12 of max). The monopole's quadrature
+      error with scipy's nodes and with the native ones is printed. `fw_kernel_rows` times K1
       (mode 0, batch 1) and K2 (mode 0, batch 4) at its f64 shape against their twins.
   11b `patchy_full`: models/patchy.get_patchy_N0s for ptt and p_p at lmax_ivf = lmax_qlm =
       2048 with 4 'percentiles' patches of an inverse-variance map made of the anisofilt
@@ -116,9 +119,52 @@ def scan_vmaps(geom, nlevs, device):
     return out
 
 
+class native_gl:
+    """PLK_NATIVE=1 inside the block (the native host kernels serve the GL nodes and the
+    1-D Wigner transforms), the caller's setting restored after."""
+
+    def __enter__(self):
+        self._old = os.environ.get('PLK_NATIVE')
+        os.environ['PLK_NATIVE'] = '1'
+
+    def __exit__(self, *exc):
+        if self._old is None:
+            os.environ.pop('PLK_NATIVE', None)
+        else:
+            os.environ['PLK_NATIVE'] = self._old
+        return False
+
+
+def w2wsq_monopole(weights, lmax_out, device):
+    """max over channels of |w2wsq(w)[0] / (sum_l (2l+1) w_l^2 / 4 pi) - 1|: the GL
+    quadrature's error on the squared correlation function's monopole (exact in exact
+    arithmetic with the (2 lmax + lmax_out) / 2 + 1 nodes of w2wsq)."""
+    from plancklens_tpu_torch.models import freq_weighting as fw
+    ls = np.arange(weights.shape[1])
+    return max(abs(float(fw.w2wsq(w, 0, 0, lmax_out, device=device)[0])
+                   / (np.sum((2 * ls + 1.) * w ** 2) / (4. * np.pi)) - 1.) for w in weights)
+
+
 def freq_weighting_full(device, nside=NSIDE_FW, lmax_w=LMAX_W, log=print):
-    """11a (module docstring): the full-width run and its identities. Returns a dict of
-    seconds, checks, launches and peak memory."""
+    """11a (module docstring): the full-width run and its identities, with the GL nodes
+    of the native host kernel (PLK_NATIVE=1; scipy's weights at the edge nodes of the
+    4095-point rule are off by up to 7e-7 relative, which the monopole identity would
+    read; their error on it is measured and returned as 'monopole_scipy'). Returns a dict
+    of seconds, checks, launches and peak memory."""
+    with native_gl():
+        res = _freq_weighting_full(device, nside, lmax_w, log)
+    res['monopole_scipy'] = w2wsq_monopole(channel_weights(lmax_w, NLEV_T),
+                                           res['lmax_out'], device)
+    with native_gl():
+        res['monopole_native'] = w2wsq_monopole(channel_weights(lmax_w, NLEV_T),
+                                                res['lmax_out'], device)
+    log('(11a) the GL quadrature on the monopole of w2wsq (lmax_out %d): scipy\'s nodes %.2e, '
+        'the native kernel\'s %.2e (relative, worst channel)'
+        % (res['lmax_out'], res['monopole_scipy'], res['monopole_native']))
+    return res
+
+
+def _freq_weighting_full(device, nside, lmax_w, log):
     from plancklens_tpu_torch.models import freq_weighting as fw
     from plancklens_tpu_torch.ops.sht import gl_geometry, legendre_kernels as lk
     device = torch.device(device)
@@ -173,8 +219,9 @@ def freq_weighting_full(device, nside=NSIDE_FW, lmax_w=LMAX_W, log=print):
     res['seconds']['identities'] = time.perf_counter() - t3
     if cuda:
         res['peak_gib'] = torch.cuda.max_memory_allocated(device) / 2. ** 30
-    log('(11a) freq_weighting, %d channels (%s GHz), weights l <= %d, gl_geometry(%d) %d x %d, '
-        'lmax_out %d, f64: vmaps2vmap_I %.2fs, vmaps2vmap_P %.2fs, peak %.2f GiB; K1 %s, K2 %s'
+    log('(11a) freq_weighting (PLK_NATIVE=1), %d channels (%s GHz), weights l <= %d, '
+        'gl_geometry(%d) %d x %d, lmax_out %d, f64: vmaps2vmap_I %.2fs, vmaps2vmap_P %.2fs, '
+        'peak %.2f GiB; K1 %s, K2 %s'
         % (len(FREQS), '/'.join(map(str, FREQS)), lmax_w, nside, geom.nrings, geom.nphi,
            res['lmax_out'], res['seconds']['I'], res['seconds']['P'], res.get('peak_gib', 0.),
            res['launches']['synth_pair'], res['launches']['anal_pair']))
@@ -187,7 +234,7 @@ def freq_weighting_full(device, nside=NSIDE_FW, lmax_w=LMAX_W, log=print):
 
 def freq_weighting_card_vs_cpu(device, nside=256, lmax_w=127, log=print):
     """11a's card-against-CPU check at lmax 256: vmaps2vmap_I and _P on `device` and on the
-    CPU, the same inputs; max relative difference of each."""
+    CPU, the same inputs (the default GL nodes); max relative difference of each."""
     from plancklens_tpu_torch.models import freq_weighting as fw
     from plancklens_tpu_torch.ops.sht import gl_geometry
     geom = gl_geometry(nside)
@@ -428,17 +475,17 @@ def sharded_world1(device, lmax=2048, nsims=8, log=print):
         par = _load_ideal(device, lmax, nsims)
         par.qlms_dd.ivfs1 = par.qlms_dd.ivfs2 = pmesh.ShardedIVFS(par.ivfs, mesh)
         idxs = np.arange(nsims)
+        with StageTimer(device) as tr:     # first: it builds the tables, cold
+            qr = par_ref.qlms_dd.get_sim_qlm_batch('ptt', idxs)
         with StageTimer(device) as t:
             q = par.qlms_dd.get_sim_qlm_batch('ptt', idxs)
-        with StageTimer(device) as tr:
-            qr = par_ref.qlms_dd.get_sim_qlm_batch('ptt', idxs)
         res = {'rel': _rel(q, qr), 'equal': bool(torch.equal(q, qr)), 'seconds': t.seconds,
                'seconds_ref': tr.seconds, 'backend': backend}
         pdist.barrier()
     finally:
         pdist.shutdown()
-    log('(11c) world size 1 (%s): ShardedIVFS -> QELib ptt, lmax %d, %d sims: %.3fs (unsharded '
-        '%.3fs), %.2e relative, bitwise equal: %s'
+    log('(11c) world size 1 (%s): ShardedIVFS -> QELib ptt, lmax %d, %d sims: %.3fs (unsharded, '
+        'run first with the cold table builds, %.3fs), %.2e relative, bitwise equal: %s'
         % (res['backend'], lmax, nsims, res['seconds'], res['seconds_ref'], res['rel'],
            res['equal']))
     return res

@@ -277,7 +277,7 @@ class ShardedIVFS:
             return inner(idxs)
         k = len(idxs) // n
         out = inner(idxs[r * k:(r + 1) * k])
-        return tuple(None if x is None else _dist.all_gather_cat(x, group) for x in out)
+        return tuple(_dist.all_gather_cat(x, group) for x in out)
 
     def hashdict(self):
         return self._ivfs.hashdict()

@@ -5,6 +5,7 @@ directory, GL nodes against scipy, the native Wigner transforms against the port
 path and the JAX package within 1e-12 (poles included), the dispatch conditions (1-D real
 host numpy operands and the variable set), and a failed build that raises."""
 import ctypes
+import os
 import shutil
 
 import numpy as np
@@ -19,8 +20,11 @@ from plancklens_tpu_torch.ops import gauleg as pgauleg
 
 torch.set_num_threads(1)
 
-pytestmark = pytest.mark.skipif(shutil.which(nbuild.compiler()) is None,
-                                reason='no C++ compiler to build the native kernels')
+
+@pytest.fixture(autouse=True)
+def _compiler():
+    if shutil.which(nbuild.compiler()) is None:
+        pytest.skip('no C++ compiler to build the native kernels')
 
 
 def test_build_in_temporary_directory(tmp_path):
@@ -31,6 +35,21 @@ def test_build_in_temporary_directory(tmp_path):
     lib.plk_version.restype = ctypes.c_int
     assert lib.plk_version() == 1
     assert native.have_native()
+
+
+def test_serial_build_without_openmp(tmp_path, monkeypatch):
+    """A compiler without OpenMP's runtime builds the same source serially: the same
+    nodes and transforms."""
+    monkeypatch.setattr(nbuild, 'VARIANTS', (('serial', ()),))
+    so = nbuild.build(build_dir=str(tmp_path))
+    assert os.path.basename(so).startswith('plkcore_serial_')
+    lib = ctypes.CDLL(so)
+    d = ctypes.POINTER(ctypes.c_double)
+    lib.plk_gauleg.argtypes = [ctypes.c_int, d, d]
+    x, w = np.empty(33), np.empty(33)
+    lib.plk_gauleg(33, x.ctypes.data_as(d), w.ctypes.data_as(d))
+    xr, wr = native.gauleg(33)
+    assert np.allclose(x, xr, atol=1e-15) and np.allclose(w, wr, atol=1e-15)
 
 
 @pytest.mark.parametrize('n', [1, 2, 7, 64, 257, 1024])
@@ -108,7 +127,7 @@ def test_plk_native_dispatch(monkeypatch):
 def test_failed_build_raises(monkeypatch, tmp_path):
     bad = tmp_path / 'bad.cc'
     bad.write_text('this is not C++\n')
-    with pytest.raises(RuntimeError, match='native build failed'):
+    with pytest.raises(RuntimeError, match='native build failed'):   # both variants
         nbuild.build(source=str(bad), build_dir=str(tmp_path / 'b'))
     # PLK_NATIVE=1 with a compiler that cannot run: the dispatch raises, it does not fall
     # back to the torch path
