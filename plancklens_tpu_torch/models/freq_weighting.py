@@ -7,7 +7,8 @@ weight correlation functions (reference: plancklens/freq_weighting.py:13-79). Ru
 ring geometry with the port's SHT: the frequencies go through one batched `map2alm`
 (kernel K2, mode 0, on a CUDA device), their sum through one `alm2map` (K1, mode 0). The
 squared correlation functions come from `ops/wigner` on the same device, and the data stay
-there: the maps in and out are device tensors (numpy inputs are placed on `device`).
+there: the maps in and out are device tensors (numpy inputs are placed on `device`; a
+tensor on another device raises).
 """
 import numpy as np
 import torch
@@ -42,12 +43,16 @@ def _mean_omega(geom, omega_pix):
 
 
 def _stack_maps(pix_vmaps, device):
-    maps = [m if isinstance(m, torch.Tensor) else torch.as_tensor(np.asarray(m, dtype=float))
-            for m in pix_vmaps]
-    for m in maps:
-        if m.device.type != 'cpu' and m.device != device:
+    """The maps as one f64 (nfreq, nrings, nphi) tensor on `device`: numpy maps are placed
+    there, a tensor on another device raises (as for the transforms)."""
+    maps = []
+    for m in pix_vmaps:
+        if not isinstance(m, torch.Tensor):
+            m = torch.as_tensor(np.asarray(m, dtype=float), device=device)
+        elif m.device != device:
             raise ValueError('variance map on %s, transform on %s' % (m.device, device))
-    return torch.stack([m.to(device=device, dtype=torch.float64) for m in maps])
+        maps.append(m.to(torch.float64))
+    return torch.stack(maps)
 
 
 def _combine(pix_vmaps, wl2s, geom, lmax_out, omega_pix, device):

@@ -78,6 +78,13 @@ def test_vmaps2vmap_I_matches_reference():
     assert _rel(out2.numpy(), ref) <= 1e-10
 
 
+def test_vmaps2vmap_map_on_another_device_raises():
+    geom = p_gl(16)
+    meta = torch.empty((geom.nrings, geom.nphi), dtype=torch.float64, device='meta')
+    with pytest.raises(ValueError, match='variance map on meta'):
+        pfw.vmaps2vmap_I([meta], np.ones((1, 9)), geom, device=CPU)
+
+
 def test_vmaps2vmap_P_matches_reference():
     rgeom, pgeom = r_gl(128), p_gl(128)
     V, we, wb = _vmaps(rgeom, 3, 4), _weights(3, 64, 5), _weights(3, 64, 6)
