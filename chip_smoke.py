@@ -159,8 +159,8 @@ Phases:
                 plain versions (1e-12, bitwise equal on a second run), each block timed;
                 (11d) two processes on the one card over gloo (host-staged collectives):
                 shard_sht with n_m = 2 at lmax 2048 (alm2map, map2alm, spins 0 and 2, f64,
-                batch 4) and ShardedIVFS filtering 4 sims, gathered and held to the
-                single-process result (1e-12 of max); both ranks exit 0 within 400 s
+                batch 4) and ShardedIVFS filtering 4 sims, gathered on each rank and held
+                to the single-process result (1e-12 of max); both ranks exit 0 within 400 s
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
@@ -377,11 +377,7 @@ def phase11(dev):
     from plancklens_tpu_torch.ops.sht import core
     import parallel_noise_torch as pn
     log11 = lambda s: phase(11, s)
-    from plancklens_tpu_torch.native import build as native_build
     t11 = time.perf_counter()
-    so = native_build.build()
-    phase(11, 'native host kernels (g++, for PLK_NATIVE=1) built in %.1fs: %s'
-          % (time.perf_counter() - t11, os.path.relpath(so, HERE)))
     core.TABLES.clear()
     torch.cuda.empty_cache()
     # 11a
@@ -441,8 +437,9 @@ def phase11(dev):
     torch.cuda.empty_cache()
     # 11d
     rd = pn.two_ranks_one_card(dev, LMAX, nsims=4, batch=4, log=log11)
-    check(max(rd[0]['errs'].values()) <= 1e-12, 'two ranks on one card vs the single process: '
-          '%s' % rd[0]['errs'])
+    for r in rd:
+        check(max(r['errs'].values()) <= 1e-12, 'two ranks on one card: rank %d vs the single '
+              'process: %s' % (r['rank'], r['errs']))
     for name, row in mrows.items():
         b, mode = int(name.split('mblock')[1][0]), row['mode']
         kind = 'synth_pair' if name.startswith('synth') else 'anal_pair'

@@ -215,34 +215,37 @@ def binned_ratios(cls_sims, cl_theory, lmax):
 SPECTRA_BOUND = {'tt': (5., 0.01), 'ee': (5., 0.01), 'bb': (15., 0.03)}
 
 
-def _kernel_row(kind, spin, mode, L, geom, device, batch=1):
-    """K1 (kind 'synth') or K2 ('anal') on `geom` at band limit L, f64, `batch` maps: kernel
-    ms (3 calls after a warm-up), plain-version ms (one call), max abs / relative
-    difference, whether the warm-up and the last call are bitwise equal, and the bound
-    (roofline.pair_bound)."""
+def _kernel_row(kind, spin, mode, L, geom, device, batch=1, m_range=None):
+    """K1 (kind 'synth') or K2 ('anal') on `geom` at band limit L, f64, `batch` maps, on the
+    columns m_range = (m0, m1) (default all; an even m0, with the tables of those columns):
+    kernel ms (3 calls after two untimed ones, each output freed before the next call so no
+    cudaMalloc lands between the events, as chip_smoke.cuda_ms), plain-version ms (one
+    call), max abs / relative difference, whether the first and the last call are bitwise
+    equal, and the bound (roofline.pair_bound)."""
     from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
     from plancklens_tpu_torch.ops.sht.roofline import pair_bound
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    t_m, t_p = core.pair_tables(L, L, spin, geom.theta, geom.token(), dev)
-    R = geom.nrings
+    m0, m1 = (0, L + 1) if m_range is None else m_range
+    gen = torch.Generator(device=dev).manual_seed(7 + m0)
+    t_m, t_p = core.pair_tables(L, m1 - 1, spin, geom.theta, geom.token(), dev, m0)
+    R, M = geom.nrings, m1 - m0
     two = mode == 1
+    shape = (batch, L + 1, M) if kind == 'synth' else (batch, R, M)
+    x = [torch.randn(shape, generator=gen, device=dev, dtype=torch.complex128)
+         for _ in range(2)]
+    xm = x[1] if two else None
     if kind == 'synth':
-        x = [torch.randn((batch, L + 1, L + 1), generator=gen, device=dev,
-                         dtype=torch.complex128) for _ in range(2)]
-        xm = x[1] if two else None
         run = lambda: lk.synth_pair(x[0], xm, spin, R, t_m, t_p)
         plain = lambda: core.legendre_synth_pair_plain(x[0], xm, spin, R, t_m, t_p)
     else:
-        x = [torch.randn((batch, R, L + 1), generator=gen, device=dev, dtype=torch.complex128)
-             for _ in range(2)]
-        xm = x[1] if two else None
         run = lambda: lk.anal_pair(x[0], xm, spin, L, t_m, t_p)
         plain = lambda: core.legendre_anal_pair_plain(x[0], xm, spin, L, t_m, t_p)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     first = run()
+    k = run()
     e0.record()
     for _ in range(3):
+        k = None
         k = run()
     e1.record()
     e1.synchronize()
@@ -257,7 +260,8 @@ def _kernel_row(kind, spin, mode, L, geom, device, batch=1):
     equal = all(torch.equal(a, b) for a, b, c in zip(first, k, p) if c is not None)
     bound_ms, bound_by = pair_bound((t_m,) if mode == 0 else (t_m, t_p), mode, batch, R, True)
     return dict(ms=ms, plain_ms=pms, max_abs_err=err_abs, rel_err=err, equal=equal,
-                bound_ms=bound_ms, bound_by=bound_by, rings=R, lmax=L, mode=mode, batch=batch)
+                bound_ms=bound_ms, bound_by=bound_by, rings=R, lmax=L, mode=mode, batch=batch,
+                m=(m0, m1))
 
 
 def lensed_sims(device, lmax=2048, dlmax=DLMAX, sims=(0, 1, 2, 3), log=print):

@@ -8,14 +8,13 @@ CPU):
       (inverse-noise weights of synthetic beams and white levels, summing to 1 at each l,
       l = 0..2047; Planck's SMICA weights are not in the repository), synthetic scan-pattern
       variance maps on gl_geometry(4096), so lmax_out = 4094 holds the squared weights'
-      whole band: vmaps2vmap_I, then vmaps2vmap_P with E/B weights, with PLK_NATIVE=1
-      (the native kernel's GL nodes: scipy's 4095-point weights are off by up to 7e-7 at
-      the edge nodes, where the squared correlation functions peak). Checks: uniform maps
-      s_i^2 give sum_i s_i^2 mean(Omega) sum_l (2l+1) w_il^2 / (4 pi) everywhere (exact
-      for a monopole; 1e-10 relative), P's halving identity and E/B swap symmetry (1e-10),
-      and the card against the CPU at lmax 256 (1e-12 of max). The monopole's quadrature
-      error with scipy's nodes and with the native ones is printed. `fw_kernel_rows` times K1
-      (mode 0, batch 1) and K2 (mode 0, batch 4) at its f64 shape against their twins.
+      whole band: vmaps2vmap_I, then vmaps2vmap_P with E/B weights, on the default GL
+      nodes (above 2048 nodes the Newton iteration of ops/gauleg, whose edge weights hold
+      where scipy's drift). Checks: uniform maps s_i^2 give sum_i s_i^2 mean(Omega) sum_l
+      (2l+1) w_il^2 / (4 pi) everywhere (exact for a monopole; 1e-10 relative), P's
+      halving identity and E/B swap symmetry (1e-10), and the card against the CPU at lmax
+      256 (1e-12 of max). `fw_kernel_rows` times K1 (mode 0, batch 1) and K2 (mode 0,
+      batch 4) at its f64 shape against their twins.
   11b `patchy_full`: models/patchy.get_patchy_N0s for ptt and p_p at lmax_ivf = lmax_qlm =
       2048 with 4 'percentiles' patches of an inverse-variance map made of the anisofilt
       mask (params/anisofilt_example_torch.py) times a scan pattern, 35 / 55 uK-arcmin on
@@ -34,10 +33,10 @@ CPU):
   11d `two_ranks_one_card`: two processes on the one card (NCCL refuses two ranks on one
       device, so gloo, whose collectives stage CUDA tensors through the host): each runs
       `shard_sht` with n_m = 2 at lmax 2048 (alm2map / map2alm, spins 0 and 2, f64,
-      batch 4) and a sims-sharded isotropic filtering of 4 sims through ShardedIVFS; rank
-      0 gathers both and holds them to the single-process result (1e-12 of max). Each rank
-      prints its m-split and its seconds; each is waited on with a timeout and killed on
-      expiry, and a failure of either fails the run.
+      batch 4) and a sims-sharded isotropic filtering of 4 sims through ShardedIVFS; each
+      rank gathers both and holds them to the single-process result (1e-12 of max). Each
+      rank prints its m-split and its seconds; each is waited on with a timeout and killed
+      on expiry, and a failure of either fails the run.
 
     python examples/parallel_noise_torch.py [--device cuda] [--parts a,b,c,d]
 """
@@ -59,6 +58,7 @@ import torch
 
 from plancklens_tpu_torch import DATAPATH
 from plancklens_tpu_torch.utils import camb_clfile
+from lensed_chain_torch import _kernel_row
 
 FREQS = (100, 143, 217, 353)
 # synthetic per-channel beams (FWHM, arcmin) and white levels (T, P; uK-arcmin), of the
@@ -119,22 +119,6 @@ def scan_vmaps(geom, nlevs, device):
     return out
 
 
-class native_gl:
-    """PLK_NATIVE=1 inside the block (the native host kernels serve the GL nodes and the
-    1-D Wigner transforms), the caller's setting restored after."""
-
-    def __enter__(self):
-        self._old = os.environ.get('PLK_NATIVE')
-        os.environ['PLK_NATIVE'] = '1'
-
-    def __exit__(self, *exc):
-        if self._old is None:
-            os.environ.pop('PLK_NATIVE', None)
-        else:
-            os.environ['PLK_NATIVE'] = self._old
-        return False
-
-
 def w2wsq_monopole(weights, lmax_out, device):
     """max over channels of |w2wsq(w)[0] / (sum_l (2l+1) w_l^2 / 4 pi) - 1|: the GL
     quadrature's error on the squared correlation function's monopole (exact in exact
@@ -146,25 +130,8 @@ def w2wsq_monopole(weights, lmax_out, device):
 
 
 def freq_weighting_full(device, nside=NSIDE_FW, lmax_w=LMAX_W, log=print):
-    """11a (module docstring): the full-width run and its identities, with the GL nodes
-    of the native host kernel (PLK_NATIVE=1; scipy's weights at the edge nodes of the
-    4095-point rule are off by up to 7e-7 relative, which the monopole identity would
-    read; their error on it is measured and returned as 'monopole_scipy'). Returns a dict
-    of seconds, checks, launches and peak memory."""
-    with native_gl():
-        res = _freq_weighting_full(device, nside, lmax_w, log)
-    res['monopole_scipy'] = w2wsq_monopole(channel_weights(lmax_w, NLEV_T),
-                                           res['lmax_out'], device)
-    with native_gl():
-        res['monopole_native'] = w2wsq_monopole(channel_weights(lmax_w, NLEV_T),
-                                                res['lmax_out'], device)
-    log('(11a) the GL quadrature on the monopole of w2wsq (lmax_out %d): scipy\'s nodes %.2e, '
-        'the native kernel\'s %.2e (relative, worst channel)'
-        % (res['lmax_out'], res['monopole_scipy'], res['monopole_native']))
-    return res
-
-
-def _freq_weighting_full(device, nside, lmax_w, log):
+    """11a (module docstring): the full-width run and its identities. Returns a dict of
+    seconds, checks, launches and peak memory."""
     from plancklens_tpu_torch.models import freq_weighting as fw
     from plancklens_tpu_torch.ops.sht import gl_geometry, legendre_kernels as lk
     device = torch.device(device)
@@ -219,7 +186,7 @@ def _freq_weighting_full(device, nside, lmax_w, log):
     res['seconds']['identities'] = time.perf_counter() - t3
     if cuda:
         res['peak_gib'] = torch.cuda.max_memory_allocated(device) / 2. ** 30
-    log('(11a) freq_weighting (PLK_NATIVE=1), %d channels (%s GHz), weights l <= %d, '
+    log('(11a) freq_weighting, %d channels (%s GHz), weights l <= %d, '
         'gl_geometry(%d) %d x %d, lmax_out %d, f64: vmaps2vmap_I %.2fs, vmaps2vmap_P %.2fs, '
         'peak %.2f GiB; K1 %s, K2 %s'
         % (len(FREQS), '/'.join(map(str, FREQS)), lmax_w, nside, geom.nrings, geom.nphi,
@@ -253,51 +220,6 @@ def freq_weighting_card_vs_cpu(device, nside=256, lmax_w=127, log=print):
     return errs
 
 
-def _pair_row(kind, spin, two, L, geom, device, batch, m_range=None):
-    """K1 (kind 'synth') or K2 ('anal') at band limit L on `geom`, f64, `batch` maps, on the
-    columns m_range = (m0, m1) (default all): kernel ms (3 calls after a warm-up), its plain
-    twin's ms (one call), max abs / relative difference, whether the warm-up and the last
-    call are bitwise equal, and the bound (roofline.pair_bound of the block's tables)."""
-    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
-    from plancklens_tpu_torch.ops.sht.roofline import pair_bound
-    m0, m1 = (0, L + 1) if m_range is None else m_range
-    mode = 1 if two else 0
-    gen = torch.Generator(device=device).manual_seed(7 + m0)
-    t_m, t_p = core.pair_tables(L, m1 - 1, spin, geom.theta, geom.token(), device, m0)
-    R, M = geom.nrings, m1 - m0
-    shape = (batch, L + 1, M) if kind == 'synth' else (batch, R, M)
-    x = [torch.randn(shape, generator=gen, device=device, dtype=torch.complex128)
-         for _ in range(2 if two else 1)]
-    xm = x[1] if two else None
-    if kind == 'synth':
-        run = lambda: lk.synth_pair(x[0], xm, spin, R, t_m, t_p)
-        plain = lambda: core.legendre_synth_pair_plain(x[0], xm, spin, R, t_m, t_p)
-    else:
-        run = lambda: lk.anal_pair(x[0], xm, spin, L, t_m, t_p)
-        plain = lambda: core.legendre_anal_pair_plain(x[0], xm, spin, L, t_m, t_p)
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    first = run()
-    e0.record()
-    for _ in range(3):
-        k = run()
-    e1.record()
-    e1.synchronize()
-    ms = e0.elapsed_time(e1) / 3
-    e0.record()
-    p = plain()
-    e1.record()
-    e1.synchronize()
-    pms = e0.elapsed_time(e1)
-    pairs = [(a, b) for a, b in zip(k, p) if b is not None]
-    err_abs = max(float((a - b).abs().max()) for a, b in pairs)
-    err = max(_rel(a, b) for a, b in pairs)
-    equal = all(torch.equal(a, b) for a, b, c in zip(first, k, p) if c is not None)
-    bound_ms, bound_by = pair_bound((t_m,) if mode == 0 else (t_m, t_p), mode, batch, R, True)
-    return dict(ms=ms, plain_ms=pms, max_abs_err=err_abs, rel_err=err, equal=equal,
-                bound_ms=bound_ms, bound_by=bound_by, mode=mode, batch=batch, rings=R,
-                lmax=L, m=(m0, m1))
-
-
 def fw_kernel_rows(device, nside=NSIDE_FW, lmax_out=2 * LMAX_W, log=print):
     """K1 and K2 at 11a's shapes (mode 0, f64, 4097 rings, lmax 4094): K1 at batch 1 (the
     alm2map of the summed alm), K2 at batch 4 (the four channels' map2alm)."""
@@ -305,7 +227,7 @@ def fw_kernel_rows(device, nside=NSIDE_FW, lmax_out=2 * LMAX_W, log=print):
     geom = gl_geometry(nside)
     rows = {}
     for name, kind, batch in (('synth_pair_fw', 'synth', 1), ('anal_pair_fw', 'anal', 4)):
-        r = rows[name] = _pair_row(kind, 0, False, lmax_out, geom, device, batch)
+        r = rows[name] = _kernel_row(kind, 0, 0, lmax_out, geom, device, batch=batch)
         log('(11a) %s at freq_weighting\'s shape (spin 0, one input, f64, batch %d, %d rings, '
             'lmax %d): %.3f ms (plain %.1f ms, %.2e of max, bitwise equal on a second run: '
             '%s), bound %.3f ms (%s, %.1f%%)'
@@ -527,7 +449,8 @@ def m_block_rows(device, lmax=2048, batch=4, log=print):
         for b, (m0, m1) in enumerate(blocks):
             for kind in ('synth', 'anal'):
                 name = '%s_pair_mblock%d_spin%d' % (kind, b, spin)
-                r = rows[name] = _pair_row(kind, spin, two, lmax, geom, device, batch, (m0, m1))
+                r = rows[name] = _kernel_row(kind, spin, 1 if two else 0, lmax, geom, device,
+                                             batch=batch, m_range=(m0, m1))
                 log('(11c) %s on m-block %d (m %d..%d of lmax %d, %s, f64, batch %d, %d rings): '
                     '%.3f ms (plain %.1f ms, %.2e of max, bitwise equal on a second run: %s), '
                     'bound %.3f ms (%s, %.1f%%)'
@@ -548,8 +471,7 @@ def _rank_worker(lmax, nsims, batch):
     from plancklens_tpu_torch.utils import alm as ualm
     device = torch.device(os.environ.get('PLK_RANK_DEVICE', 'cuda:0'))
     t_start = time.perf_counter()
-    rank, size = pdist.init_distributed(device, backend=os.environ.get('PLK_RANK_BACKEND',
-                                                                        'gloo'))
+    rank, size = pdist.init_distributed(device, backend='gloo')
     mesh_m = pmesh.make_mesh(n_sims=1, n_m=size)
     mesh_s = pmesh.make_mesh(n_sims=size, n_m=1)
     lines = []
@@ -601,24 +523,23 @@ def _rank_worker(lmax, nsims, batch):
     res = {'rank': rank, 'size': size, 'backend': torch.distributed.get_backend(),
            'split': lines, 'm': [ssht.m0, ssht.m1], 'rings': [rings.start, rings.stop],
            'seconds': secs, 'seconds_ivfs': secs_ivfs, 'launches': launches}
-    if rank == 0:    # the single-process result, after the counts were read
-        errs = {'alm2map_0': _rel(full['alm2map_0'], sht.alm2map(t)),
-                'map2alm_0': _rel(full['map2alm_0'], sht.map2alm(maps[0]))}
-        re, im = sht.alm2map_spin((g, c), 2)
-        errs['alm2map_2'] = max(_rel(full['alm2map_2'][0], re), _rel(full['alm2map_2'][1], im))
-        rg, rc = sht.map2alm_spin((maps[1], maps[2]), 2)
-        errs['map2alm_2'] = max(_rel(full['map2alm_2'][0], rg), _rel(full['map2alm_2'][1], rc))
-        ref = par.ivfs.get_sim_teblm_batch(np.arange(nsims))
-        errs['ivfs'] = max(_rel(a, b) for a, b in zip(teb, ref))
-        res['errs'] = errs
+    # every rank holds what it gathered to the single-process result, after the counts
+    errs = {'alm2map_0': _rel(full['alm2map_0'], sht.alm2map(t)),
+            'map2alm_0': _rel(full['map2alm_0'], sht.map2alm(maps[0]))}
+    re, im = sht.alm2map_spin((g, c), 2)
+    errs['alm2map_2'] = max(_rel(full['alm2map_2'][0], re), _rel(full['alm2map_2'][1], im))
+    rg, rc = sht.map2alm_spin((maps[1], maps[2]), 2)
+    errs['map2alm_2'] = max(_rel(full['map2alm_2'][0], rg), _rel(full['map2alm_2'][1], rc))
+    ref = par.ivfs.get_sim_teblm_batch(np.arange(nsims))
+    errs['ivfs'] = max(_rel(a, b) for a, b in zip(teb, ref))
+    res['errs'] = errs
     pdist.barrier()
     pdist.shutdown()
     res['wall'] = time.perf_counter() - t_start
     print('RESULT ' + json.dumps(res), flush=True)
 
 
-def two_ranks_one_card(device, lmax=2048, nsims=4, batch=4, timeout=400, backend='gloo',
-                       log=print):
+def two_ranks_one_card(device, lmax=2048, nsims=4, batch=4, timeout=400, log=print):
     """11d (module docstring): spawn two ranks of `_rank_worker` on `device`, wait for both
     (killing both on a timeout), and return their results (rank order). Raises if either
     fails."""
@@ -626,7 +547,7 @@ def two_ranks_one_card(device, lmax=2048, nsims=4, batch=4, timeout=400, backend
     env = {k: v for k, v in os.environ.items()
            if k not in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT', 'LOCAL_RANK')}
     env.update(PLK_COORD='127.0.0.1:%d' % free_port(), PLK_NPROC='2',
-               PLK_RANK_DEVICE=str(device), PLK_RANK_BACKEND=backend)
+               PLK_RANK_DEVICE=str(device))
     cmd = [sys.executable, os.path.abspath(__file__), '--rank-worker', '--lmax', str(lmax),
            '--nsims', str(nsims), '--batch', str(batch)]
     t0 = time.perf_counter()
@@ -655,8 +576,10 @@ def two_ranks_one_card(device, lmax=2048, nsims=4, batch=4, timeout=400, backend
             % (r['rank'], r['size'], r['backend'], device, r['split'][0], batch, r['seconds'],
                nsims, r['seconds_ivfs'], r['wall'], r['launches']['synth_pair'],
                r['launches']['anal_pair']))
-    log('(11d) gathered against the single-process result (relative to max): %s; wall %.1fs'
-        % (', '.join('%s %.2e' % kv for kv in res[0]['errs'].items()), time.perf_counter() - t0))
+    for r in res:
+        log('(11d) rank %d: what it gathered against the single-process result (relative to '
+            'max): %s' % (r['rank'], ', '.join('%s %.2e' % kv for kv in r['errs'].items())))
+    log('(11d) wall %.1fs' % (time.perf_counter() - t0))
     return res
 
 

@@ -18,12 +18,16 @@ Several processes (--mesh, as examples/run_qlms.py's; one process a GPU):
 
     torchrun --nproc_per_node N examples/run_qlms_torch.py <parfile> --mesh ...
 
-joins the ranks over torch.distributed (NCCL on CUDA devices, each rank on
-cuda:$LOCAL_RANK; gloo with --device cpu, or with --backend gloo for ranks that share a
-card) and puts the filtered batches of par.ivfs and of the QE libraries' ivfs1/ivfs2
-behind parallel.mesh.ShardedIVFS: the filt and mf stages split their sims over the ranks
-and all-gather them, and the qe, xin and qcl stages run each rank's `local_jobs` of the
-sims (the reference's jobs[rank::size]). Without a launcher --mesh runs one rank.
+joins the ranks over torch.distributed and puts the filtered batches of par.ivfs and of the
+QE libraries' ivfs1/ivfs2 behind parallel.mesh.ShardedIVFS: every rank runs every stage on
+the same sims, and each batched filtering inside a stage is split over the ranks and
+all-gathered. Those batch calls are collectives, and the QE libraries skip them for
+products their cache already holds, so no stage runs on a rank's own share of the sims
+(the ranks' caches would then differ, and one rank would wait in a call the other skips);
+what follows the filter is computed on every rank. The backend is NCCL when each rank on a
+node has a card of its own (cuda:$LOCAL_RANK), and gloo, with its collectives staged
+through the host, on the CPU or when the launcher puts more ranks on a node than it has
+cards. Without a launcher --mesh runs one rank.
 """
 import argparse
 import importlib.util
@@ -138,20 +142,26 @@ def stage_nhl(par, keys, idx):
     return out, t.seconds
 
 
-def setup_mesh(device, idxs, backend=None):
-    """Join the ranks of a torch.distributed run (one rank without a launcher) on
-    `device` (a CUDA rank takes cuda:$LOCAL_RANK). Returns (device, this rank's jobs of
-    idxs, a '[rank r/n] ' tag for its lines); the mesh is all ranks on 'sims'."""
+def setup_mesh(device):
+    """Join the ranks of a torch.distributed run (one rank without a launcher) on `device`:
+    a CUDA rank takes card $LOCAL_RANK modulo the visible cards, over NCCL when every rank
+    on the node has a card of its own and over gloo when ranks share a card (NCCL refuses
+    two ranks on one card); a CPU rank takes gloo. Returns (device, a '[rank r/n] ' tag for
+    its lines); the mesh is all ranks on 'sims'."""
     from plancklens_tpu_torch.parallel import distributed as pdist
-    if device.type == 'cuda' and device.index is None:
-        device = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)))
+    backend = 'gloo'
+    if device.type == 'cuda':
+        cards = torch.cuda.device_count()
+        if device.index is None:
+            device = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)) % cards)
+        if int(os.environ.get('LOCAL_WORLD_SIZE', 1)) <= cards:
+            backend = 'nccl'
     rank, size = pdist.init_distributed(device, backend=backend)
     if size == 1:
         pdist.init_single(device, backend=backend)
-    jobs = np.asarray(pdist.local_jobs(idxs), dtype=int)
-    print('[rank %d/%d] mesh (sims %d, m 1) on %s, backend %s; local jobs %s'
-          % (rank, size, size, device, torch.distributed.get_backend(), jobs.tolist()))
-    return device, jobs, '[rank %d/%d] ' % (rank, size)
+    print('[rank %d/%d] mesh (sims %d, m 1) on %s, backend %s'
+          % (rank, size, size, device, backend))
+    return device, '[rank %d/%d] ' % (rank, size)
 
 
 def wrap_mesh(par):
@@ -187,17 +197,15 @@ def main():
                    help="torch device (default 'cuda'; 'cpu' runs the plain torch path)")
     p.add_argument('--mesh', action='store_true',
                    help='split the sims over the ranks of a torch.distributed run')
-    p.add_argument('--backend', default=None,
-                   help="--mesh backend (default: 'nccl' on CUDA, 'gloo' on the CPU)")
     args = p.parse_args()
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         p.error("no CUDA device is available for --device %s; pass --device cpu to run "
                 "on the CPU" % args.device)
     idxs = np.arange(args.imin, args.imax + 1)
-    jobs, tag = idxs, ''
+    tag = ''
     if args.mesh:
-        device, jobs, tag = setup_mesh(device, idxs, args.backend)
+        device, tag = setup_mesh(device)
     par = load_parfile(args.parfile, device)
     if args.mesh:
         wrap_mesh(par)
@@ -206,17 +214,17 @@ def main():
         _, s = stage_filt(par, idxs)
         print('%s[filt] %d sims filtered in %.3fs' % (tag, len(idxs), s))
     if 'qe' in stages:
-        _, s = stage_qe(par, args.keys, jobs)
-        print('%s[qe]   %s: %d sims in %.3fs' % (tag, ','.join(args.keys), len(jobs), s))
+        _, s = stage_qe(par, args.keys, idxs)
+        print('%s[qe]   %s: %d sims in %.3fs' % (tag, ','.join(args.keys), len(idxs), s))
     if 'mf' in stages:
         _, s = stage_mf(par, args.keys)
         print('%s[mf]   %s: split-half mean fields in %.3fs' % (tag, ','.join(args.keys), s))
     if 'xin' in stages and hasattr(par, 'qlms_x_in'):
-        _, s = stage_xin(par, args.keys, jobs)
+        _, s = stage_xin(par, args.keys, idxs)
         print('%s[xin]  %s: %d crosses with the input phi in %.3fs'
-              % (tag, ','.join(args.keys), len(jobs), s))
+              % (tag, ','.join(args.keys), len(idxs), s))
     if 'qcl' in stages:
-        out, s = stage_qcl(par, args.keys, jobs)
+        out, s = stage_qcl(par, args.keys, idxs)
         print('%s[qcl]  %s: dd/ds/ss spectra %s in %.3fs'
               % (tag, ','.join(args.keys), next(iter(out.values())).shape, s))
     if 'nhl' in stages and hasattr(par, 'nhl_dd'):

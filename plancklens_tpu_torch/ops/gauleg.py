@@ -1,8 +1,9 @@
 """Gauss-Legendre quadrature nodes and weights (host numpy, float64).
 
-Copy of plancklens_tpu/ops/gauleg.py: scipy's `roots_legendre` when available, else a
-vectorised Newton iteration on P_N; with PLK_NATIVE=1 the native C++/OpenMP kernel
-(plancklens_tpu_torch.native, built at first use; a failed build raises).
+Port of plancklens_tpu/ops/gauleg.py: scipy's `roots_legendre` up to 2048 nodes, and
+above (or without scipy) a vectorised Newton iteration on P_N, the numpy twin of the native
+kernel, whose edge weights stay accurate where scipy's drift; with PLK_NATIVE=1 the native
+C++/OpenMP kernel (plancklens_tpu_torch.native, built at first use; a failed build raises).
 """
 import numpy as np
 from functools import lru_cache
@@ -14,27 +15,30 @@ except ImportError:  # pragma: no cover - scipy is expected in this environment
 
 
 def _gauleg_newton(n):
-    """Vectorised Newton iteration for the n-point GL rule on (-1, 1), float64."""
-    k = np.arange(n, dtype=np.float64)
-    # Tricomi-type initial guess, accurate to O(n^-4)
-    x = np.cos(np.pi * (k + 0.75) / (n + 0.5))
-    for _ in range(100):
-        p0 = np.ones_like(x)
-        p1 = x.copy()
+    """The n-point GL rule on (-1, 1), float64, by vectorised Newton iteration on P_N from
+    the Tricomi initial guess: the numpy twin of the native kernel (native/plkcore.cc
+    plk_gauleg), on the x >= 0 half and mirrored, the middle root of odd n exactly 0."""
+    m = (n + 1) // 2
+    x = np.cos(np.pi * (np.arange(m) + 0.75) / (n + 0.5))     # largest x first
+
+    def pn(x):   # P_n and P_n' by upward recursion
+        p0, p1 = np.ones_like(x), x.copy()
         for l in range(2, n + 1):
-            p0, p1 = p1, ((2 * l - 1) * x * p1 - (l - 1) * p0) / l
-        dp = n * (x * p1 - p0) / (x * x - 1.0)
-        dx = p1 / dp
-        x -= dx
+            p0, p1 = p1, (2. * l - 1.) / l * x * p1 - (l - 1.) / l * p0
+        return p1, n * (x * p1 - p0) / (x * x - 1.)
+
+    for _ in range(100):
+        p, dp = pn(x)
+        dx = p / dp
+        x = x - dx
         if np.max(np.abs(dx)) < 1e-15:
             break
-    p0 = np.ones_like(x)
-    p1 = x.copy()
-    for l in range(2, n + 1):
-        p0, p1 = p1, ((2 * l - 1) * x * p1 - (l - 1) * p0) / l
-    dp = n * (x * p1 - p0) / (x * x - 1.0)
-    w = 2.0 / ((1.0 - x * x) * dp * dp)
-    return x[::-1].copy(), w[::-1].copy()
+    _, dp = pn(x)
+    if n % 2:
+        x[-1] = 0.
+    w = 2. / ((1. - x * x) * dp * dp)
+    k = n % 2    # the middle node of odd n is not mirrored
+    return np.concatenate([-x, x[::-1][k:]]), np.concatenate([w, w[::-1][k:]])
 
 
 def gauleg(n):
@@ -42,8 +46,8 @@ def gauleg(n):
 
     PLK_NATIVE=1 serves them from the native kernel (role of reference
     plancklens/wigners/wigners.f90:132-184 `get_xgwg`; its edge weights are more accurate
-    than scipy's, plancklens_tpu/ops/gauleg.py:48-53), else scipy, else the pure-numpy
-    Newton iteration. Results are cached per (n, route)."""
+    than scipy's, plancklens_tpu/ops/gauleg.py:48-53), else scipy up to NEWTON_ABOVE
+    nodes and the numpy Newton iteration above. Results are cached per (n, route)."""
     assert n >= 1, n
     from .. import native
     return _gauleg_native(n) if native.enabled() else _gauleg_host(n)
@@ -55,9 +59,19 @@ def _gauleg_native(n):
     return native.gauleg(n)
 
 
+# Above this many nodes the default route is the Newton iteration. scipy's edge weights
+# drift from the rule's as n grows (against the native kernel: 2.5e-11 relative at 257
+# nodes, 1.0e-9 at 513, 1.0e-8 at 1025, at most 2.0e-7 below 2049 (n = 2028), 8.8e-8 at
+# 4097, 4.9e-6 at 8193), and the quadratures of the large band limits read that: the
+# monopole of models/freq_weighting.w2wsq at lmax_out 4094 is off by 4.3e-7 with scipy's
+# nodes and by 7.2e-11 with these. Up to it the port serves scipy's nodes, as the JAX
+# package does, so that the two agree bitwise where the parity tests hold one to the other.
+NEWTON_ABOVE = 2048
+
+
 @lru_cache(maxsize=64)
 def _gauleg_host(n):
-    if _scipy_roots is not None:
+    if _scipy_roots is not None and n <= NEWTON_ABOVE:
         x, w = _scipy_roots(n)
         return np.asarray(x, dtype=np.float64), np.asarray(w, dtype=np.float64)
     return _gauleg_newton(n)

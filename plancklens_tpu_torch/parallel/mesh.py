@@ -244,10 +244,9 @@ class ShardedIVFS:
     `get_sim_teblm_batch(idxs)` filters only this rank's block of `idxs` and all-gathers
     the batch, so it returns what the wrapped library returns (the driver's --mesh
     mechanism; role of the reference's `jobs[rank::size]` striding,
-    examples/run_qlms.py:57). A batch that does not divide over the ranks, or that the
-    ranks do not all ask for (each rank on its own `local_jobs`), is computed whole on
-    each rank. Every rank of the 'sims' group must make the same calls in the same order:
-    each batch call starts with a small collective that compares the ranks' idxs."""
+    examples/run_qlms.py:57). A batch that does not divide over the ranks is computed whole
+    on each rank. Each batch call is a collective: every rank of the 'sims' group makes the
+    same calls, with the same idxs, in the same order."""
 
     def __init__(self, ivfs, mesh):
         self._ivfs = ivfs
@@ -267,17 +266,13 @@ class ShardedIVFS:
         return getattr(self._ivfs, name)
 
     def _sharded_batch(self, inner, idxs):
-        import torch.distributed as dist
         idxs = np.atleast_1d(np.asarray(idxs))
         n, r = axis_size(self._mesh, 'sims'), axis_rank(self._mesh, 'sims')
-        group = axis_group(self._mesh, 'sims')
-        asked = [None] * n
-        dist.all_gather_object(asked, idxs.tolist(), group=group)
-        if len(idxs) % n or any(a != asked[0] for a in asked):
+        if len(idxs) % n:
             return inner(idxs)
         k = len(idxs) // n
         out = inner(idxs[r * k:(r + 1) * k])
-        return tuple(_dist.all_gather_cat(x, group) for x in out)
+        return tuple(_dist.all_gather_cat(x, axis_group(self._mesh, 'sims')) for x in out)
 
     def hashdict(self):
         return self._ivfs.hashdict()

@@ -7,6 +7,17 @@ import os
 import numpy as np
 
 
+def _write(path, dump):
+    """dump(file) into a temporary file beside `path`, then renamed onto it: a reader
+    never sees a partial entry, even while another process writes the same one (the ranks
+    of a --mesh run compute and cache the same products)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = '%s.%d.tmp' % (path, os.getpid())
+    with open(tmp, 'wb') as f:
+        dump(f)
+    os.replace(tmp, path)
+
+
 class cacher_none:
     def cache(self, fn, obj):
         pass
@@ -45,8 +56,7 @@ class cacher_npy:
         return os.path.join(self.lib_dir, fn + '.npy')
 
     def cache(self, fn, obj):
-        os.makedirs(os.path.dirname(self._path(fn)), exist_ok=True)
-        np.save(self._path(fn), np.asarray(obj))
+        _write(self._path(fn), lambda f: np.save(f, np.asarray(obj)))
         if self.verbose:
             print('cached ' + self._path(fn))
 
@@ -71,9 +81,7 @@ class cacher_pk:
 
     def cache(self, fn, obj):
         import pickle
-        os.makedirs(os.path.dirname(self._path(fn)), exist_ok=True)
-        with open(self._path(fn), 'wb') as f:
-            pickle.dump(obj, f)
+        _write(self._path(fn), lambda f: pickle.dump(obj, f))
         if self.verbose:
             print('cached ' + self._path(fn))
 

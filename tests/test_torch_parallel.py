@@ -13,7 +13,10 @@
     2, both directions, gathered and held to the single-process SHT (1e-12 of max); and
     `ShardedIVFS` on params/idealized_example_torch.py at lmax 32, 8 sims over the two
     ranks, against the unsharded qlm (1e-10), with the hasattr contract;
-  * examples/run_qlms_torch.py --mesh under torchrun with two gloo ranks.
+  * examples/run_qlms_torch.py --mesh under torchrun with two gloo ranks and a shared
+    PLK_CACHE_DIR, its cached QEs and mean fields against the unsharded run's (the qe
+    stage on sims 0-7, and on 4-7 so that the mf stage's QEs go through the sharded
+    filter).
 """
 import json
 import os
@@ -191,9 +194,6 @@ teb_r = par_ref.ivfs.get_sim_teblm_batch(idxs)
 ivfs['teb'] = max(rel(a, b) for a, b in zip(teb, teb_r))
 odd = sh.get_sim_teblm_batch(np.arange(3))           # does not divide: whole
 ivfs['odd'] = max(rel(a, b) for a, b in zip(odd, par_ref.ivfs.get_sim_teblm_batch(np.arange(3))))
-mine = np.arange(2) + 2 * rank                        # each rank its own idxs: whole
-own = sh.get_sim_teblm_batch(mine)
-ivfs['own'] = max(rel(a, b) for a, b in zip(own, par_ref.ivfs.get_sim_teblm_batch(mine)))
 
 class NoBatch:
     ftl = 3.
@@ -268,7 +268,7 @@ def test_shard_sht_two_m_ranks(two_ranks, which):
 def test_sharded_ivfs_qlm_matches_unsharded(two_ranks):
     for res in two_ranks:
         assert res['ivfs']['qlm'] <= 1e-10
-        for k in ('teb', 'odd', 'own'):
+        for k in ('teb', 'odd'):
             assert res['ivfs'][k] <= 1e-10, (k, res['ivfs'])
 
 
@@ -277,28 +277,70 @@ def test_sharded_ivfs_hasattr_contract(two_ranks):
         assert res['ivfs']['hasattr'] == [False, True, 3., 4, True, True]
 
 
-def test_driver_mesh_under_torchrun(tmp_path):
-    """examples/run_qlms_torch.py --mesh under torchrun, two gloo ranks on the CPU: every
-    stage runs on both ranks, the qe stage on each rank's local jobs."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT', 'PLK_COORD')}
-    env.update(PLK_LMAX_IVF='32', PLK_LMAX_QLM='32', PLK_NSIMS='8', OMP_NUM_THREADS='1')
-    cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', '2',
-           '--master_port', str(pdist.free_port()),
-           os.path.join(REPO, 'examples', 'run_qlms_torch.py'),
-           os.path.join(REPO, 'params', 'idealized_example_torch.py'), '--device', 'cpu',
-           '--mesh', '-imin', '0', '-imax', '7', '-k', 'ptt', 'p_p', '--stages', 'filt,qe,mf']
-    p = subprocess.Popen(cmd, env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+def _run(cmd, env, cwd, what):
+    """Run cmd in a session of its own, killed with every process it started past 240 s;
+    returns its standard output."""
+    p = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
                          stderr=subprocess.PIPE, text=True, start_new_session=True)
     try:
         out, err = p.communicate(timeout=240)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, 9)
         p.communicate()
-        pytest.fail('torchrun timed out (killed)')
-    assert p.returncode == 0, (out[-3000:], err[-3000:])
+        pytest.fail('%s timed out (killed)' % what)
+    assert p.returncode == 0, (what, out[-3000:], err[-3000:])
+    return out
+
+
+def _driver_against_unsharded(tmp_path, imin):
+    """examples/run_qlms_torch.py --mesh under torchrun, two gloo ranks on the CPU sharing
+    one PLK_CACHE_DIR, stages filt, qe (sims imin..7) and mf (the mean-field sims 0-3):
+    every stage runs on both ranks, and the cached QEs and mean fields equal those of the
+    unsharded run (1e-10 of max)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT', 'PLK_COORD',
+                        'LOCAL_WORLD_SIZE')}
+    env.update(PLK_LMAX_IVF='32', PLK_LMAX_QLM='32', PLK_NSIMS='8', OMP_NUM_THREADS='1')
+    driver = [os.path.join(REPO, 'examples', 'run_qlms_torch.py'),
+              os.path.join(REPO, 'params', 'idealized_example_torch.py'), '--device', 'cpu',
+              '-imin', str(imin), '-imax', '7', '-k', 'ptt', 'p_p', '--stages', 'filt,qe,mf']
+    out = _run([sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', '2',
+                '--master_port', str(pdist.free_port())] + driver + ['--mesh'],
+               dict(env, PLK_CACHE_DIR=str(tmp_path / 'mesh')), str(tmp_path), 'torchrun')
     for r in range(2):
-        assert '[rank %d/2] mesh (sims 2, m 1) on cpu, backend gloo; local jobs %s' \
-            % (r, list(range(8))[r::2]) in out
-        assert '[rank %d/2] [qe]   ptt,p_p: 4 sims in' % r in out
+        assert '[rank %d/2] mesh (sims 2, m 1) on cpu, backend gloo' % r in out
+        assert '[rank %d/2] [mf]   ptt,p_p: split-half mean fields in' % r in out
         assert '[rank %d/2] done.' % r in out
+    _run([sys.executable] + driver, dict(env, PLK_CACHE_DIR=str(tmp_path / 'ref')),
+         str(tmp_path), 'the unsharded run')
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    ref = files(str(tmp_path / 'ref'))
+    assert files(str(tmp_path / 'mesh')) == ref
+    assert sum('_mf_' in f for f in ref) == 4, ref    # 2 keys x 2 halves
+    assert len(ref) == 4 + 4 * 8, ref     # + ptt, p_p and their curls xtt, x_p of sims 0-7
+    errs = {}
+    for f in ref:
+        a, b = (np.load(os.path.join(str(tmp_path / d), f)) for d in ('mesh', 'ref'))
+        errs[f] = float(np.abs(a - b).max() / np.abs(b).max())
+    assert max(errs.values()) <= 1e-10, errs
+    return out
+
+
+def test_driver_mesh_under_torchrun(tmp_path):
+    """The qe stage on sims 0-7 on both ranks (with the mean-field sims among them, so the
+    mf stage finds its QEs cached, as each rank's cache holds the same products)."""
+    out = _driver_against_unsharded(tmp_path, 0)
+    for r in range(2):
+        assert '[rank %d/2] [qe]   ptt,p_p: 8 sims in' % r in out
+
+
+def test_driver_mesh_mf_through_the_sharded_filter(tmp_path):
+    """The qe stage on sims 4-7: the mf stage's QEs of sims 0-3 go through the sharded
+    filter, on both ranks in the same calls."""
+    out = _driver_against_unsharded(tmp_path, 4)
+    for r in range(2):
+        assert '[rank %d/2] [qe]   ptt,p_p: 4 sims in' % r in out

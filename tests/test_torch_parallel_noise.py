@@ -4,7 +4,8 @@ parallel_noise_torch.py): 11a's identities on the SMICA-like channels (uniform m
 schemes between the deepest and shallowest patch's homogeneous N0, mv-rew <= no-rew x
 1.001, a uniform map's schemes within 1e-4 and |MC - 1| < 0.1) and its card-against-CPU
 comparison run CPU against CPU (every gap within its fault-3.9 limit), 11c's world-size-1
-ShardedIVFS -> QELib (bitwise), and 11d's two gloo ranks (gathered, 1e-12 of max). The
+ShardedIVFS -> QELib (bitwise), and 11d's two gloo ranks (each rank's gathered results,
+1e-12 of max). The
 card-only pieces (kernel rows, NCCL) run in chip_smoke.py."""
 import os
 import sys
@@ -28,6 +29,14 @@ def test_channel_weights_sum_to_one():
         assert w.shape == (4, pn.LMAX_W + 1) and np.all(w > 0.)
         assert np.abs(w.sum(0) - 1.).max() <= 1e-14
     assert 2 * pn.LMAX_W == 4094
+
+
+def test_w2wsq_monopole_at_full_width():
+    """11a's quadrature at its full width: the monopole of w2wsq at lmax_out 4094 on the
+    default GL nodes (4095 of them, from ops/gauleg's Newton iteration) is exact to 1e-10
+    relative (7.2e-11 measured; scipy's nodes give 4.3e-7)."""
+    w = pn.channel_weights(pn.LMAX_W, pn.NLEV_T)
+    assert pn.w2wsq_monopole(w, 2 * pn.LMAX_W, CPU) <= 1e-10
 
 
 def test_freq_weighting_rehearsal():
@@ -68,4 +77,5 @@ def test_two_ranks_rehearsal():
                                 log=lambda s: None)
     assert [r['rank'] for r in res] == [0, 1] and all(r['backend'] == 'gloo' for r in res)
     assert res[0]['m'] == [0, 10] and res[1]['m'] == [10, 33]
-    assert max(res[0]['errs'].values()) <= 1e-12, res[0]['errs']
+    for r in res:
+        assert max(r['errs'].values()) <= 1e-12, r['errs']
