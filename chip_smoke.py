@@ -157,8 +157,9 @@ Phases:
                 and K1/K2 on the two balanced even-start m-blocks of lmax 2048 (spin 0 and the
                 spin-2 pair, f64, batch 4) against the unsplit call (1e-12 of max) and their
                 plain versions (1e-12, bitwise equal on a second run), each block timed;
-                (11d) two processes on the one card over gloo (host-staged collectives):
-                shard_sht with n_m = 2 at lmax 2048 (alm2map, map2alm, spins 0 and 2, f64,
+                (11d) two processes on the one card, launched with a SLURM-shaped
+                environment and no MASTER_ADDR/MASTER_PORT, PLK_COORD or device argument:
+                each resolves cuda:0 and gloo (host-staged collectives) itself; shard_sht with n_m = 2 at lmax 2048 (alm2map, map2alm, spins 0 and 2, f64,
                 batch 4) and ShardedIVFS filtering 4 sims, gathered on each rank and held
                 to the single-process result (1e-12 of max); both ranks exit 0 within 400 s
 
@@ -438,6 +439,9 @@ def phase11(dev):
     # 11d
     rd = pn.two_ranks_one_card(dev, LMAX, nsims=4, batch=4, log=log11)
     for r in rd:
+        check((r['device'], r['backend']) == ('cuda:0', 'gloo'), 'two ranks on one card: rank '
+              '%d resolved %s and %s, not cuda:0 and gloo' % (r['rank'], r['device'],
+                                                              r['backend']))
         check(max(r['errs'].values()) <= 1e-12, 'two ranks on one card: rank %d vs the single '
               'process: %s' % (r['rank'], r['errs']))
     for name, row in mrows.items():

@@ -30,10 +30,12 @@ CPU):
       `m_block_rows`: K1/K2 on the two balanced even-start m-blocks of lmax 2048 (spin 0,
       and the spin-2 pair; f64, batch 4) against the unsplit call (1e-12 of max) and their
       twins, each block timed.
-  11d `two_ranks_one_card`: two processes on the one card (NCCL refuses two ranks on one
-      device, so gloo, whose collectives stage CUDA tensors through the host): each runs
-      `shard_sht` with n_m = 2 at lmax 2048 (alm2map / map2alm, spins 0 and 2, f64,
-      batch 4) and a sims-sharded isotropic filtering of 4 sims through ShardedIVFS; each
+  11d `two_ranks_one_card`: two processes on the one card, launched with the environment
+      `srun -n 2` gives them on one node (no MASTER_ADDR/MASTER_PORT, no PLK_COORD): each
+      resolves its rendezvous, card and backend itself and reports them, cuda:0 and gloo
+      expected (NCCL refuses two ranks on one card; gloo's collectives stage CUDA tensors
+      through the host). Each runs `shard_sht` with n_m = 2 at lmax 2048 (alm2map /
+      map2alm, spins 0 and 2, f64, batch 4) and a sims-sharded isotropic filtering of 4 sims through ShardedIVFS; each
       rank gathers both and holds them to the single-process result (1e-12 of max). Each
       rank prints its m-split and its seconds; each is waited on with a timeout and killed
       on expiry, and a failure of either fails the run.
@@ -464,14 +466,18 @@ def m_block_rows(device, lmax=2048, batch=4, log=print):
 
 
 # ------------------------------------------------------------------ 11d two ranks, one card
-def _rank_worker(lmax, nsims, batch):
-    """One rank of 11d (module docstring); prints 'RESULT <json>'."""
+def _rank_worker(device, lmax, nsims, batch):
+    """One rank of 11d (module docstring); prints 'RESULT <json>'. A bare 'cuda' `device`
+    leaves the card and the backend to the resolver (parallel.distributed.card_for,
+    backend_for_cards); 'cpu' runs the rehearsal on the CPU."""
     from plancklens_tpu_torch.parallel import distributed as pdist, mesh as pmesh
     from plancklens_tpu_torch.ops.sht import SHT, gl_geometry, legendre_kernels as lk
     from plancklens_tpu_torch.utils import alm as ualm
-    device = torch.device(os.environ.get('PLK_RANK_DEVICE', 'cuda:0'))
     t_start = time.perf_counter()
-    rank, size = pdist.init_distributed(device, backend='gloo')
+    device = torch.device(device)
+    rank, size = pdist.init_distributed(
+        device=None if device.type == 'cuda' and device.index is None else device)
+    device = pdist.device()
     mesh_m = pmesh.make_mesh(n_sims=1, n_m=size)
     mesh_s = pmesh.make_mesh(n_sims=size, n_m=1)
     lines = []
@@ -521,6 +527,7 @@ def _rank_worker(lmax, nsims, batch):
     _sync(device)
     secs_ivfs = time.perf_counter() - t1
     res = {'rank': rank, 'size': size, 'backend': torch.distributed.get_backend(),
+           'device': str(device),
            'split': lines, 'm': [ssht.m0, ssht.m1], 'rings': [rings.start, rings.stop],
            'seconds': secs, 'seconds_ivfs': secs_ivfs, 'launches': launches}
     # every rank holds what it gathered to the single-process result, after the counts
@@ -542,17 +549,24 @@ def _rank_worker(lmax, nsims, batch):
 def two_ranks_one_card(device, lmax=2048, nsims=4, batch=4, timeout=400, log=print):
     """11d (module docstring): spawn two ranks of `_rank_worker` on `device`, wait for both
     (killing both on a timeout), and return their results (rank order). Raises if either
-    fails."""
-    from plancklens_tpu_torch.parallel.distributed import free_port
+    fails. The ranks are launched as `srun -n 2` on one node would start them (a
+    SLURM-shaped environment without MASTER_ADDR/MASTER_PORT or PLK_COORD): each resolves
+    its rendezvous, rank, card and backend itself (parallel.distributed.launch_env), and
+    reports the card and backend it chose."""
+    from plancklens_tpu_torch.parallel.distributed import free_slurm_job_id
     env = {k: v for k, v in os.environ.items()
-           if k not in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT', 'LOCAL_RANK')}
-    env.update(PLK_COORD='127.0.0.1:%d' % free_port(), PLK_NPROC='2',
-               PLK_RANK_DEVICE=str(device))
-    cmd = [sys.executable, os.path.abspath(__file__), '--rank-worker', '--lmax', str(lmax),
-           '--nsims', str(nsims), '--batch', str(batch)]
+           if not k.startswith(('SLURM_', 'OMPI_', 'PLK_COORD', 'PLK_NPROC', 'PLK_PROCID'))
+           and k not in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'LOCAL_WORLD_SIZE',
+                         'MASTER_ADDR', 'MASTER_PORT')}
+    env.update(SLURM_JOB_ID=str(free_slurm_job_id('127.0.0.1')),
+               SLURM_STEP_NODELIST='127.0.0.1', SLURM_NTASKS='2', SLURM_NTASKS_PER_NODE='2')
+    cmd = [sys.executable, os.path.abspath(__file__), '--rank-worker',
+           '--device', torch.device(device).type,
+           '--lmax', str(lmax), '--nsims', str(nsims), '--batch', str(batch)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(cmd, env=dict(env, PLK_PROCID=str(i)), stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for i in range(2)]
+    procs = [subprocess.Popen(cmd, env=dict(env, SLURM_PROCID=str(i), SLURM_LOCALID=str(i)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
     outs = []
     try:
         for p in procs:
@@ -570,11 +584,11 @@ def two_ranks_one_card(device, lmax=2048, nsims=4, batch=4, timeout=400, log=pri
                                % (i, p.returncode, out[-3000:], err[-3000:]))
         res.append(json.loads(line[-1][7:]))
     for r in res:
-        log('(11d) rank %d/%d (%s on %s): %s; sharded SHT (alm2map, map2alm, spins 0 and 2, '
-            'f64, batch %d) %.2fs; ShardedIVFS %d sims %.2fs; the rank\'s process %.1fs; '
-            'K1 %s, K2 %s'
-            % (r['rank'], r['size'], r['backend'], device, r['split'][0], batch, r['seconds'],
-               nsims, r['seconds_ivfs'], r['wall'], r['launches']['synth_pair'],
+        log('(11d) rank %d/%d (the resolver chose %s, %s): %s; sharded SHT (alm2map, map2alm, '
+            'spins 0 and 2, f64, batch %d) %.2fs; ShardedIVFS %d sims %.2fs; the rank\'s '
+            'process %.1fs; K1 %s, K2 %s'
+            % (r['rank'], r['size'], r['device'], r['backend'], r['split'][0], batch,
+               r['seconds'], nsims, r['seconds_ivfs'], r['wall'], r['launches']['synth_pair'],
                r['launches']['anal_pair']))
     for r in res:
         log('(11d) rank %d: what it gathered against the single-process result (relative to '
@@ -594,7 +608,7 @@ def main():
     p.add_argument('--batch', type=int, default=4)
     args = p.parse_args()
     if args.rank_worker:
-        return _rank_worker(args.lmax, args.nsims, args.batch)
+        return _rank_worker(args.device, args.lmax, args.nsims, args.batch)
     dev = torch.device(args.device)
     parts = args.parts.split(',')
     if 'a' in parts:

@@ -24,10 +24,11 @@ the same sims, and each batched filtering inside a stage is split over the ranks
 all-gathered. Those batch calls are collectives, and the QE libraries skip them for
 products their cache already holds, so no stage runs on a rank's own share of the sims
 (the ranks' caches would then differ, and one rank would wait in a call the other skips);
-what follows the filter is computed on every rank. The backend is NCCL when each rank on a
-node has a card of its own (cuda:$LOCAL_RANK), and gloo, with its collectives staged
-through the host, on the CPU or when the launcher puts more ranks on a node than it has
-cards. Without a launcher --mesh runs one rank.
+what follows the filter is computed on every rank. `srun -n N` and `mpirun -np N` start
+the same ranks without torchrun and without MASTER_ADDR/MASTER_PORT: the rendezvous, the
+rank and the card come from the launcher's environment (setup_mesh). The backend is NCCL
+when each rank holds a card of its own, and gloo, with its collectives staged through the
+host, on the CPU or when ranks share a card. Without a launcher --mesh runs one rank.
 """
 import argparse
 import importlib.util
@@ -143,22 +144,20 @@ def stage_nhl(par, keys, idx):
 
 
 def setup_mesh(device):
-    """Join the ranks of a torch.distributed run (one rank without a launcher) on `device`:
-    a CUDA rank takes card $LOCAL_RANK modulo the visible cards, over NCCL when every rank
-    on the node has a card of its own and over gloo when ranks share a card (NCCL refuses
-    two ranks on one card); a CPU rank takes gloo. Returns (device, a '[rank r/n] ' tag for
-    its lines); the mesh is all ranks on 'sims'."""
+    """Join the ranks of a torch.distributed run (one rank without a launcher) on `device`.
+    The launcher is read from the environment alone (torchrun, srun or mpirun; no
+    MASTER_ADDR/MASTER_PORT needed): parallel.distributed.launch_env. A bare 'cuda' takes
+    this rank's card (parallel.distributed.card_for: cuda:<local rank> when the process
+    sees every card of its node, cuda:0 when it sees one), and the backend is NCCL when
+    every rank holds a card of its own and gloo when ranks share a card (NCCL refuses
+    them) or run on the CPU. Returns (device, a '[rank r/n] ' tag for its lines); the mesh
+    is all ranks on 'sims'."""
     from plancklens_tpu_torch.parallel import distributed as pdist
-    backend = 'gloo'
-    if device.type == 'cuda':
-        cards = torch.cuda.device_count()
-        if device.index is None:
-            device = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)) % cards)
-        if int(os.environ.get('LOCAL_WORLD_SIZE', 1)) <= cards:
-            backend = 'nccl'
-    rank, size = pdist.init_distributed(device, backend=backend)
+    asked = None if device.type == 'cuda' and device.index is None else device
+    rank, size = pdist.init_distributed(device=asked)
     if size == 1:
-        pdist.init_single(device, backend=backend)
+        pdist.init_single(asked)
+    device, backend = pdist.device(), torch.distributed.get_backend()
     print('[rank %d/%d] mesh (sims %d, m 1) on %s, backend %s'
           % (rank, size, size, device, backend))
     return device, '[rank %d/%d] ' % (rank, size)

@@ -41,14 +41,16 @@ def _rel(a, b):
 
 
 def test_single_process_fallback(monkeypatch):
-    for v in ('PLK_COORD', 'RANK', 'WORLD_SIZE', 'SLURM_NTASKS', 'OMPI_COMM_WORLD_SIZE'):
+    for v in ('PLK_COORD', 'RANK', 'WORLD_SIZE', 'SLURM_NTASKS', 'OMPI_COMM_WORLD_SIZE',
+              'MASTER_ADDR', 'MASTER_PORT'):
         monkeypatch.delenv(v, raising=False)
-    assert pdist.init_distributed('cpu') == (0, 1)
+    assert pdist.init_distributed(device='cpu') == (0, 1)
     assert not torch.distributed.is_initialized()
     assert (pdist.rank(), pdist.size()) == (0, 1)
     assert pdist.local_jobs(range(5)) == [0, 1, 2, 3, 4]
     pdist.barrier()   # no-op
-    assert pdist.backend_for('cpu') == 'gloo' and pdist.backend_for('cuda:0') == 'nccl'
+    assert pdist.backend_for_cards([('h', 'cpu')]) == 'gloo'
+    assert pdist.backend_for_cards([('h', 'u0'), ('h', 'u1')]) == 'nccl'
 
 
 @pytest.mark.parametrize('lmax,mmax,n', [(2048, 2048, 2), (2048, 2048, 4), (63, 63, 2),
@@ -122,7 +124,7 @@ from plancklens_tpu_torch.ops.sht import SHT, gl_geometry
 from plancklens_tpu_torch.utils import alm as ualm
 
 res = {}
-rank, size = pdist.init_distributed('cpu')
+rank, size = pdist.init_distributed(device='cpu')
 res['init'] = [rank, size, int(os.environ['PLK_PROCID']), pdist.rank(), pdist.size()]
 pdist.barrier('test')
 res['local_jobs'] = pdist.local_jobs(range(7))
