@@ -280,7 +280,9 @@ class InputPlmLib:
         return torch.zeros(ualm.getsize(self.lmax_qlm), dtype=torch.complex128,
                            device=self.device)
 
-    def get_sim_qlm(self, k, idx):
+    def get_sim_qlm(self, k, idx, grad_only=False):
+        """The input potential's alms to lmax_qlm (zeros for a curl key); `grad_only` is
+        the JAX package's keyword, unused there too."""
         if k[0] == 'x':   # no input curl: the cross of a curl QE with the input is zero
             return self._zeros()
         plm = self.sim_lib.get_sim_plm(int(idx))

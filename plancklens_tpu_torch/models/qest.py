@@ -269,17 +269,20 @@ class QELib:
             * cli(np.asarray(self.resplib.get_response(ksource + kQE[1:], ksource)))
         return get_qlm(kQE) - _almxfl(get_qlm(ksource + kQE[1:]), wL)
 
-    def get_sim_qlm(self, k, idx):
+    def get_sim_qlm(self, k, idx, grad_only=False):
         """Gradient (or curl) QE alm tensor for simulation idx; composite and '_bh_' keys
-        resolve recursively as in the reference (reference: plancklens/qest.py:155-201)."""
+        resolve recursively as in the reference (reference: plancklens/qest.py:155-201).
+        `grad_only` is the JAX package's keyword, passed through the recursion and unused
+        there too: the gradient and curl come from one product either way."""
         assert k[0] in ['p', 'x', 's', 'f', 'a', 'n', 'd'], k
         if k in ['p_tp', 'x_tp', 'f_tp', 's_tp']:
-            return self.get_sim_qlm('%stt' % k[0], idx) + self.get_sim_qlm('%s_p' % k[0], idx)
+            return (self.get_sim_qlm('%stt' % k[0], idx, grad_only=grad_only)
+                    + self.get_sim_qlm('%s_p' % k[0], idx, grad_only=grad_only))
         if k in ['p_te', 'p_tb', 'p_eb', 'x_te', 'x_tb', 'x_eb']:
-            return (self.get_sim_qlm(k[0] + k[2] + k[3], idx)
-                    + self.get_sim_qlm(k[0] + k[3] + k[2], idx))
+            return (self.get_sim_qlm(k[0] + k[2] + k[3], idx, grad_only=grad_only)
+                    + self.get_sim_qlm(k[0] + k[3] + k[2], idx, grad_only=grad_only))
         if '_bh_' in k:
-            return self._bh_qlm(k, lambda kk: self.get_sim_qlm(kk, idx))
+            return self._bh_qlm(k, lambda kk: self.get_sim_qlm(kk, idx, grad_only=grad_only))
         fn = 'qlm%s_%s_%04d' % (self._ctag, k, idx)
         fnx = 'qlm%s_%s_%04d' % (self._ctag, 'x' + k[1:], idx)
         if not self.cacher.is_cached(fn):

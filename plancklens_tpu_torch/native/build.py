@@ -35,7 +35,7 @@ def library_path(source=None, build_dir=None, variant='omp'):
     return os.path.join(build_dir or BUILD_DIR, 'plkcore_%s_%s.so' % (variant, key))
 
 
-def build(source=None, build_dir=None, verbose=False):
+def build(verbose=False, source=None, build_dir=None):
     """Compile `source` (default plkcore.cc) if it has no library in `build_dir` (default
     BUILD_DIR) yet, with OpenMP, else serially; returns the library's path. Raises
     RuntimeError when the compiler is missing or both builds fail."""

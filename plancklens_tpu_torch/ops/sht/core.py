@@ -137,6 +137,11 @@ class _TableCache:
 TABLES = _TableCache()
 
 
+def clear_cache():
+    """Empty the recursion-table cache (the JAX package's `core.clear_cache`)."""
+    TABLES.clear()
+
+
 def pair_tables(lmax, mmax, spin, theta, grid_token, device, m0=0):
     """(t_m, t_p): f64 device tables of d^l_{m,-spin} and d^l_{m,+spin}, m = m0..mmax, on
     the northern half (equator included) of the symmetric grid `theta`; t_p is t_m for

@@ -24,26 +24,26 @@ from ..ops.sht.core import legendre_synth_pair, legendre_anal_pair
 from ..ops.sht.transforms import _to_rings, _from_rings
 
 
-def make_mesh(n_sims=None, n_m=1, devices=None, *, device=None):
-    """DeviceMesh over ('sims', 'm') of the ranks `devices` of the process group, in order
-    (default: every rank; rank = i_sims * n_m + i_m), as the JAX package's make_mesh takes
-    its devices. Defaults to all of them on the sims axis. Without a process group (no
+def make_mesh(n_sims=None, n_m=1, *, device=None):
+    """DeviceMesh over ('sims', 'm') of every rank of the process group (rank = i_sims *
+    n_m + i_m). Defaults to all ranks on the sims axis. Without a process group (no
     launcher), a group of this process alone is created on `device` (default: the first
     card). The mesh's device type says where its backend runs collectives: the device's
-    under NCCL, 'cpu' under gloo (whose CUDA tensors are staged through the host)."""
+    under NCCL, 'cpu' under gloo (whose CUDA tensors are staged through the host).
+    Unlike the JAX package's make_mesh it takes no `devices`: torch.distributed orders
+    the ranks of each axis group by rank, which the collectives here rely on."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     if not dist.is_initialized():
         _dist.init_single(device)
     device = torch.device(_dist.device() if device is None else device)
-    ranks = list(range(dist.get_world_size())) if devices is None else [int(r) for r in devices]
-    n = len(ranks)
+    n = dist.get_world_size()
     if n_sims is None:
         n_sims = n // n_m
-    if n_sims * n_m != n or len(set(ranks)) != n:
-        raise ValueError('a (%d, %d) mesh of the ranks %s' % (n_sims, n_m, ranks))
+    if n_sims * n_m != n:
+        raise ValueError('a (%d, %d) mesh of %d ranks' % (n_sims, n_m, n))
     mesh_type = device.type if dist.get_backend() == 'nccl' else 'cpu'
-    return DeviceMesh(mesh_type, torch.tensor(ranks).reshape(n_sims, n_m),
+    return DeviceMesh(mesh_type, torch.arange(n).reshape(n_sims, n_m),
                       mesh_dim_names=('sims', 'm'))
 
 
