@@ -22,6 +22,14 @@ these sizes; ten times the launches at the pixel-window shape, which takes ~1 ms
   K4  n = 2, f64, lmax 512 on the 48 node rings of the exact pixel window of nside 128
       against its 64 pixel shapes.
 
+Then the library yardstick (`library_rows`, `PackedLegendre`): at each of PERF.md's K1/K2
+rows whose lambda table fits in 40 GiB (LIBRARY_CASES: the QE, CinvT, CinvP, deflection
+and m-block shapes) the table is built once on the card, and the same transform runs as
+`torch.bmm` calls (cuBLAS) over the table, held to the kernel (f64 <= 1e-12, f32 <= 1e-5
+of max) and timed beside it. Last, ROADMAP fault 3.2's record (`precision_rows`): K1's
+spin-1 pair synthesis in f32 against f64 at lmax 512, 1024, 2048 and 4096 on the QE grid,
+on the alms of examples/f32_precision_jax.py, which measures the JAX package's f32 engine.
+
 Every timed shape is run twice and must be bitwise equal; where the planner splits the
 rings, the result is also held against the one-segment result (f32 <= 1e-5, f64 <= 1e-12
 of max). `--sweep` also times the lmax-2048 analysis shapes with the ring sum forced
@@ -66,6 +74,293 @@ def event_ms(fn, reps):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return sum(times) / len(times), min(times), out
+
+
+class PackedLegendre:
+    """The fused north-south Legendre pair transforms of one geometry as cuBLAS batched
+    products, the library yardstick of K1/K2 (nothing on the main path calls it).
+
+    For a fixed geometry a synthesis is, per m, the product of the table
+    lambda_lm(theta_j) = d^l_{m,-s}(theta_j) of the northern rings with the alms, and an
+    analysis its transpose. The tables are built once on the device from the port's own
+    f64 recursion (`core._rec_step`, the twins' step), each value rounded once to the
+    data's type as K1/K2 round theirs. The columns m of the triangle l >= m pair up as
+    (m, mmax - m), whose l ranges have lengths summing to the same K, so the tables fill
+    a (P, K, nh) box with P = ceil(M / 2) and no padding but the middle column's partner.
+    A synthesis is one `torch.bmm` a table over the pairs (each pair's data zero outside
+    its own column's rows, so the two columns' outputs land in separate halves), an
+    analysis one `torch.bmm` the other way (the cross terms of a pair are dropped); the
+    mirror signs (-1)^l, (-1)^m and the sums of the two hemispheres run as torch
+    elementwise operations, as in the twins (`core._plain_pair`). `t_m`/`t_p` are the
+    device tables of `core.pair_tables` for the columns m0..m0 + M - 1 (t_p is t_m for
+    spin 0); `single` is spin 0 with one input, which builds one table."""
+
+    def __init__(self, t_m, t_p, lmax, nrings, dtype, m0=0, single=False):
+        from plancklens_tpu_torch.ops.sht import core
+        dev = t_m['seed_v'].device
+        L, M = lmax + 1, int(t_m['l0'].shape[0])
+        P = (M + 1) // 2
+        K = 2 * L - 2 * m0 - M + 1
+        self.L, self.M, self.P, self.K, self.m0 = L, M, P, K, m0
+        self.nrings, self.nh, self.dtype, self.single = nrings, (nrings + 1) // 2, dtype, single
+        j = torch.arange(M, device=dev)
+        first = j < P
+        self.pair = torch.where(first, j, M - 1 - j)             # the pair of column j
+        self.half = (~first).long()                               # its half of the pair
+        self.off = torch.where(first, 0, L - m0 - self.pair)      # its first slot
+        # slot (p, k): degree l of column j of half h (k beyond a middle column: not valid)
+        pp, kk = torch.arange(P, device=dev)[:, None], torch.arange(K, device=dev)[None, :]
+        len1 = L - m0 - pp
+        in1 = kk < len1
+        j2 = M - 1 - pp
+        self.slot_j = torch.where(in1, pp, j2).expand(P, K)
+        self.slot_l = torch.where(in1, m0 + pp + kk, m0 + j2 + kk - len1).clamp(max=lmax)
+        valid = in1 | (j2 > pp)
+        self.slot_mask = torch.stack([in1 & valid, ~in1 & valid], -1).to(dtype)[..., None]
+        ls = torch.arange(L, device=dev)[:, None]
+        self.lm_mask = (ls >= m0 + j[None, :]).to(dtype)[..., None]
+        self.lm_slot = (self.off[None, :] + ls - m0 - j[None, :]).clamp(0, K - 1)
+        self.sgn_l = (1. - 2. * (ls % 2)).to(dtype)               # (-1)^l, (L, 1)
+        self.sgn_m = core._sgn_m(M, dtype, dev)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        self.T_m = self._table(t_m)
+        self.T_p = self.T_m if single else self._table(t_p)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        self.build_seconds = time.perf_counter() - t0
+        self.table_bytes = (1 if single else 2) * self.T_m.numel() * self.T_m.element_size()
+
+    def _table(self, t):
+        from plancklens_tpu_torch.ops.sht import core
+        S, dev = t['S'], t['seed_v'].device
+        rdt = t['seed_v'].dtype
+        xc = t['x'][:, None]
+        thresh = torch.tensor(2.0 ** (S // 2), dtype=rdt, device=dev)
+        down = torch.tensor(2.0 ** (-S), dtype=rdt, device=dev)
+        T = torch.zeros((self.P, self.K, self.nh), dtype=self.dtype, device=dev)
+        st = core._init_state(t)
+        js = torch.arange(self.M, device=dev)
+        for l in range(self.L):
+            n = min(l - self.m0 + 1, self.M)                     # columns with m <= l
+            if n > 0:
+                d = core._deff(st, S, self.dtype)
+                T[self.pair[:n], self.off[:n] + l - self.m0 - js[:n]] = d[:, :n].T
+            st = core._rec_step(l, st, t['alpha'][l], t['beta'][l], t['gamma'][l], xc,
+                                t['l0'], t['seed_v'], t['seed_k'], thresh, down)
+        return T
+
+    @staticmethod
+    def _columns(xs):
+        """(.., L or nh, M, Nc) real columns of the complex (B, *, M) tensors `xs`."""
+        x = torch.view_as_real(torch.stack(xs))                  # (n, B, R, M, 2)
+        return x.permute(2, 3, 0, 1, 4).reshape(x.shape[2], x.shape[3], -1)
+
+    @staticmethod
+    def _complex(y, n):
+        """(n, B, R, M) complex of (R, M, Nc) real columns."""
+        R, M = y.shape[:2]
+        y = y.reshape(R, M, n, -1, 2).permute(2, 3, 0, 1, 4).contiguous()
+        return torch.view_as_complex(y)
+
+    def pack_synth(self, xs):
+        """(P, K, 2 Nc) operand of a synthesis of the inputs `xs`."""
+        g = self._columns(xs)[self.slot_l, self.slot_j]          # (P, K, Nc)
+        return (g[:, :, None] * self.slot_mask).reshape(self.P, self.K, -1)
+
+    def synth_bmm(self, T, X):
+        return torch.bmm(T.transpose(1, 2), X)
+
+    def unpack_synth(self, Y, n):
+        Y = Y.view(self.P, self.nh, 2, -1)[self.pair, :, self.half]   # (M, nh, Nc)
+        return self._complex(Y.transpose(0, 1), n)
+
+    def pack_anal(self, xs):
+        """(P, nh, 2 Nc) operand of an analysis of the (B, nh, M) inputs `xs`."""
+        d = self._columns(xs).transpose(0, 1)                    # (M, nh, Nc)
+        jp = torch.stack([self.pair[:self.P], self.M - 1 - self.pair[:self.P]], 1)
+        return d[jp].permute(0, 2, 1, 3).reshape(self.P, self.nh, -1)
+
+    def anal_bmm(self, T, X):
+        return torch.bmm(T, X)
+
+    def unpack_anal(self, Y, n):
+        Y = Y.view(self.P, self.K, 2, -1)[self.pair, self.lm_slot, self.half] * self.lm_mask
+        return self._complex(Y, n)
+
+    def synth(self, Cp, Cm):
+        """(Fp, Fm) as kernel K1 (`legendre_kernels.synth_pair`) computes them; Fm None
+        when Cm is None."""
+        sCp = self.sgn_l * Cp
+        if self.single:
+            a, b = self.unpack_synth(self.synth_bmm(self.T_m, self.pack_synth([Cp, sCp])), 2)
+            return self._assemble(a, b), None
+        acc0, acc3 = self.unpack_synth(self.synth_bmm(self.T_m, self.pack_synth(
+            [Cp, self.sgn_l * Cm])), 2)
+        acc1, acc2 = self.unpack_synth(self.synth_bmm(self.T_p, self.pack_synth([sCp, Cm])), 2)
+        return self._assemble(acc0, acc1), self._assemble(acc2, acc3)
+
+    def _assemble(self, north, south):
+        n_s = self.nrings - self.nh
+        return torch.cat([north, (south * self.sgn_m)[:, :n_s].flip(1)], 1)
+
+    def _fold(self, Q):
+        n_s = self.nrings - self.nh
+        Qs = torch.zeros_like(Q[:, :self.nh])
+        Qs[:, :n_s] = Q[:, self.nh:].flip(1) * self.sgn_m
+        return Q[:, :self.nh], Qs
+
+    def anal(self, Qp, Qm):
+        """(A, B) as kernel K2 (`legendre_kernels.anal_pair`) computes them; B None when
+        Qm is None."""
+        Qp_n, Qp_s = self._fold(Qp)
+        if self.single:
+            a, b = self.unpack_anal(self.anal_bmm(self.T_m, self.pack_anal([Qp_n, Qp_s])), 2)
+            return a + self.sgn_l * b, None
+        Qm_n, Qm_s = self._fold(Qm)
+        a0, a3 = self.unpack_anal(self.anal_bmm(self.T_m, self.pack_anal([Qp_n, Qm_s])), 2)
+        a1, a2 = self.unpack_anal(self.anal_bmm(self.T_p, self.pack_anal([Qp_s, Qm_n])), 2)
+        return a0 + self.sgn_l * a1, a2 + self.sgn_l * a3
+
+
+def precision_alms(lmax, batch=1):
+    """The two legs' (batch, lmax + 1, lmax + 1) complex128 alms of numpy seed `lmax`, l < m
+    zeroed: the recipe of examples/f32_precision_jax.py, so both packages' precision rows
+    transform the same alms."""
+    rng = np.random.RandomState(lmax)
+    L = lmax + 1
+    c = rng.standard_normal((2, batch, L, L)) + 1j * rng.standard_normal((2, batch, L, L))
+    return c * np.tril(np.ones((L, L)))[None, None]
+
+
+# (name, spin, two inputs, data type, lmax, grid band limit, batches, kernels, m block)
+LIBRARY_CASES = (
+    ('QE', 1, True, 'f32', 2048, 3072, (8, 4), ('synth', 'anal'), None),
+    ('CinvT', 0, False, 'f64', 2048, 2048, (8, 4), ('synth', 'anal'), None),
+    ('CinvP', 2, True, 'f64', 2048, 2048, (4, 1), ('synth', 'anal'), None),
+    ('deflection', 1, True, 'f64', 2176, 2048, (1,), ('synth',), None),
+    ('m-block 0, spin 0', 0, False, 'f64', 2048, 2048, (4,), ('synth', 'anal'), 0),
+    ('m-block 1, spin 0', 0, False, 'f64', 2048, 2048, (4,), ('synth', 'anal'), 1),
+    ('m-block 0, spin-2 pair', 2, True, 'f64', 2048, 2048, (4,), ('synth', 'anal'), 0),
+    ('m-block 1, spin-2 pair', 2, True, 'f64', 2048, 2048, (4,), ('synth', 'anal'), 1),
+)
+
+
+# PERF.md's kernel rows whose lambda tables exceed 40 GiB: (row, lmax, mmax, rings,
+# bytes a value, tables, north-south mirror)
+TOO_LARGE = (
+    ('K1 lensing, ECP T (spin 0, f64)', 2176, 2176, 8708, 8, 1, True),
+    ('K1 lensing, ECP Q/U (spin-2 pair, f64)', 2176, 2176, 8708, 8, 2, True),
+    ('K1/K2 freq_weighting (spin 0, f64, gl_geometry(4096))', 4094, 4094, 4097, 8, 1, True),
+    ('K3/K4 HEALPix nside 2048 (n = -2, f64, all rings)', 2048, 2048, 8191, 8, 1, False),
+)
+
+
+def lambda_table_bytes(lmax, mmax, nrings, itemsize, ntables, mirror=True):
+    """Bytes of the lambda tables of a transform: every (l >= m, m <= mmax) on the northern
+    half (equator included) of a symmetric grid, or on every ring without the mirror."""
+    entries = sum(lmax + 1 - m for m in range(mmax + 1))
+    return entries * ((nrings + 1) // 2 if mirror else nrings) * itemsize * ntables
+
+
+def library_rows(dev, gen, smi, reps):
+    """The cuBLAS yardstick of each PERF.md K1/K2 row whose table fits in 40 GiB
+    (LIBRARY_CASES; `PackedLegendre`): the table's GB and build seconds, then at each batch
+    the kernel's ms, the packed transform's ms (operand packing, the `torch.bmm` calls and
+    the elementwise combination) and the `torch.bmm` calls' ms alone, its largest
+    difference from the kernel relative to max (f64 <= 1e-12, f32 <= 1e-5), all CUDA
+    events over `reps` calls after one warm-up."""
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
+    from plancklens_tpu_torch.parallel.mesh import m_blocks
+    rows = []
+    for name, spin, two, dt, lmax, grid, batches, kinds, block in LIBRARY_CASES:
+        geom = gl_geometry(grid)
+        R = geom.nrings
+        m0, m1 = (0, lmax + 1) if block is None else m_blocks(lmax, lmax, 2)[block]
+        rdt, cdt, tol = ((torch.float32, torch.complex64, 1e-5) if dt == 'f32'
+                         else (torch.float64, torch.complex128, 1e-12))
+        t_m, t_p = core.pair_tables(lmax, m1 - 1, spin, geom.theta, None, dev, m0)
+        pk = PackedLegendre(t_m, t_p, lmax, R, rdt, m0=m0, single=not two)
+        print('%s: tables of %d pairs x %d slots x %d rings, %.2f GB (%d table%s), built on '
+              'the card in %.2f s | %s' % (name, pk.P, pk.K, pk.nh, pk.table_bytes / 1e9,
+                                           1 if pk.single else 2, '' if pk.single else 's',
+                                           pk.build_seconds, smi), flush=True)
+        for B in batches:
+            for kind in kinds:
+                shape = (B, lmax + 1, m1 - m0) if kind == 'synth' else (B, R, m1 - m0)
+                x = [torch.randn(shape, generator=gen, device=dev, dtype=cdt)
+                     for _ in range(2 if two else 1)]
+                xm = x[1] if two else None
+                if kind == 'synth':
+                    kernel = lambda: lk.synth_pair(x[0], xm, spin, R, t_m, t_p)
+                    packed = lambda: pk.synth(x[0], xm)
+                    ops = ([x[0], pk.sgn_l * x[0]],) if not two else \
+                        ([x[0], pk.sgn_l * x[1]], [pk.sgn_l * x[0], x[1]])
+                    operands = [pk.pack_synth(o) for o in ops]
+                    gemm = lambda: [pk.synth_bmm(T, X) for T, X in
+                                    zip((pk.T_m, pk.T_p), operands)]
+                else:
+                    kernel = lambda: lk.anal_pair(x[0], xm, spin, lmax, t_m, t_p)
+                    packed = lambda: pk.anal(x[0], xm)
+                    folds = [pk._fold(q) for q in x]
+                    ops = ([folds[0][0], folds[0][1]],) if not two else \
+                        ([folds[0][0], folds[1][1]], [folds[0][1], folds[1][0]])
+                    operands = [pk.pack_anal(o) for o in ops]
+                    gemm = lambda: [pk.anal_bmm(T, X) for T, X in
+                                    zip((pk.T_m, pk.T_p), operands)]
+                for fn in (kernel, packed, gemm):        # warm-up: cuBLAS handles, caches
+                    fn()
+                k_ms, _, k_out = event_ms(kernel, reps)
+                p_ms, _, p_out = event_ms(packed, reps)
+                g_ms, _, _ = event_ms(gemm, reps)
+                err = max(rel_max(a, b) for a, b in zip(p_out, k_out) if b is not None)
+                if not err <= tol:
+                    raise RuntimeError('%s %s batch %d: the packed bmm vs the kernel %.2e > %.0e'
+                                       % (name, kind, B, err, tol))
+                row = dict(case=name, kernel='K1' if kind == 'synth' else 'K2', spin=spin,
+                           two=two, dtype=dt, lmax=lmax, rings=R, m=[m0, m1], batch=B,
+                           kernel_ms=k_ms, packed_ms=p_ms, bmm_ms=g_ms, rel_err=err,
+                           table_gb=pk.table_bytes / 1e9, build_s=pk.build_seconds, card=smi)
+                rows.append(row)
+                print('  %s %s batch %d: kernel %.3f ms, torch.bmm %.3f ms (%d call%s), the '
+                      'packed transform %.3f ms; %.2e of max from the kernel | %s'
+                      % (row['kernel'], name, B, k_ms, g_ms, len(operands),
+                         '' if len(operands) == 1 else 's', p_ms, err, smi), flush=True)
+                del x, xm, operands, k_out, p_out
+        del pk, t_m, t_p
+        torch.cuda.empty_cache()
+    return rows
+
+
+def precision_rows(dev, smi, lmaxs=(512, 1024, 2048, 4096)):
+    """ROADMAP fault 3.2's record for the port: K1's spin-1 pair synthesis on the QE grid
+    gl_geometry(3 lmax / 2) of `precision_alms(lmax)` in f32 against f64 (the recursion
+    runs in f64 for both; f32 accumulates in f32): relative rms of the difference over
+    both legs and max of max."""
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
+    rows = []
+    for lmax in lmaxs:
+        geom = gl_geometry(3 * lmax // 2)
+        R = geom.nrings
+        t_m, t_p = core.pair_tables(lmax, lmax, 1, geom.theta, None, dev)
+        cp, cm = (torch.as_tensor(c, device=dev) for c in precision_alms(lmax))
+        f64 = torch.stack(lk.synth_pair(cp, cm, 1, R, t_m, t_p))
+        f32 = torch.stack(lk.synth_pair(cp.to(torch.complex64), cm.to(torch.complex64), 1, R,
+                                        t_m, t_p)).to(torch.complex128)
+        d = f32 - f64
+        row = dict(lmax=lmax, rings=R, rel_rms=float(d.abs().pow(2).mean().sqrt()
+                                                     / f64.abs().pow(2).mean().sqrt()),
+                   max_of_max=rel_max(f32, f64), card=smi)
+        rows.append(row)
+        print('f32 vs f64, K1 spin-1 pair synthesis, lmax %d, %d rings, batch 1: relative rms '
+              '%.3e, max of max %.3e | %s' % (lmax, R, row['rel_rms'], row['max_of_max'], smi),
+              flush=True)
+        del t_m, t_p, cp, cm, f64, f32, d
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -280,7 +575,14 @@ def main():
           lambda nseg: (lk.anal(Gm, 512, t, nseg=nseg),), 1e-12, False,
           reps=10 * args.reps)              # a short kernel: more launches for a steady mean
 
-    out = {'card': smi, 'reps': args.reps, 'shapes': results}
+    del Gm, t
+    torch.cuda.empty_cache()
+    out = {'card': smi, 'reps': args.reps, 'shapes': results,
+           'library': library_rows(dev, gen, smi, args.reps),
+           'too_large': {row[0]: lambda_table_bytes(*row[1:]) / 1e9 for row in TOO_LARGE},
+           'precision': precision_rows(dev, smi)}
+    for name, gb in out['too_large'].items():
+        print('no library yardstick for %s: table of %.1f GB' % (name, gb))
     for k, kind in (('k1', 'synth_pair'), ('k2', 'anal_pair')):
         b8, b4 = [r['ms'] for r in results if r['kernel'] == kind][:2]
         out['%s_batch4_over_batch8' % k] = b4 / b8
