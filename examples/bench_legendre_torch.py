@@ -169,9 +169,6 @@ class PackedLegendre:
         g = self._columns(xs)[self.slot_l, self.slot_j]          # (P, K, Nc)
         return (g[:, :, None] * self.slot_mask).reshape(self.P, self.K, -1)
 
-    def synth_bmm(self, T, X):
-        return torch.bmm(T.transpose(1, 2), X)
-
     def unpack_synth(self, Y, n):
         Y = Y.view(self.P, self.nh, 2, -1)[self.pair, :, self.half]   # (M, nh, Nc)
         return self._complex(Y.transpose(0, 1), n)
@@ -182,23 +179,28 @@ class PackedLegendre:
         jp = torch.stack([self.pair[:self.P], self.M - 1 - self.pair[:self.P]], 1)
         return d[jp].permute(0, 2, 1, 3).reshape(self.P, self.nh, -1)
 
-    def anal_bmm(self, T, X):
-        return torch.bmm(T, X)
-
     def unpack_anal(self, Y, n):
         Y = Y.view(self.P, self.K, 2, -1)[self.pair, self.lm_slot, self.half] * self.lm_mask
         return self._complex(Y, n)
 
+    def synth_products(self, Cp, Cm):
+        """[(table, operand)] of a synthesis, one `torch.bmm(table^T, operand)` each: the
+        northern sums of Cp (and the signed southern ones of Cm) on d_{m,-s}, the signed
+        southern ones of Cp and the northern ones of Cm on d_{m,+s}."""
+        sCp = self.sgn_l * Cp
+        if self.single:
+            return [(self.T_m, self.pack_synth([Cp, sCp]))]
+        return [(self.T_m, self.pack_synth([Cp, self.sgn_l * Cm])),
+                (self.T_p, self.pack_synth([sCp, Cm]))]
+
     def synth(self, Cp, Cm):
         """(Fp, Fm) as kernel K1 (`legendre_kernels.synth_pair`) computes them; Fm None
         when Cm is None."""
-        sCp = self.sgn_l * Cp
+        ys = [self.unpack_synth(torch.bmm(T.transpose(1, 2), X), 2)
+              for T, X in self.synth_products(Cp, Cm)]
         if self.single:
-            a, b = self.unpack_synth(self.synth_bmm(self.T_m, self.pack_synth([Cp, sCp])), 2)
-            return self._assemble(a, b), None
-        acc0, acc3 = self.unpack_synth(self.synth_bmm(self.T_m, self.pack_synth(
-            [Cp, self.sgn_l * Cm])), 2)
-        acc1, acc2 = self.unpack_synth(self.synth_bmm(self.T_p, self.pack_synth([sCp, Cm])), 2)
+            return self._assemble(*ys[0]), None
+        (acc0, acc3), (acc1, acc2) = ys
         return self._assemble(acc0, acc1), self._assemble(acc2, acc3)
 
     def _assemble(self, north, south):
@@ -211,16 +213,23 @@ class PackedLegendre:
         Qs[:, :n_s] = Q[:, self.nh:].flip(1) * self.sgn_m
         return Q[:, :self.nh], Qs
 
+    def anal_products(self, Qp, Qm):
+        """[(table, operand)] of an analysis, one `torch.bmm(table, operand)` each."""
+        Qp_n, Qp_s = self._fold(Qp)
+        if self.single:
+            return [(self.T_m, self.pack_anal([Qp_n, Qp_s]))]
+        Qm_n, Qm_s = self._fold(Qm)
+        return [(self.T_m, self.pack_anal([Qp_n, Qm_s])),
+                (self.T_p, self.pack_anal([Qp_s, Qm_n]))]
+
     def anal(self, Qp, Qm):
         """(A, B) as kernel K2 (`legendre_kernels.anal_pair`) computes them; B None when
         Qm is None."""
-        Qp_n, Qp_s = self._fold(Qp)
+        ys = [self.unpack_anal(torch.bmm(T, X), 2) for T, X in self.anal_products(Qp, Qm)]
         if self.single:
-            a, b = self.unpack_anal(self.anal_bmm(self.T_m, self.pack_anal([Qp_n, Qp_s])), 2)
+            a, b = ys[0]
             return a + self.sgn_l * b, None
-        Qm_n, Qm_s = self._fold(Qm)
-        a0, a3 = self.unpack_anal(self.anal_bmm(self.T_m, self.pack_anal([Qp_n, Qm_s])), 2)
-        a1, a2 = self.unpack_anal(self.anal_bmm(self.T_p, self.pack_anal([Qp_s, Qm_n])), 2)
+        (a0, a3), (a1, a2) = ys
         return a0 + self.sgn_l * a1, a2 + self.sgn_l * a3
 
 
@@ -296,20 +305,12 @@ def library_rows(dev, gen, smi, reps):
                 if kind == 'synth':
                     kernel = lambda: lk.synth_pair(x[0], xm, spin, R, t_m, t_p)
                     packed = lambda: pk.synth(x[0], xm)
-                    ops = ([x[0], pk.sgn_l * x[0]],) if not two else \
-                        ([x[0], pk.sgn_l * x[1]], [pk.sgn_l * x[0], x[1]])
-                    operands = [pk.pack_synth(o) for o in ops]
-                    gemm = lambda: [pk.synth_bmm(T, X) for T, X in
-                                    zip((pk.T_m, pk.T_p), operands)]
+                    products = [(T.transpose(1, 2), X) for T, X in pk.synth_products(x[0], xm)]
                 else:
                     kernel = lambda: lk.anal_pair(x[0], xm, spin, lmax, t_m, t_p)
                     packed = lambda: pk.anal(x[0], xm)
-                    folds = [pk._fold(q) for q in x]
-                    ops = ([folds[0][0], folds[0][1]],) if not two else \
-                        ([folds[0][0], folds[1][1]], [folds[0][1], folds[1][0]])
-                    operands = [pk.pack_anal(o) for o in ops]
-                    gemm = lambda: [pk.anal_bmm(T, X) for T, X in
-                                    zip((pk.T_m, pk.T_p), operands)]
+                    products = pk.anal_products(x[0], xm)
+                gemm = lambda: [torch.bmm(T, X) for T, X in products]
                 for fn in (kernel, packed, gemm):        # warm-up: cuBLAS handles, caches
                     fn()
                 k_ms, _, k_out = event_ms(kernel, reps)
@@ -326,9 +327,9 @@ def library_rows(dev, gen, smi, reps):
                 rows.append(row)
                 print('  %s %s batch %d: kernel %.3f ms, torch.bmm %.3f ms (%d call%s), the '
                       'packed transform %.3f ms; %.2e of max from the kernel | %s'
-                      % (row['kernel'], name, B, k_ms, g_ms, len(operands),
-                         '' if len(operands) == 1 else 's', p_ms, err, smi), flush=True)
-                del x, xm, operands, k_out, p_out
+                      % (row['kernel'], name, B, k_ms, g_ms, len(products),
+                         '' if len(products) == 1 else 's', p_ms, err, smi), flush=True)
+                del x, xm, products, k_out, p_out
         del pk, t_m, t_p
         torch.cuda.empty_cache()
     return rows

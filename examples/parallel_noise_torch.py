@@ -35,10 +35,11 @@ CPU):
       resolves its rendezvous, card and backend itself and reports them, cuda:0 and gloo
       expected (NCCL refuses two ranks on one card; gloo's collectives stage CUDA tensors
       through the host). Each runs `shard_sht` with n_m = 2 at lmax 2048 (alm2map /
-      map2alm, spins 0 and 2, f64, batch 4) and a sims-sharded isotropic filtering of 4 sims through ShardedIVFS; each
-      rank gathers both and holds them to the single-process result (1e-12 of max). Each
-      rank prints its m-split and its seconds; each is waited on with a timeout and killed
-      on expiry, and a failure of either fails the run.
+      map2alm, spins 0 and 2, f64, batch 4) and a sims-sharded isotropic filtering of 4
+      sims through ShardedIVFS; each rank gathers both and holds them to the
+      single-process result (1e-12 of max). Each rank prints its m-split and its seconds;
+      each is waited on with a timeout and killed on expiry, and a failure of either fails
+      the run.
 
     python examples/parallel_noise_torch.py [--device cuda] [--parts a,b,c,d]
 """

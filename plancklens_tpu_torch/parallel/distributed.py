@@ -106,7 +106,9 @@ def slurm_tasks_per_node(spec, node=0):
         if m is None:
             raise ValueError('cannot parse the SLURM tasks per node %r' % spec)
         counts += [int(m.group(1))] * int(m.group(2) or 1)
-    return counts[min(node, len(counts) - 1)]
+    if not 0 <= node < len(counts):
+        raise ValueError('node %d of the SLURM tasks per node %r' % (node, spec))
+    return counts[node]
 
 
 def ompi_coordinator(uri):

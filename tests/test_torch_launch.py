@@ -135,9 +135,8 @@ NODES = {
                                                'nccl'),
     'srun -n 2, two tasks on one card': ([_slurm(r, 2, '2') for r in range(2)], 1,
                                          [FOUR[:1]] * 2, None, ['cuda:0'] * 2, 'gloo'),
-    'srun -n 2 on a two-card node, bound to one card': ([_slurm(r, 2, '2') for r in range(2)], 2,
-                                                        [FOUR[:2]] * 2, [1], ['cuda:1'] * 2,
-                                                        'gloo'),
+    'srun -n 2 on a two-card node, bound to one card': (
+        [_slurm(r, 2, '2') for r in range(2)], 2, [FOUR[:2]] * 2, [1], ['cuda:1'] * 2, 'gloo'),
     'mpirun -np 2, local_device_ids': ([_ompi(r) for r in range(2)], 4, [FOUR] * 2, [3],
                                        ['cuda:3'] * 2, 'gloo'),
     'mpirun -np 2, 2 cards': ([_ompi(r) for r in range(2)], 2, [FOUR[:2]] * 2, None,
@@ -172,7 +171,8 @@ def test_backend_for_cards():
     (lambda: launch_env({k: v for k, v in _ompi(0).items() if k != 'OMPI_MCA_orte_hnp_uri'}),
      'MASTER_ADDR'),
     (lambda: ompi_coordinator('12.0;ud://x'), 'cannot parse'),
-    (lambda: slurm_tasks_per_node('2(3)'), 'cannot parse')])
+    (lambda: slurm_tasks_per_node('2(3)'), 'cannot parse'),
+    (lambda: slurm_tasks_per_node('2(x3),1', 4), 'node 4 of')])
 def test_raising_cases(call, match):
     with pytest.raises((RuntimeError, ValueError), match=match):
         call()
