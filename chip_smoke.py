@@ -159,9 +159,10 @@ Phases:
                 plain versions (1e-12, bitwise equal on a second run), each block timed;
                 (11d) two processes on the one card, launched with a SLURM-shaped
                 environment and no MASTER_ADDR/MASTER_PORT, PLK_COORD or device argument:
-                each resolves cuda:0 and gloo (host-staged collectives) itself; shard_sht with n_m = 2 at lmax 2048 (alm2map, map2alm, spins 0 and 2, f64,
-                batch 4) and ShardedIVFS filtering 4 sims, gathered on each rank and held
-                to the single-process result (1e-12 of max); both ranks exit 0 within 400 s
+                each resolves cuda:0 and gloo (host-staged collectives) itself; shard_sht
+                with n_m = 2 at lmax 2048 (alm2map, map2alm, spins 0 and 2, f64, batch 4)
+                and ShardedIVFS filtering 4 sims, gathered on each rank and held to the
+                single-process result (1e-12 of max); both ranks exit 0 within 400 s
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
