@@ -1113,6 +1113,11 @@ def main():
                      'synth_pair_deflection': ('deflection', ('synth_pair', 1, 1, 'f64')),
                      'anal_pair_lensed_eb': ('map2alm', ('anal_pair', 1, 1, 'f64'))}
 
+    # library_ms is null on every row: no one PyTorch call computes a Legendre transform
+    # from the kernel's inputs. The nearest library path, torch.bmm over a lambda table
+    # precomputed for one geometry (8.6-38.9 GB at the rows where it fits in 40 GiB), takes
+    # an operand the kernel does not; examples/bench_legendre_torch.py times it beside
+    # these rows, so that this run does not grow by the tables' builds.
     kernels = []
     for name, st, n in (('synth_pair', stats[8]['synth'], launches['synth_pair']),
                         ('anal_pair', stats[8]['anal'], launches['anal_pair']),

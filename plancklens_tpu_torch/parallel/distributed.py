@@ -19,7 +19,7 @@ path runs serially.
   * OpenMPI (mpirun): OMPI_COMM_WORLD_RANK / _SIZE / _LOCAL_RANK / _LOCAL_SIZE; the
                rendezvous host from OMPI_MCA_orte_hnp_uri, its port from the uri's job id
   * SLURM (srun): SLURM_PROCID, SLURM_NTASKS, SLURM_LOCALID, the local size from
-               SLURM_NTASKS_PER_NODE or SLURM_STEP_TASKS_PER_NODE; the rendezvous at the
+               SLURM_STEP_TASKS_PER_NODE, else SLURM_NTASKS_PER_NODE; the rendezvous at the
                first host of SLURM_STEP_NODELIST, port SLURM_JOB_ID % 4096 + 61440
   * none:      single-process fallback (rank 0 of 1), nothing initialised
 The derived rendezvous are the ones jax.distributed computes for the JAX package
@@ -37,7 +37,9 @@ The backend (`backend_for_cards`): before the process group is made, the ranks e
 (host name, card uuid) through the rendezvous store; NCCL when every rank holds a card of
 its own, gloo when two ranks of a host hold the same card (NCCL refuses them) or a rank is
 on the CPU. Under gloo the collectives below stage CUDA tensors through host buffers,
-because gloo runs no CUDA all_to_all/all_gather. An explicit `backend=` wins.
+because gloo runs no CUDA all_to_all/all_gather. An explicit `backend=` wins: 'gloo' where
+the resolver would pick NCCL but NCCL cannot run (a torch built without it, a fabric it
+does not reach).
 """
 import json
 import os
@@ -158,14 +160,16 @@ def launch_env(environ=os.environ):
                          master)
     kind = 'slurm'
     if num('SLURM_NTASKS', 1) > 1:
-        if 'SLURM_NTASKS_PER_NODE' in environ:
-            local_size = slurm_tasks_per_node(environ['SLURM_NTASKS_PER_NODE'])
-        elif 'SLURM_STEP_TASKS_PER_NODE' in environ:
+        # the step's own layout first: srun sets it, while SLURM_NTASKS_PER_NODE may be the
+        # allocation's (sbatch --ntasks-per-node=8, then srun -n 4 runs 4 tasks a node)
+        if 'SLURM_STEP_TASKS_PER_NODE' in environ:
             local_size = slurm_tasks_per_node(environ['SLURM_STEP_TASKS_PER_NODE'],
                                               num('SLURM_NODEID', 0))
+        elif 'SLURM_NTASKS_PER_NODE' in environ:
+            local_size = slurm_tasks_per_node(environ['SLURM_NTASKS_PER_NODE'])
         else:
-            raise RuntimeError('a SLURM launch needs SLURM_NTASKS_PER_NODE or '
-                               'SLURM_STEP_TASKS_PER_NODE in the environment')
+            raise RuntimeError('a SLURM launch needs SLURM_STEP_TASKS_PER_NODE or '
+                               'SLURM_NTASKS_PER_NODE in the environment')
         if not master:
             if 'SLURM_STEP_NODELIST' not in environ:
                 raise RuntimeError('a SLURM launch without SLURM_STEP_NODELIST needs '

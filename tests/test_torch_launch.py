@@ -2,14 +2,15 @@
 
   * `launch_env` over environment mappings of torchrun, srun (SLURM), mpirun (OpenMPI)
     and the explicit PLK_COORD launch: rank, size, local rank and size and the tcp://
-    rendezvous, derived as jax.distributed derives the JAX package's coordinator
-    (jax/_src/clusters/slurm_cluster.py, ompi_cluster.py) unless MASTER_ADDR/MASTER_PORT
-    are set;
+    rendezvous. Under srun and mpirun (each node-list and uri form among them) the rank,
+    size, local rank and rendezvous are held to what jax's SlurmCluster and OmpiCluster,
+    which jax.distributed runs for the JAX package, read from the same environment, unless
+    MASTER_ADDR/MASTER_PORT are set;
   * every rank of a node through `card_for` and `backend_for_cards`, with a patched card
     count and the uuids each rank sees: srun -n 4 on a four-card node (cuda:0-3, NCCL),
     one card bound to each task (cuda:0 each, NCCL), two tasks on one card (gloo);
-  * the node-list and OpenMPI uri forms, `local_device_ids`, the raising cases, and
-    `init_distributed` called the JAX package's way;
+  * the node-list and OpenMPI uri forms, `local_device_ids`, the raising cases,
+    `init_distributed` called the JAX package's way, and an explicit backend;
   * a two-process gloo run on the CPU launched with a SLURM-shaped environment and no
     MASTER_ADDR/MASTER_PORT, waited on with a timeout and killed on expiry.
 """
@@ -20,6 +21,7 @@ import sys
 
 import pytest
 import torch
+from jax._src.clusters import ClusterEnv, OmpiCluster, SlurmCluster
 
 from plancklens_tpu_torch.parallel import distributed as pdist
 from plancklens_tpu_torch.parallel.distributed import (
@@ -53,48 +55,84 @@ def _ompi(rank, size=2, **kw):
     return env
 
 
-SLURM_URL = 'tcp://node001:%d' % (1234 % 4096 + 61440)
-OMPI_URL = 'tcp://10.96.0.1:%d' % (1531576320 // 4096 % 4096 + 61440)
+def _clear_launchers(monkeypatch):
+    for v in list(os.environ):
+        if v.startswith(('SLURM_', 'OMPI_', 'PLK_COORD')) or v in (
+                'RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'LOCAL_WORLD_SIZE', 'MASTER_ADDR',
+                'MASTER_PORT'):
+            monkeypatch.delenv(v)
 
-ENVS = {
+
+def _jax_view(monkeypatch, environ):
+    """What jax.distributed derives from `environ` for the JAX package: the first of jax's
+    OpenMPI and SLURM clusters present, in jax's own order, and its (name, process id,
+    process count, local process id, coordinator as a tcp:// url, an IPv6 host
+    bracketed)."""
+    _clear_launchers(monkeypatch)
+    for k, v in environ.items():
+        monkeypatch.setenv(k, v)
+    cluster = next(c for c in ClusterEnv._cluster_types
+                   if c in (OmpiCluster, SlurmCluster) and c.is_env_present())
+    host, port = cluster.get_coordinator_address(None, None).rsplit(':', 1)
+    url = 'tcp://%s:%s' % ('[%s]' % host if ':' in host else host, port)
+    return (cluster.name, cluster.get_process_id(), cluster.get_process_count(),
+            cluster.get_local_process_id(), url)
+
+
+# PLK_COORD and torchrun have no counterpart in jax, and a one-task srun is no launch: their
+# whole expectation is written here
+HAND = {
     'none': ({}, LaunchEnv(None, 0, 1, 0, 1, None)),
     'explicit': (dict(PLK_COORD='host9:1234', PLK_NPROC='3', PLK_PROCID='2'),
                  LaunchEnv('explicit', 2, 3, 2, 3, 'tcp://host9:1234')),
     'torchrun': (_torchrun(1), LaunchEnv('torchrun', 1, 2, 1, 2, 'tcp://10.0.0.1:29500')),
     'torchrun_two_nodes': (_torchrun(5, 8, LOCAL_RANK='1', LOCAL_WORLD_SIZE='4'),
                            LaunchEnv('torchrun', 5, 8, 1, 4, 'tcp://10.0.0.1:29500')),
-    'slurm': (_slurm(2), LaunchEnv('slurm', 2, 4, 2, 4, SLURM_URL)),
-    'slurm_ntasks_per_node': (_slurm(1, 2, '2', SLURM_NTASKS_PER_NODE='2'),
-                              LaunchEnv('slurm', 1, 2, 1, 2, SLURM_URL)),
-    'slurm_uneven_nodes': (_slurm(6, 7, '2(x3),1', SLURM_NODEID='3'),
-                           LaunchEnv('slurm', 6, 7, 0, 1, SLURM_URL)),
-    'slurm_master_override': (_slurm(3, MASTER_ADDR='10.1.1.1', MASTER_PORT='4242'),
-                              LaunchEnv('slurm', 3, 4, 3, 4, 'tcp://10.1.1.1:4242')),
     'slurm_one_task': (_slurm(0, 1, '1'), LaunchEnv(None, 0, 1, 0, 1, None)),
-    'openmpi': (_ompi(1), LaunchEnv('openmpi', 1, 2, 1, 2, OMPI_URL)),
+}
+# srun and mpirun: the rank, size, local rank and rendezvous are held to jax's SlurmCluster
+# and OmpiCluster on the same environment (_jax_view); written here is only what jax does not
+# derive: the local size, and the rendezvous where MASTER_ADDR/MASTER_PORT override it
+DERIVED = {
+    'slurm': (_slurm(2), 4, None),
+    'slurm_ntasks_per_node': (
+        {k: v for k, v in _slurm(1, 2, '2', SLURM_NTASKS_PER_NODE='2').items()
+         if k != 'SLURM_STEP_TASKS_PER_NODE'}, 2, None),
+    # sbatch -N1 --ntasks-per-node=8, then srun -n 4: the step runs 4 tasks on the node
+    'slurm_step_tasks_per_node_first': (_slurm(3, 4, '4', SLURM_NTASKS_PER_NODE='8'), 4, None),
+    'slurm_uneven_nodes': (_slurm(6, 7, '2(x3),1', SLURM_NODEID='3'), 1, None),
+    'slurm_master_override': (_slurm(3, MASTER_ADDR='10.1.1.1', MASTER_PORT='4242'), 4,
+                              'tcp://10.1.1.1:4242'),
+    'openmpi': (_ompi(1), 2, None),
     'openmpi_tcp6': (_ompi(0, OMPI_MCA_orte_hnp_uri='1314521088.0;tcp6://[fe80::b9b:ac5d:9cf0:'
                                                     'b858,2620:10d:c083:150e::3000:2]:43370'),
-                     LaunchEnv('openmpi', 0, 2, 0, 2, 'tcp://[fe80::b9b:ac5d:9cf0:b858]:%d'
-                               % (1314521088 // 4096 % 4096 + 61440))),
-    'openmpi_master_override': (_ompi(0, MASTER_ADDR='10.1.1.1', MASTER_PORT='4242'),
-                                LaunchEnv('openmpi', 0, 2, 0, 2, 'tcp://10.1.1.1:4242')),
+                     2, None),
+    'openmpi_master_override': (_ompi(0, MASTER_ADDR='10.1.1.1', MASTER_PORT='4242'), 2,
+                                'tcp://10.1.1.1:4242'),
     # mpirun inside a SLURM allocation: the allocation's SLURM_PROCID is 0 on every rank
-    'openmpi_inside_slurm': (dict(_ompi(1), **_slurm(0)),
-                             LaunchEnv('openmpi', 1, 2, 1, 2, OMPI_URL)),
+    'openmpi_inside_slurm': (dict(_ompi(1), **_slurm(0)), 2, None),
 }
+KINDS = {'slurm': 'slurm', 'ompi': 'openmpi'}
 
 
-@pytest.mark.parametrize('name', sorted(ENVS))
-def test_launch_env(name):
-    environ, expected = ENVS[name]
+@pytest.mark.parametrize('name', sorted(HAND) + sorted(DERIVED))
+def test_launch_env(name, monkeypatch):
+    if name in HAND:
+        environ, expected = HAND[name]
+    else:
+        environ, local_size, master = DERIVED[name]
+        kind, rank, size, local_rank, url = _jax_view(monkeypatch, environ)
+        expected = LaunchEnv(KINDS[kind], rank, size, local_rank, local_size, master or url)
     assert launch_env(environ) == expected
 
 
 @pytest.mark.parametrize('node_list,host', [
     ('node001', 'node001'), ('node001,host2', 'node001'), ('node[001-015],host2', 'node001'),
     ('node[001,007-015]', 'node001'), ('127.0.0.1', '127.0.0.1')])
-def test_slurm_first_host(node_list, host):
+def test_slurm_first_host(node_list, host, monkeypatch):
+    environ = _slurm(1, SLURM_STEP_NODELIST=node_list)
     assert slurm_first_host(node_list) == host
+    assert launch_env(environ).init_method == _jax_view(monkeypatch, environ)[-1]
 
 
 @pytest.mark.parametrize('spec,node,n', [('4', 0, 4), ('2(x3),1', 0, 2), ('2(x3),1', 2, 2),
@@ -107,9 +145,15 @@ def test_slurm_tasks_per_node(spec, node, n):
     ('1531576320.0;tcp://10.96.0.1,10.148.0.1,10.108.0.1:34911',
      ('10.96.0.1', 1531576320 // 4096 % 4096 + 61440)),
     ('1314521088.0;tcp6://[fe80::b9b:ac5d:9cf0:b858,2620:10d:c083:150e::3000:2]:43370',
-     ('fe80::b9b:ac5d:9cf0:b858', 1314521088 // 4096 % 4096 + 61440))])
-def test_ompi_coordinator(uri, addr):
+     ('fe80::b9b:ac5d:9cf0:b858', 1314521088 // 4096 % 4096 + 61440)),
+    ('1531576320.0;tcp://10.96.0.1:34911', ('10.96.0.1', 1531576320 // 4096 % 4096 + 61440))])
+def test_ompi_coordinator(uri, addr, monkeypatch):
+    environ = _ompi(0, OMPI_MCA_orte_hnp_uri=uri)
+    host, port = addr
+    url = _jax_view(monkeypatch, environ)[-1]
     assert ompi_coordinator(uri) == addr
+    assert url == 'tcp://%s:%d' % ('[%s]' % host if ':' in host else host, port)
+    assert launch_env(environ).init_method == url
 
 
 def _node(envs, n_cards, seen, local_device_ids=None):
@@ -178,14 +222,6 @@ def test_raising_cases(call, match):
         call()
 
 
-def _clear_launchers(monkeypatch):
-    for v in list(os.environ):
-        if v.startswith(('SLURM_', 'OMPI_', 'PLK_COORD')) or v in (
-                'RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'LOCAL_WORLD_SIZE', 'MASTER_ADDR',
-                'MASTER_PORT'):
-            monkeypatch.delenv(v)
-
-
 def test_init_distributed_the_jax_way(monkeypatch):
     """The JAX package's positional signature (coordinator_address, num_processes,
     process_id, local_device_ids) without a launcher: a no-op (0, 1) on the card it
@@ -209,6 +245,27 @@ def test_init_distributed_the_jax_way(monkeypatch):
     finally:
         pdist.shutdown()
     assert pdist.device() is None
+
+
+def test_an_explicit_backend_wins(monkeypatch):
+    """backend= names the backend where the resolver would pick NCCL but NCCL cannot run
+    (a torch built without it): the ranks' cards are not consulted. Without it the choice is
+    backend_for_cards' over the exchanged (host, card) pairs."""
+    _clear_launchers(monkeypatch)
+    seen = []
+    monkeypatch.setattr(pdist, 'backend_for_cards', lambda cards: seen.append(cards) or 'nccl')
+    try:
+        assert pdist.init_single(device='cpu', backend='gloo') == (0, 1)
+        assert torch.distributed.get_backend() == 'gloo' and seen == []
+    finally:
+        pdist.shutdown()
+    monkeypatch.setattr(pdist, 'backend_for_cards', lambda cards: seen.append(cards) or 'gloo')
+    try:
+        assert pdist.init_single(device='cpu') == (0, 1)
+        assert torch.distributed.get_backend() == 'gloo'
+        assert [[tuple(c) for c in cards] for cards in seen] == [[pdist.card_id('cpu')]]
+    finally:
+        pdist.shutdown()
 
 
 def test_make_mesh_without_a_card_raises(monkeypatch):
