@@ -6,8 +6,10 @@ plain torch version, and drives the port's paths, counting kernel launches on th
 the main path — the idealized full-sky parameter file through the staged driver's
 functions (filtering, batched ptt and p_p QEs, split-half mean fields, dd/ds/ss spectra)
 at LMAX_IVF = LMAX_QLM = 2048 with 8 simulations, float32 QEs on cuda:0 —, the HEALPix
-entry path at Planck's nside 2048, masked filtering, and the lensed masked chain of the
-anisotropic parameter file at lmax 2048 through N1, the band-powers and the N0 forecasts.
+entry path at Planck's nside 2048, masked filtering, the lensed masked chain of the
+anisotropic parameter file at lmax 2048 through N1, the band-powers and the N0 forecasts,
+and the user scripts of examples/ (the quickstart reconstruction at lmax 2048, the N0
+forecasts, the noise levels of every anisotropy source).
 Phases:
 
   0 device      CUDA present (no CPU path), card name and power limit, TF32 off
@@ -163,6 +165,31 @@ Phases:
                 with n_m = 2 at lmax 2048 (alm2map, map2alm, spins 0 and 2, f64, batch 4)
                 and ShardedIVFS filtering 4 sims, gathered on each rank and held to the
                 single-process result (1e-12 of max); both ranks exit 0 within 400 s
+  12 entry pts  the JAX package's user scripts through their twins on the card:
+                (12a) examples/lensingrec_quickstart_torch.py at lmax 2048, 4 sims, f64
+                (numpy-seeded sims, Lensing.alm2lenmap on the ECP grid, SHT.map2alm, the
+                ptt eval_qe, qresp.get_response and nhl.get_nhl), cold: its three band
+                averages, K1/K2 launches by (mode, batch, type) and seconds; all finite,
+                N_G = R_G within 1e-10 of max over 10 <= L <= 2048 (the filter product is
+                ftl), <phihat x phi_in>/<phi_in^2> within 3 sigma + 0.02 of 1 (sigma the
+                script's expected scatter; 0.02 for the ECP lensing), <phihat^2>/(C_pp +
+                N0) in [0.9, 1.1]; then at lmax 128, 2 sims, the card against the CPU:
+                cross, auto and N0 within 1e-10 of max over 2 <= L, R_G, N_G and 1/N0 within
+                1e-12 of max over every L (R_1 is ~1e-6 of R's max: ROADMAP fault 3.9);
+                (12b) examples/n0s_forecast_torch.py at its defaults (lmax 3000) with --iter
+                3 and the README's get_N0_iter('p_p', 1.0, 1.4, 2.0, unl, 30, 1500, 5),
+                timed: all finite, the last iteration's unbiased N0 below iteration 0's at
+                every 30 <= L <= 1000; at --lmax 512 --iter 1 the card against the CPU by
+                fault 3.9's rule (1/N0 within 1e-12 of max, N0 per L over 10-512 within
+                bandpowers_demo_torch.n0_limit of the largest change under four 1e-15
+                changes of the spectra: the CPU's for get_N0, the card's own for the
+                iterated N0); (12c) examples/plot_noiselevels_torch.py at its defaults
+                (lmax 2048, 6', 35 uK-arcmin) for the sources p, f, a and stt, timed and
+                finite, and at lmax 256 the card against the CPU by the same rule; (12d)
+                every QE key the port's qresp.get_qes builds that no other phase evaluates
+                (the p, x, a, f and s families' selectors and field blocks, ntt, dtt, ktt:
+                75 keys) through eval_qe at lmax 64, f64, batch 2, the card against the CPU
+                (1e-10 of max), with the K1/K2 launches by (mode, batch, type)
 
 Phases 4, 5b, 6 and 7b each start with an empty recursion-table cache, so each path's times and
 peak memory are its own, cold.
@@ -455,6 +482,243 @@ def phase11(dev):
     phase(11, 'phase 11 wall %.1fs; the whole run so far %.1fs'
           % (time.perf_counter() - t11, time.perf_counter() - T_START))
     return rows
+
+
+# QE key grammar of models/qresp.get_qes: sources x selectors, and the profiled keys
+QE_SOURCES = 'pxafs'
+QE_SELECTORS = (['tt', '_p', ''] + [a + b for a in 'teb' for b in 'teb']
+                + ['_' + a + b for a in 'teb' for b in 'teb'])
+QE_KEYS_RUN = {'ptt', 'p_p', 'stt', 'p'}       # the keys phases 4 and 6-9 evaluate
+
+
+def qe_keys_not_run(lmax, cls, transf):
+    """Every key for which the port's qresp.get_qes builds legs, but the keys of
+    QE_KEYS_RUN."""
+    from plancklens_tpu_torch.models import qresp
+    keys = sorted({s + sel for s in QE_SOURCES for sel in QE_SELECTORS}
+                  | {'ntt', 'dtt', 'ktt'})
+    return [k for k in keys if k not in QE_KEYS_RUN
+            and len(qresp.get_qes(k, lmax, cls, transf=transf))]
+
+
+def n0_hold(card, cpu, floors, lmax):
+    """ROADMAP fault 3.9's rule for one N0 curve (bandpowers_demo_torch.n0_gaps /
+    n0_limit): (1/N0 gap of max, per-L gap over 10 <= L <= lmax, its limit from the
+    floor curves' largest per-L change). A curve with no response is zero in both."""
+    import bandpowers_demo_torch as bpd
+    if not np.any(cpu):
+        return (0. if not np.any(card) else np.inf), 0., 1e-12
+    inv_gap, band_gap = bpd.n0_gaps(card, cpu, lmax)
+    floor = max(bpd.n0_gaps(f, cpu, lmax)[1] for f in floors)
+    return inv_gap, band_gap, bpd.n0_limit(floor)
+
+
+def phase12(dev):
+    """Phase 12 (module docstring): the JAX package's user entry points through their
+    twins (examples/lensingrec_quickstart_torch.py, n0s_forecast_torch.py,
+    plot_noiselevels_torch.py) on the card, and the QE keys no other phase evaluates."""
+    import contextlib
+    import io
+    import torch
+    from plancklens_tpu_torch import DATAPATH
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
+    from plancklens_tpu_torch.models import n0s
+    from plancklens_tpu_torch.models.qest import eval_qe
+    from plancklens_tpu_torch.ops import wigner
+    from plancklens_tpu_torch.utils import camb_clfile, alm as ualm
+    import bandpowers_demo_torch as bpd
+    import lensingrec_quickstart_torch as qs
+    import n0s_forecast_torch as nf
+    import plot_noiselevels_torch as nl
+    log = lambda s: phase(12, s)
+    quiet = lambda: contextlib.redirect_stdout(io.StringIO())
+    cpu = torch.device('cpu')
+    rng = np.random.RandomState(12)
+    pert = lambda cls: {k: v * (1. + 1e-15 * rng.standard_normal(v.shape))
+                        for k, v in cls.items()}
+    cls_file = lambda name, lmax=None: camb_clfile(
+        os.path.join(DATAPATH, 'cls', 'FFP10_wdipole_%s.dat' % name), lmax=lmax)
+    t12 = time.perf_counter()
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+
+    # 12a the quickstart at full width, then the card against the CPU
+    lk.reset_launches()
+    t0 = time.perf_counter()
+    r = qs.reconstruct(LMAX, 4, device=dev, log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1, k2 = dict(lk.synth_pair_shapes), dict(lk.anal_pair_shapes)
+    qs.report(r)
+    cross, auto, n0_40 = qs.band_averages(r)
+    log('(12a) quickstart at lmax %d, 4 sims, f64, cold: <phihat x phi_in>/<phi_in^2> %.4f '
+        '(sigma %.4f), <phihat^2>/(C_pp + N0) %.4f, N0/C_pp at L = 40 %.3f; %.2fs; K1 '
+        'launches by (mode, batch, type) %s, K2 %s' % (LMAX, cross, r['sig'], auto, n0_40,
+                                                        secs, k1, k2))
+    check(sum(k1.values()) > 0 and sum(k2.values()) > 0,
+          'the quickstart did not launch K1 and K2: %s %s' % (k1, k2))
+    check(all(bool(np.all(np.isfinite(r[k]))) for k in ('cross', 'auto', 'N0', 'RG', 'NG')),
+          'the quickstart at lmax %d gave non-finite outputs' % LMAX)
+    ident = float(np.abs(r['NG'] - r['RG'])[10:].max() / np.abs(r['RG']).max())
+    check(ident <= 1e-10, 'N_G vs R_G over 10 <= L <= %d: %.2e > 1e-10' % (LMAX, ident))
+    check(abs(cross - 1.) <= 3. * r['sig'] + 0.02, '<phihat x phi_in>/<phi_in^2> %.4f beyond '
+          '1 +- (3 x %.4f + 0.02)' % (cross, r['sig']))
+    check(0.9 <= auto <= 1.1, '<phihat^2>/(C_pp + N0) %.4f outside [0.9, 1.1]' % auto)
+    del r
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rd, rc = (qs.reconstruct(128, 2, device=d, log=lambda s: None) for d in (dev, cpu))
+    # over 2 <= L: R_1 is ~1e-6 of R's max, so the products normalised by it amplify the
+    # rounding at L = 1 (ROADMAP fault 3.9); there R_G and N_G themselves and 1/N0 hold
+    gaps = {k: float(np.abs(rd[k] - rc[k])[2:].max() / np.abs(rc[k][2:]).max())
+            for k in ('cross', 'auto', 'N0')}
+    gaps.update({k: rel_max(torch.as_tensor(rd[k]), torch.as_tensor(rc[k])) for k in ('RG', 'NG')})
+    ok = rc['N0'] != 0.
+    gaps['1/N0'] = float(np.abs(1. / rd['N0'][ok] - 1. / rc['N0'][ok]).max()
+                         / np.abs(1. / rc['N0'][ok]).max())
+    log('(12a) quickstart at lmax 128, 2 sims, the card vs the CPU: %s (cross, auto, N0 of max '
+        'over 2 <= L; R_G, N_G, 1/N0 of max over every L); %.2fs'
+        % (', '.join('%s %.2e' % kv for kv in gaps.items()), time.perf_counter() - t0))
+    check(max(gaps[k] for k in ('cross', 'auto', 'N0')) <= 1e-10
+          and max(gaps[k] for k in ('RG', 'NG', '1/N0')) <= 1e-12,
+          'the quickstart on the card vs the CPU: %s' % gaps)
+    del rd, rc
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
+
+    # 12b the forecasts
+    t0 = time.perf_counter()
+    f = nf.main(['--iter', '3', '--device', str(dev)])
+    secs_f = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    readme = n0s.get_N0_iter('p_p', 1.0, 1.4, 2.0, cls_file('lenspotentialCls', 2048), 30,
+                             1500, 5, device=dev)
+    secs_r = time.perf_counter() - t0
+    log('(12b) n0s_forecast_torch at lmax 3000 with --iter 3: %.2fs; the README\'s '
+        'get_N0_iter(\'p_p\', 1.0, 1.4, 2.0, unl (l <= 2048), 30, 1500, 5): %.2fs'
+        % (secs_f, secs_r))
+    curves = list(f['N0s'].values()) + list(f['N0_curls'].values()) + [f['unbiased']]
+    check(all(bool(np.all(np.isfinite(c))) for c in curves + list(readme)),
+          'the forecasts gave non-finite N0s')
+    for name, u in (('n0s_forecast --iter 3', f['unbiased']), ('README get_N0_iter', readme[1])):
+        down = u[-1][30:1001] / u[0][30:1001]
+        log('(12b) %s: last / first iteration\'s unbiased N0 over 30 <= L <= 1000 in '
+            '[%.4f, %.4f]' % (name, down.min(), down.max()))
+        check(bool(np.all(down < 1.)), '%s: the last iteration\'s N0 not below the first\'s '
+              'at every 30 <= L <= 1000' % name)
+    # the card's draws below reuse the d-matrices of its first call (the draws change the
+    # spectra, not the nodes): a call of get_N0_iter at lmax 512 touches 30 of them (5.4
+    # GB, most for the lensed spectra of l <= 7000), which the default 24 entries cycle
+    # through, so each call recurs 54-57 on the host; with 64 a repeated call recurs none
+    dmats, dmat_size = wigner._DMAT_CACHE, wigner._DMAT_CACHE.maxsize
+    dmats.maxsize = 64
+    t0 = time.perf_counter()
+    with quiet():
+        fd, fc = (nf.main(['--lmax', '512', '--iter', '1', '--device', str(d)])
+                  for d in (dev, cpu))
+    kw = dict(beam_fwhm=1.4, nlev_t=5., lmax_CMB=512, lmin_CMB=100)
+    names = ('cls_filt', 'cls_len', 'cls_weight', 'cls_sky')
+    lensed = n0s._default_cls()
+    n0_draws = [n0s.get_N0(**kw, **{n: pert(lensed) for n in names}, device=cpu)
+                for _ in range(bpd.N0_DRAWS)]
+    # the iterated forecast's floor is the card's own change under the draws (shifted onto
+    # the CPU curve): on the CPU each draw lenses the whole FFP10 file (l <= 7000) three
+    # times, tens of seconds a draw
+    unl = cls_file('lenspotentialCls')
+    it_draws = [n0s.get_N0_iter('p_p', 5., 5. * np.sqrt(2.), 1.4, pert(unl), 100, 512, 1,
+                                device=dev)[1] for _ in range(bpd.N0_DRAWS)]
+    holds = {}
+    for i, which in ((0, 'N0s'), (1, 'N0_curls')):
+        for k in fc[which]:
+            holds['%s %s' % (k, which)] = n0_hold(fd[which][k], fc[which][k],
+                                                  [d[i][k] for d in n0_draws], 512)
+    for it in range(2):
+        ud, uc = fd['unbiased'][it], fc['unbiased'][it]
+        holds['p_p iter %d' % it] = n0_hold(ud, uc, [uc + d[it] - ud for d in it_draws], 512)
+    dmats.maxsize = dmat_size
+    wigner.clear_cache()
+    log('(12b) n0s_forecast_torch --lmax 512 --iter 1, the card vs the CPU (1/N0 of max, N0 '
+        'over 10 <= L <= 512, limit): %s; %.2fs' % (', '.join(
+            '%s %.2e, %.2e (%.2e)' % ((k,) + v) for k, v in holds.items()),
+            time.perf_counter() - t0))
+    for k, (inv_gap, band_gap, limit) in holds.items():
+        check(inv_gap <= 1e-12 and band_gap <= limit, 'n0s_forecast %s on the card vs the CPU: '
+              '1/N0 %.2e, N0 %.2e > %.2e' % (k, inv_gap, band_gap, limit))
+    del f, fd, fc, readme
+    torch.cuda.empty_cache()
+
+    # 12c the noise levels of every source
+    for source in ('p', 'f', 'a', 'stt'):
+        t0 = time.perf_counter()
+        curves = nl.main(['--source', source, '--device', str(dev)])
+        secs = time.perf_counter() - t0
+        check(all(bool(np.all(np.isfinite(c))) for _, g, cu in curves
+                  for c in (g, cu) if c is not None),
+              'plot_noiselevels --source %s: non-finite N0' % source)
+        t0 = time.perf_counter()
+        cd, cc = (nl.noise_curves(source, 256, device=d) for d in (dev, cpu))
+        draws = [nl.noise_curves(source, 256, device=cpu, cls_len=pert(lensed))
+                 for _ in range(bpd.N0_DRAWS)]
+        holds = {}
+        for j, (lab, g, cu) in enumerate(cc):
+            for i, c in ((1, g), (2, cu)):
+                if c is not None:
+                    holds['%s %s' % (lab, 'grad' if i == 1 else 'curl')] = n0_hold(
+                        cd[j][i], c, [d[j][i] for d in draws], 256)
+        log('(12c) plot_noiselevels --source %s at lmax %d: %.2fs; at lmax 256 the card vs '
+            'the CPU: %s; %.2fs' % (source, LMAX, secs, ', '.join(
+                '%s %.2e, %.2e (%.2e)' % ((k,) + v) for k, v in holds.items()),
+                time.perf_counter() - t0))
+        for k, (inv_gap, band_gap, limit) in holds.items():
+            check(inv_gap <= 1e-12 and band_gap <= limit, 'plot_noiselevels %s %s on the card '
+                  'vs the CPU: 1/N0 %.2e, N0 %.2e > %.2e' % (source, k, inv_gap, band_gap,
+                                                            limit))
+
+    # 12d the QE keys no other phase evaluates
+    from plancklens_tpu_torch.models.n0s import gauss_beam
+    lq = 64
+    cls = cls_file('lensedCls')
+    transf = gauss_beam(5., lq)
+    keys = qe_keys_not_run(lq, cls, transf)
+    n = ualm.getsize(lq)
+    alms = {f: rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n)) for f in 'teb'}
+    out, secs = {}, {}
+    for name, d in (('card', dev), ('cpu', cpu)):
+        t0 = time.perf_counter()
+        on_d = {f: torch.as_tensor(a, device=d) for f, a in alms.items()}
+        lk.reset_launches()
+        out[name] = {k: eval_qe(k, lq, cls, lambda f: on_d[f], lq, transf=transf, device=d)
+                     for k in keys}
+        if name == 'card':
+            torch.cuda.synchronize()
+            k1, k2 = dict(lk.synth_pair_shapes), dict(lk.anal_pair_shapes)
+        secs[name] = time.perf_counter() - t0
+    # a key whose output is zero to rounding on the CPU (the rotation keys: their product
+    # map is imaginary and a spin-0 QE keeps its real part, in the JAX package as in the
+    # port; ROADMAP fault 3.15) is held to zero on the card at that rounding, the others
+    # (gradient and curl alms) within 1e-10 of max
+    top = {k: max(b.abs().max().item() for b in out['cpu'][k]) for k in keys}
+    scale = max(top.values())
+    zero = [k for k in keys if top[k] <= 1e-12 * scale]
+    gaps = {k: max(rel_max(a.cpu(), b) if b.abs().max() > 0 else a.abs().max().item()
+                   for a, b in zip(out['card'][k], out['cpu'][k]))
+            for k in keys if k not in zero}
+    worst = max(gaps, key=gaps.get)
+    zero_card = max([a.abs().max().item() for k in zero for a in out['card'][k]] + [0.]) / scale
+    log('(12d) %d QE keys at lmax %d, f64, batch 2, the card vs the CPU: worst %s %.2e of max; '
+        '%d keys zero to rounding on the CPU (%s), on the card within %.2e of the largest QE '
+        'output; K1 launches by (mode, batch, type) %s, K2 %s; card %.2fs, CPU %.2fs; keys %s'
+        % (len(keys), lq, worst, gaps[worst], len(zero), ' '.join(zero), zero_card, k1, k2,
+           secs['card'], secs['cpu'], ' '.join(keys)))
+    check(gaps[worst] <= 1e-10, 'QE %s on the card vs the CPU: %.2e > 1e-10'
+          % (worst, gaps[worst]))
+    check(zero_card <= 1e-12, 'QE keys zero on the CPU reach %.2e of the largest output on '
+          'the card' % zero_card)
+    check(sum(k1.values()) > 0 and sum(k2.values()) > 0, 'the QE keys did not launch K1/K2')
+    phase(12, 'phase 12 wall %.1fs; the whole run so far %.1fs'
+          % (time.perf_counter() - t12, time.perf_counter() - T_START))
+    core.TABLES.clear()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1106,6 +1370,9 @@ def main():
 
     # ---------------------------------------------------------------- 11 parallel, noise
     rows11 = phase11(dev)
+
+    # ---------------------------------------------------------------- 12 entry points
+    phase12(dev)
 
     # launches of the 4 sims' steps, at each new row's shape
     lens_launches = {'synth_pair_ecp_t': ('ecp_t', ('synth_pair', 0, 1, 'f64')),

@@ -26,9 +26,15 @@ Then the library yardstick (`library_rows`, `PackedLegendre`): at each of PERF.m
 rows whose lambda table fits in 40 GiB (LIBRARY_CASES: the QE, CinvT, CinvP, deflection
 and m-block shapes) the table is built once on the card, and the same transform runs as
 `torch.bmm` calls (cuBLAS) over the table, held to the kernel (f64 <= 1e-12, f32 <= 1e-5
-of max) and timed beside it. Last, ROADMAP fault 3.2's record (`precision_rows`): K1's
-spin-1 pair synthesis in f32 against f64 at lmax 512, 1024, 2048 and 4096 on the QE grid,
-on the alms of examples/f32_precision_jax.py, which measures the JAX package's f32 engine.
+of max) and timed beside it. The rows whose tables exceed that (`streamed_rows`,
+STREAMED_CASES: K1 at the lensing ECP T and Q/U shapes, K1/K2 at the freq_weighting shape,
+K3/K4 on all rings of HEALPix nside 2048, the latter without the north-south mirror) are
+streamed over contiguous m-blocks of at most 16 GiB of tables each: a block's tables are
+built, its columns transformed and timed, and the tables freed; the times are summed over
+the blocks and the assembled output held to the kernel (f64 <= 1e-12 of max). Last,
+ROADMAP fault 3.2's record (`precision_rows`): K1's spin-1 pair synthesis in f32 against
+f64 at lmax 512, 1024, 2048 and 4096 on the QE grid, on the alms of
+examples/f32_precision_jax.py, which measures the JAX package's f32 engine.
 
 Every timed shape is run twice and must be bitwise equal; where the planner splits the
 rings, the result is also held against the one-segment result (f32 <= 1e-5, f64 <= 1e-12
@@ -93,16 +99,21 @@ class PackedLegendre:
     mirror signs (-1)^l, (-1)^m and the sums of the two hemispheres run as torch
     elementwise operations, as in the twins (`core._plain_pair`). `t_m`/`t_p` are the
     device tables of `core.pair_tables` for the columns m0..m0 + M - 1 (t_p is t_m for
-    spin 0); `single` is spin 0 with one input, which builds one table."""
+    spin 0); `single` is spin 0 with one input, which builds one table.
 
-    def __init__(self, t_m, t_p, lmax, nrings, dtype, m0=0, single=False):
+    `mirror=False` is the yardstick of the plain kernels K3/K4: one table of d^l_{m,n} on
+    every ring (t_m = t_p, the tables of `core.full_tables`), no north-south pairing, no
+    (-1)^l fold and no hemisphere sum; `synth`/`anal` then take one input."""
+
+    def __init__(self, t_m, t_p, lmax, nrings, dtype, m0=0, single=False, mirror=True):
         from plancklens_tpu_torch.ops.sht import core
         dev = t_m['seed_v'].device
         L, M = lmax + 1, int(t_m['l0'].shape[0])
         P = (M + 1) // 2
         K = 2 * L - 2 * m0 - M + 1
         self.L, self.M, self.P, self.K, self.m0 = L, M, P, K, m0
-        self.nrings, self.nh, self.dtype, self.single = nrings, (nrings + 1) // 2, dtype, single
+        self.mirror, self.single = mirror, single or not mirror
+        self.nrings, self.nh, self.dtype = nrings, (nrings + 1) // 2 if mirror else nrings, dtype
         j = torch.arange(M, device=dev)
         first = j < P
         self.pair = torch.where(first, j, M - 1 - j)             # the pair of column j
@@ -126,11 +137,11 @@ class PackedLegendre:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         self.T_m = self._table(t_m)
-        self.T_p = self.T_m if single else self._table(t_p)
+        self.T_p = self.T_m if self.single else self._table(t_p)
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
         self.build_seconds = time.perf_counter() - t0
-        self.table_bytes = (1 if single else 2) * self.T_m.numel() * self.T_m.element_size()
+        self.table_bytes = (1 if self.single else 2) * self.T_m.numel() * self.T_m.element_size()
 
     def _table(self, t):
         from plancklens_tpu_torch.ops.sht import core
@@ -187,6 +198,8 @@ class PackedLegendre:
         """[(table, operand)] of a synthesis, one `torch.bmm(table^T, operand)` each: the
         northern sums of Cp (and the signed southern ones of Cm) on d_{m,-s}, the signed
         southern ones of Cp and the northern ones of Cm on d_{m,+s}."""
+        if not self.mirror:
+            return [(self.T_m, self.pack_synth([Cp]))]
         sCp = self.sgn_l * Cp
         if self.single:
             return [(self.T_m, self.pack_synth([Cp, sCp]))]
@@ -196,6 +209,9 @@ class PackedLegendre:
     def synth(self, Cp, Cm):
         """(Fp, Fm) as kernel K1 (`legendre_kernels.synth_pair`) computes them; Fm None
         when Cm is None."""
+        if not self.mirror:
+            (T, X), = self.synth_products(Cp, Cm)
+            return self.unpack_synth(torch.bmm(T.transpose(1, 2), X), 1)[0], None
         ys = [self.unpack_synth(torch.bmm(T.transpose(1, 2), X), 2)
               for T, X in self.synth_products(Cp, Cm)]
         if self.single:
@@ -215,6 +231,8 @@ class PackedLegendre:
 
     def anal_products(self, Qp, Qm):
         """[(table, operand)] of an analysis, one `torch.bmm(table, operand)` each."""
+        if not self.mirror:
+            return [(self.T_m, self.pack_anal([Qp]))]
         Qp_n, Qp_s = self._fold(Qp)
         if self.single:
             return [(self.T_m, self.pack_anal([Qp_n, Qp_s]))]
@@ -225,12 +243,25 @@ class PackedLegendre:
     def anal(self, Qp, Qm):
         """(A, B) as kernel K2 (`legendre_kernels.anal_pair`) computes them; B None when
         Qm is None."""
+        if not self.mirror:
+            (T, X), = self.anal_products(Qp, Qm)
+            return self.unpack_anal(torch.bmm(T, X), 1)[0], None
         ys = [self.unpack_anal(torch.bmm(T, X), 2) for T, X in self.anal_products(Qp, Qm)]
         if self.single:
             a, b = ys[0]
             return a + self.sgn_l * b, None
         (a0, a3), (a1, a2) = ys
         return a0 + self.sgn_l * a1, a2 + self.sgn_l * a3
+
+    def transform(self, kind, x, xm=None):
+        """`synth` or `anal` (`kind`) of x (and a pair's second input xm)."""
+        return self.synth(x, xm) if kind == 'synth' else self.anal(x, xm)
+
+    def products(self, kind, x, xm=None):
+        """[(A, X)]: the transform's matrix products, one `torch.bmm(A, X)` each."""
+        if kind == 'synth':
+            return [(T.transpose(1, 2), X) for T, X in self.synth_products(x, xm)]
+        return self.anal_products(x, xm)
 
 
 def precision_alms(lmax, batch=1):
@@ -256,21 +287,155 @@ LIBRARY_CASES = (
 )
 
 
-# PERF.md's kernel rows whose lambda tables exceed 40 GiB: (row, lmax, mmax, rings,
-# bytes a value, tables, north-south mirror)
-TOO_LARGE = (
-    ('K1 lensing, ECP T (spin 0, f64)', 2176, 2176, 8708, 8, 1, True),
-    ('K1 lensing, ECP Q/U (spin-2 pair, f64)', 2176, 2176, 8708, 8, 2, True),
-    ('K1/K2 freq_weighting (spin 0, f64, gl_geometry(4096))', 4094, 4094, 4097, 8, 1, True),
-    ('K3/K4 HEALPix nside 2048 (n = -2, f64, all rings)', 2048, 2048, 8191, 8, 1, False),
+# PERF.md's kernel rows whose lambda tables exceed 40 GiB, streamed over m-blocks of at
+# most STREAM_CAP bytes of tables: (row, {kind: batch}, spin (n of a plain transform),
+# two inputs, lmax, grid, north-south mirror). All f64.
+STREAMED_CASES = (
+    ('lensing, ECP T (spin 0, one input)', {'synth': 1}, 0, False, 2176, 'ecp', True),
+    ('lensing, ECP Q/U (spin-2 pair)', {'synth': 1}, 2, True, 2176, 'ecp', True),
+    ('freq_weighting (spin 0, one input, gl_geometry(4096))', {'synth': 1, 'anal': 4}, 0,
+     False, 4094, 'gl4096', True),
+    ('HEALPix nside 2048 (n = -2, all rings)', {'synth': 4, 'anal': 4}, -2, False, 2048,
+     'healpix', False),
 )
+STREAM_CAP = 16 * 2 ** 30
 
 
-def lambda_table_bytes(lmax, mmax, nrings, itemsize, ntables, mirror=True):
-    """Bytes of the lambda tables of a transform: every (l >= m, m <= mmax) on the northern
-    half (equator included) of a symmetric grid, or on every ring without the mirror."""
-    entries = sum(lmax + 1 - m for m in range(mmax + 1))
-    return entries * ((nrings + 1) // 2 if mirror else nrings) * itemsize * ntables
+def stream_blocks(lmax, mmax, nrings, itemsize, ntables, mirror=True, cap=STREAM_CAP):
+    """(blocks, bytes): contiguous m-blocks [(m0, m1)] covering m = 0..mmax, each starting
+    at an even m (the pair transforms' rule, `core._check_m0`), of about equal table bytes:
+    the fewest whose packed boxes (`PackedLegendre`: ceil(M/2) pairs x (2 L - 2 m0 - M + 1)
+    slots x rings) each hold at most `cap` bytes, and those boxes' bytes."""
+    L = lmax + 1
+    ring_bytes = ((nrings + 1) // 2 if mirror else nrings) * itemsize * ntables
+
+    def box(m0, m1):
+        M = m1 - m0
+        return (M + 1) // 2 * (2 * L - 2 * m0 - M + 1) * ring_bytes
+
+    cum = np.cumsum([L - m for m in range(mmax + 1)], dtype=float)
+    n = max(1, int(np.ceil(box(0, mmax + 1) / cap)))
+    while True:
+        edges = [0]
+        for k in range(1, n):
+            e = int(np.searchsorted(cum, k * cum[-1] / n)) + 1
+            e += e % 2
+            if edges[-1] < e <= mmax:
+                edges.append(e)
+        edges.append(mmax + 1)
+        blocks = list(zip(edges[:-1], edges[1:]))
+        if max(box(*b) for b in blocks) <= cap:
+            return blocks, [box(*b) for b in blocks]
+        n += 1
+
+
+def streamed_transform(kind, x, xm, spin, theta, lmax, dtype, blocks, mirror=True,
+                       timer=None):
+    """The yardstick transform `kind` ('synth' or 'anal') of x (and a pair's second input
+    xm, else None), one m-block's tables at a time: for each block of `blocks` its tables
+    (`core.pair_tables`, or `core.full_tables` without the mirror, spin then being n) are
+    built, the block's columns transformed, and the tables freed. Returns the outputs
+    assembled over m (the second None without xm) and one dict a block: its columns, the
+    tables' GB and build seconds, and with `timer` (fn -> ms) the packed transform's and
+    the `torch.bmm` calls' ms."""
+    from plancklens_tpu_torch.ops.sht import core
+    dev, nrings = x.device, len(theta)
+    outs, info = [], []
+    for m0, m1 in blocks:
+        if mirror:
+            t_m, t_p = core.pair_tables(lmax, m1 - 1, spin, theta, None, dev, m0)
+        else:
+            t_m = t_p = core.full_tables(lmax, m1 - 1, spin, theta, None, dev, m0)
+        pk = PackedLegendre(t_m, t_p, lmax, nrings, dtype, m0=m0, single=xm is None,
+                            mirror=mirror)
+        xb = x[..., m0:m1].contiguous()
+        xmb = None if xm is None else xm[..., m0:m1].contiguous()
+        row = dict(m=[m0, m1], table_gb=pk.table_bytes / 1e9, build_s=pk.build_seconds)
+        if timer is not None:
+            products = pk.products(kind, xb, xmb)
+            row['packed_ms'] = timer(lambda: pk.transform(kind, xb, xmb))
+            row['bmm_ms'] = timer(lambda: [torch.bmm(A, X) for A, X in products])
+            del products
+        outs.append(pk.transform(kind, xb, xmb))
+        info.append(row)
+        del pk, t_m, t_p, xb, xmb
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+    first = torch.cat([o[0] for o in outs], -1)
+    return (first, None if xm is None else torch.cat([o[1] for o in outs], -1)), info
+
+
+def streamed_rows(dev, gen, smi, reps):
+    """The cuBLAS yardstick of PERF.md's kernel rows whose tables exceed 40 GiB
+    (STREAMED_CASES), streamed over m-blocks of at most 16 GiB of tables
+    (`stream_blocks`, `streamed_transform`): at each kernel and batch, the kernel's ms at
+    the row's whole shape, the packed transform's and the `torch.bmm` calls' ms summed
+    over the blocks (one warm-up and `reps` calls a block, CUDA events), the blocks, the
+    largest block's GB, the summed build seconds (outside the times, as in
+    `library_rows`), and the assembled output's largest difference from the kernel's,
+    relative to max (<= 1e-12)."""
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk, HealpixGeometry
+    from plancklens_tpu_torch.ops.sht.geometry import gl_geometry
+    from plancklens_tpu_torch.ops.lensing import _ecp_geom
+
+    def timer(fn):
+        fn()
+        return event_ms(fn, reps)[0]
+
+    grids = {'ecp': lambda: _ecp_geom(2176, 4.0).theta,
+             'gl4096': lambda: gl_geometry(4096).theta,
+             'healpix': lambda: HealpixGeometry(NSIDE).theta}
+    rows = []
+    for name, batches, spin, two, lmax, grid, mirror in STREAMED_CASES:
+        theta = grids[grid]()
+        R = len(theta)
+        if mirror:
+            t_m, t_p = core.pair_tables(lmax, lmax, spin, theta, None, dev)
+        else:
+            t_m = t_p = core.full_tables(lmax, lmax, spin, theta, None, dev)
+        blocks, box = stream_blocks(lmax, lmax, R, 8, 2 if two else 1, mirror)
+        for kind, B in batches.items():
+            shape = (B, lmax + 1, lmax + 1) if kind == 'synth' else (B, R, lmax + 1)
+            x = [torch.randn(shape, generator=gen, device=dev, dtype=torch.complex128)
+                 for _ in range(2 if two else 1)]
+            xm = x[1] if two else None
+            if mirror and kind == 'synth':
+                kernel = lambda: lk.synth_pair(x[0], xm, spin, R, t_m, t_p)
+            elif mirror:
+                kernel = lambda: lk.anal_pair(x[0], xm, spin, lmax, t_m, t_p)
+            elif kind == 'synth':
+                kernel = lambda: (lk.synth(x[0], R, t_m), None)
+            else:
+                kernel = lambda: (lk.anal(x[0], lmax, t_m), None)
+            k_ms = timer(kernel)
+            k_out = kernel()
+            out, info = streamed_transform(kind, x[0], xm, spin, theta, lmax, torch.float64,
+                                           blocks, mirror, timer)
+            err = max(rel_max(a, b) for a, b in zip(out, k_out) if b is not None)
+            if not err <= 1e-12:
+                raise RuntimeError('%s %s batch %d: the streamed bmm vs the kernel %.2e > 1e-12'
+                                   % (name, kind, B, err))
+            kname = {('synth', True): 'K1', ('anal', True): 'K2', ('synth', False): 'K3',
+                     ('anal', False): 'K4'}[kind, mirror]
+            row = dict(case=name, kernel=kname, spin=spin, two=two, dtype='f64', lmax=lmax,
+                       rings=R, batch=B, kernel_ms=k_ms,
+                       packed_ms=sum(b['packed_ms'] for b in info),
+                       bmm_ms=sum(b['bmm_ms'] for b in info), rel_err=err,
+                       blocks=len(info), largest_block_gb=max(box) / 1e9,
+                       table_gb=sum(b['table_gb'] for b in info),
+                       build_s=sum(b['build_s'] for b in info), per_block=info, card=smi)
+            rows.append(row)
+            print('  %s %s batch %d, streamed over %d m-blocks (largest %.2f GB, %.1f GB in '
+                  'all, built in %.2f s): kernel %.3f ms, torch.bmm %.3f ms, the packed '
+                  'transform %.3f ms; %.2e of max from the kernel | %s'
+                  % (kname, name, B, row['blocks'], row['largest_block_gb'], row['table_gb'],
+                     row['build_s'], k_ms, row['bmm_ms'], row['packed_ms'], err, smi),
+                  flush=True)
+            del x, xm, k_out, out
+            torch.cuda.empty_cache()
+        del t_m, t_p
+        torch.cuda.empty_cache()
+    return rows
 
 
 def library_rows(dev, gen, smi, reps):
@@ -304,12 +469,10 @@ def library_rows(dev, gen, smi, reps):
                 xm = x[1] if two else None
                 if kind == 'synth':
                     kernel = lambda: lk.synth_pair(x[0], xm, spin, R, t_m, t_p)
-                    packed = lambda: pk.synth(x[0], xm)
-                    products = [(T.transpose(1, 2), X) for T, X in pk.synth_products(x[0], xm)]
                 else:
                     kernel = lambda: lk.anal_pair(x[0], xm, spin, lmax, t_m, t_p)
-                    packed = lambda: pk.anal(x[0], xm)
-                    products = pk.anal_products(x[0], xm)
+                packed = lambda: pk.transform(kind, x[0], xm)
+                products = pk.products(kind, x[0], xm)
                 gemm = lambda: [torch.bmm(T, X) for T, X in products]
                 for fn in (kernel, packed, gemm):        # warm-up: cuBLAS handles, caches
                     fn()
@@ -580,10 +743,8 @@ def main():
     torch.cuda.empty_cache()
     out = {'card': smi, 'reps': args.reps, 'shapes': results,
            'library': library_rows(dev, gen, smi, args.reps),
-           'too_large': {row[0]: lambda_table_bytes(*row[1:]) / 1e9 for row in TOO_LARGE},
+           'streamed': streamed_rows(dev, gen, smi, args.reps),
            'precision': precision_rows(dev, smi)}
-    for name, gb in out['too_large'].items():
-        print('no library yardstick for %s: table of %.1f GB' % (name, gb))
     for k, kind in (('k1', 'synth_pair'), ('k2', 'anal_pair')):
         b8, b4 = [r['ms'] for r in results if r['kernel'] == kind][:2]
         out['%s_batch4_over_batch8' % k] = b4 / b8

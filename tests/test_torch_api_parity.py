@@ -13,6 +13,13 @@ The deliberate departures are the table DEPARTURES (module, name[, parameter]) -
 and MODULE_MAP for a JAX module whose port is other modules; each entry must still be a
 departure (a stale entry fails), and each carries its reason.
 
+The repo's entry points likewise: every examples/*.py that imports plancklens_tpu has its
+port examples/<name>_torch.py, or a DEPARTURES row ('examples/<name>.py',) with its reason.
+A port script accepts every option and positional argument its JAX script declares with
+`add_argument` (rows ('examples/<name>.py', option) name the exceptions), and `--device`;
+where the JAX script's `main` takes parameters, the port's `main` takes them by the same
+names, at the same positions, with the same defaults (and may add keyword-only ones).
+
 Also: no import in plancklens_tpu_torch/**.py, chip_smoke.py or examples/*_torch.py names
 jax or plancklens_tpu (the port's run-time rule; chip_smoke.py checks it on the card too).
 """
@@ -59,6 +66,19 @@ DEPARTURES = {
         "rely on, so a mesh is every rank in rank order",
     ('parallel/distributed.py', 'host_array_to_global', 'spec'):
         "a jax PartitionSpec; the port all-gathers along the mesh's 'sims' axis",
+    ('examples/bench_ondevice.py',):
+        "the JAX package's TPU timing probe; its port waits for the port bench (ROADMAP "
+        "queue 1 item 4)",
+    ('examples/bench_qe_throughput.py',):
+        "the JAX package's TPU QE throughput probe; its port waits for the port bench "
+        "(ROADMAP queue 1 item 4)",
+    ('examples/f32_precision_jax.py',):
+        "the JAX package's side of ROADMAP fault 3.2's f32 record; the port's side is "
+        "bench_legendre_torch.precision_rows",
+    ('examples/run_qlms.py', '--cpu'):
+        "pins the JAX backend to the CPU; the port's driver takes --device cpu",
+    ('examples/run_qlms.py', '--x64'):
+        "a JAX switch enabling float64; the port's dtypes are its parameter file's",
 }
 
 # JAX module -> (port modules, {JAX name: 'port module.name'}, reason)
@@ -165,13 +185,118 @@ def test_port_module_matches_the_jax_surface(rel):
     assert not gaps, '%s of the port departs from the JAX package: %s' % (rel, gaps)
 
 
+def _imports(path):
+    """Top-level names of every module a file imports (absolute imports, nested too)."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split('.')[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split('.')[0])
+    return names
+
+
+def _jax_examples(root=REPO):
+    """'examples/<name>.py' of every example that imports the JAX package (not a port's)."""
+    paths = glob.glob(os.path.join(root, 'examples', '*.py'))
+    return sorted(os.path.relpath(p, root) for p in paths
+                  if not p.endswith('_torch.py') and 'plancklens_tpu' in _imports(p))
+
+
+def _arguments(path):
+    """Option strings and positional names of every `add_argument` call in a script."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                and node.func.attr == 'add_argument':
+            out.update(a.value for a in node.args
+                       if isinstance(a, ast.Constant) and isinstance(a.value, str))
+    return out
+
+
+def _main(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return next((n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == 'main'),
+                None)
+
+
+def _example_gaps(rel, root=REPO):
+    """Every departure of the port of the JAX example `rel` ('examples/<name>.py'), as
+    (key, what) tuples: key () when it has no port, (option,) for an argument of the JAX
+    script the port does not declare, ('--device',) when the port lacks it, ('main',
+    parameter) for a parameter of the JAX script's main that the port's main lacks, moves or
+    defaults otherwise."""
+    jax_path = os.path.join(root, rel)
+    port_path = jax_path[:-len('.py')] + '_torch.py'
+    if not os.path.exists(port_path):
+        return [((), 'no port script')]
+    port_args = _arguments(port_path)
+    gaps = [((a,), 'not declared') for a in sorted(_arguments(jax_path) - port_args)]
+    if '--device' not in port_args:
+        gaps.append((('--device',), 'not declared'))
+    jmain, pmain = _main(jax_path), _main(port_path)
+    if jmain is None or not jmain.args.args + jmain.args.kwonlyargs:
+        return gaps
+    if pmain is None:
+        return gaps + [(('main',), 'not defined')]
+    jpos, _, jkw = _params(jmain)
+    ppos, _, pkw = _params(pmain)
+    for i, p in enumerate(jpos):
+        if p not in ppos or ppos.index(p) != i:
+            gaps.append((('main', p), 'not at position %d' % i))
+    gaps += [(('main', p), 'not accepted') for p in jkw if p not in ppos + pkw]
+
+    def defaults(fn):
+        a = fn.args
+        pos = (a.posonlyargs + a.args)[len(a.posonlyargs + a.args) - len(a.defaults):]
+        out = {x.arg: ast.literal_eval(d) for x, d in zip(pos, a.defaults)}
+        out.update({x.arg: ast.literal_eval(d) for x, d in zip(a.kwonlyargs, a.kw_defaults)
+                    if d is not None})
+        return out
+    jdef, pdef = defaults(jmain), defaults(pmain)
+    gaps += [(('main', p), 'default %r, the JAX package\'s %r' % (pdef.get(p), v))
+             for p, v in jdef.items() if pdef.get(p, object()) != v]
+    return gaps
+
+
+@pytest.mark.parametrize('rel', _jax_examples())
+def test_jax_example_has_its_port(rel):
+    gaps = [(key, what) for key, what in _example_gaps(rel) if (rel,) + key not in DEPARTURES]
+    assert not gaps, '%s: %s' % (rel, gaps)
+
+
+def test_example_check_finds_a_missing_port(tmp_path):
+    """The check fails on a JAX example with no port, on a port missing an option, on one
+    without --device, and on a port's main that moves or redefaults a parameter."""
+    ex = tmp_path / 'examples'
+    ex.mkdir()
+    (ex / 'a.py').write_text('import plancklens_tpu\n')
+    (ex / 'b.py').write_text('from plancklens_tpu.models import n0s\n'
+                             'p.add_argument("--lmax")\np.add_argument("--iter")\n'
+                             'def main(lmax=1, nsims=2):\n    pass\n')
+    (ex / 'b_torch.py').write_text('p.add_argument("--lmax")\n'
+                                   'def main(nsims=2, lmax=3, *, device):\n    pass\n')
+    (ex / 'c.py').write_text('import numpy\n')
+    assert _jax_examples(str(tmp_path)) == ['examples/a.py', 'examples/b.py']
+    assert _example_gaps('examples/a.py', str(tmp_path)) == [((), 'no port script')]
+    keys = [k for k, _ in _example_gaps('examples/b.py', str(tmp_path))]
+    assert keys == [('--iter',), ('--device',), ('main', 'lmax'), ('main', 'nsims'),
+                    ('main', 'lmax')]
+
+
 @pytest.mark.parametrize('entry', sorted(DEPARTURES, key=str))
 def test_departure_is_current_and_reasoned(entry):
     """Each departure still holds (the port still lacks the name or parameter) and names
     its reason, so the table stays as short as the code allows."""
     assert len(DEPARTURES[entry].split()) >= 5, DEPARTURES[entry]
     rel, key = entry[0], entry[1:]
-    assert key in [k for k, _ in _gaps(rel)], (entry, 'is no longer a departure')
+    gaps = _example_gaps(rel) if rel.startswith('examples/') else _gaps(rel)
+    assert key in [k for k, _ in gaps], (entry, 'is no longer a departure')
 
 
 @pytest.mark.parametrize('rel', sorted(MODULE_MAP))
@@ -196,15 +321,5 @@ def _run_time_files():
 
 @pytest.mark.parametrize('rel', _run_time_files())
 def test_run_time_code_imports_neither_jax_nor_the_jax_package(rel):
-    with open(os.path.join(REPO, rel)) as f:
-        tree = ast.parse(f.read())
-    bad = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names = [node.module]
-        else:
-            continue
-        bad += [n for n in names if n.split('.')[0] in ('jax', 'jaxlib', 'plancklens_tpu')]
+    bad = _imports(os.path.join(REPO, rel)) & {'jax', 'jaxlib', 'plancklens_tpu'}
     assert not bad, (rel, bad)
