@@ -114,9 +114,12 @@
 //
 // Plain C interface (ctypes); each entry point returns the first error of the launches it
 // makes (cudaGetLastError() after each, the second pass of the analysis included).
+#include <cooperative_groups.h>
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -172,6 +175,22 @@ __device__ __forceinline__ void rec_step(Rec& r, int l, double a, double b, doub
     dn = r.sv;
     k = r.sk;
   }
+  if (k < 0 && fabs(dn) > THRESH) {
+    dnew *= DOWN;
+    dn *= DOWN;
+    k += 1;
+  }
+  r.dm1 = dnew;
+  r.d = dn;
+  r.k = k;
+}
+
+// rec_step for a state past its seed (l + 1 > l0): the same rounding, without the seed test
+__device__ __forceinline__ void rec_step_seeded(Rec& r, double a, double b, double g,
+                                                double x) {
+  double dn = __dsub_rn(__dmul_rn(__dadd_rn(__dmul_rn(a, x), b), r.d), __dmul_rn(g, r.dm1));
+  double dnew = r.d;
+  int k = r.k;
   if (k < 0 && fabs(dn) > THRESH) {
     dnew *= DOWN;
     dn *= DOWN;
@@ -606,6 +625,365 @@ anal_pair_sum_kernel(typename C2t<T>::type* __restrict__ A,
   *o = acc;
 }
 
+// ------------------------------------------------------- K2 pair analysis on the FP64 MMA
+// For one column m the pair analysis is a matrix product over the rings j:
+//   A[l, map] = sum_j lambda_l(j) Q[j, map],
+// with lambda the recursion's effective values. A block holds a slice of the northern
+// rings of one m and one batch tile; the blocks of one (m, batch tile) are one thread-block
+// cluster that together hold every northern ring. A thread runs NCH recursion chains (a
+// chain: one recursion, d_{m,-s} or d_{m,+s}, on one ring): on a batch tile of 8 maps one,
+// on a tile of 4 maps two (two rings in mode 0, both recursions of a ring in modes 1/2), so
+// that the B operands (below) take the same registers. A warp's 32 NCH chains are the
+// columns of its lambda tile. Per chunk of PLC l steps:
+//   * every thread writes its chains' PLC values into its warp's lambda tile in shared
+//     memory, rows ordered even l first (lc is even, so row p < 8 holds l = lc + 2p and row
+//     8 + p holds l = lc + 2p + 1); only the warp itself reads its tile;
+//   * the warp contracts its tile with the B operands of its chains, which it loaded from
+//     Q once and keeps in registers (f64; f32 data is widened), on the FP64 tensor cores,
+//     and leaves the partial tile in shared memory: mode 0 as two 8-row products (m8n8k4)
+//     with one operand a parity class, modes 1/2 as one 16-row product (m16n8k16, Hopper's
+//     f64 shape);
+//   * after one barrier the block sums its warps' partials in warp order, and after one
+//     cluster barrier block r sums its share of the chunk's outputs over the cluster's
+//     blocks in rank order through distributed shared memory and writes each once (rounded
+//     once to the data type). The cluster barrier is split (arrive, the next chunk's
+//     recursion, wait), and the block partials have two buffers, so one barrier a chunk
+//     both publishes the partials and frees the buffer of the chunk before.
+// The B operands, columns (re, im) of the batch tile's maps:
+//   mode 0: even-l rows with Qn + Qs', odd-l rows with Qn - Qs' (Qs' the mirror ring's data
+//           times (-1)^m, zero for the equator of an odd ring count);
+//   modes 1/2: output A takes Qpn on the d_{m,-s} chains and (-1)^l Qps' on the d_{m,+s}
+//           chains, output B (mode 1) (-1)^l Qms' on the first and Qmn on the second;
+//           (-1)^l is the sign of a row class, applied to the partial of each recursion.
+constexpr int PLC = 16;        // l steps of one chunk: 8 even and 8 odd rows
+constexpr int PMAXCS = 16;     // most blocks in a cluster (above 8 a non-portable size)
+
+template <int MODE> __host__ __device__ constexpr int pair_recs() { return MODE == 0 ? 1 : 2; }
+template <int MODE> __host__ __device__ constexpr int pair_outs() { return MODE == 1 ? 2 : 1; }
+// recursion chains a thread: two on the narrow batch tile
+template <int BT> __host__ __device__ constexpr int pair_nch() { return BT == 4 ? 2 : 1; }
+// row stride (doubles) of a warp's lambda tile: 32 NCH chains + 4 for the banks
+template <int BT> __host__ __device__ constexpr int pair_ls() { return 32 * pair_nch<BT>() + 4; }
+// rings of a warp, and of a block of nw warps (one chain a thread in modes 1/2 splits the
+// warps into one set a recursion)
+template <int MODE, int BT> __host__ __device__ constexpr int pair_rpw() {
+  return MODE == 0 ? 32 * pair_nch<BT>() : 32;
+}
+template <int MODE, int BT> __host__ __device__ constexpr int pair_sets() {
+  return MODE != 0 && pair_nch<BT>() == 1 ? 2 : 1;
+}
+template <int MODE, int BT> __host__ __device__ constexpr int pair_rings(int nw) {
+  return nw / pair_sets<MODE, BT>() * pair_rpw<MODE, BT>();
+}
+// complex row stride of a warp's partial tile: (outputs x maps) + 4 for the banks
+template <int MODE, int BT> __host__ __device__ constexpr int pair_ps() {
+  return pair_outs<MODE>() * BT + 4;
+}
+// complex elements of a chunk's output tile
+template <int MODE, int BT> __host__ __device__ constexpr int pair_elems() {
+  return PLC * pair_outs<MODE>() * BT;
+}
+// dynamic shared memory of a block of nw warps on a batch tile of BT maps: lambda tiles,
+// warp partials, two buffers of block partials, two buffers of the chunk's table rows
+template <int MODE, int BT> __host__ __device__ constexpr int pair_smem(int nw) {
+  return nw * PLC * pair_ls<BT>() * 8 + nw * PLC * pair_ps<MODE, BT>() * 16 +
+         2 * pair_elems<MODE, BT>() * 16 + 2 * pair_recs<MODE>() * 3 * PLC * 8;
+}
+
+// D += A B on the FP64 tensor cores: 8 x 8 x 4 (mode 0's rows of one parity class) and the
+// sm_90 shape 16 x 8 x 16 (modes 1/2: both classes, four k-steps)
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+               : "+d"(d[0]), "+d"(d[1])
+               : "d"(a), "d"(b));
+}
+__device__ __forceinline__ void mma_f64_k16(double (&d)[4], const double (&a)[8],
+                                            const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
+        "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one component (0 real, 1 imaginary) of a complex element, widened to f64
+template <typename T>
+__device__ __forceinline__ double comp(const typename C2t<T>::type* q, size_t at, int part) {
+  return (double)reinterpret_cast<const T*>(q)[2 * at + part];
+}
+
+template <typename T, int NW, int BT, int MODE>
+__global__ void __launch_bounds__(NW * 32, 16 / NW)
+anal_pair_mma_kernel(const typename C2t<T>::type* __restrict__ Qp,
+                     const typename C2t<T>::type* __restrict__ Qm,
+                     typename C2t<T>::type* __restrict__ A,
+                     typename C2t<T>::type* __restrict__ Bo,
+                     Tables tm, Tables tp, const double* __restrict__ x,
+                     int B, int L, int M, int R, int rs) {
+  using C2 = typename C2t<T>::type;
+  constexpr int NREC = pair_recs<MODE>(), NOUT = pair_outs<MODE>(), PS = pair_ps<MODE, BT>();
+  constexpr int E = pair_elems<MODE, BT>();
+  constexpr int NTH = NW * 32;
+  constexpr int NCH = pair_nch<BT>(), LS = pair_ls<BT>();
+  constexpr int KS = 8 * NCH;                // k-steps of 4 chains in a warp's tile
+  constexpr int PNT = BT / 4;                // n-tiles of 8 columns: re, im of 4 maps
+  constexpr int RPW = pair_rpw<MODE, BT>(), SETS = pair_sets<MODE, BT>();
+  constexpr int RMAX = pair_rings<MODE, BT>(NW);
+  constexpr bool BOTH = MODE != 0 && NCH == 2;   // a thread runs both recursions of a ring
+  constexpr int NOP = MODE == 2 ? 1 : 2;     // B operand sets: mode 0 even/odd, mode 1 outputs
+  static_assert(E <= NTH, "one element of the block sum a thread");
+  extern __shared__ __align__(16) unsigned char smem[];
+  double (*const lam)[PLC][LS] = reinterpret_cast<double (*)[PLC][LS]>(smem);
+  double2 (*const wp)[PLC][PS] =
+      reinterpret_cast<double2 (*)[PLC][PS]>(smem + NW * PLC * LS * 8);
+  double2 (*const bp)[E] = reinterpret_cast<double2 (*)[E]>(
+      smem + NW * PLC * LS * 8 + NW * PLC * PS * 16);
+  double (*const tab)[NREC * 3][PLC] = reinterpret_cast<double (*)[NREC * 3][PLC]>(
+      smem + NW * PLC * LS * 8 + NW * PLC * PS * 16 + 2 * E * 16);
+
+  // the cluster is the grid's x dimension: cs blocks, block rank blockIdx.x
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = gridDim.x, rank = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mi = blockIdx.z;                 // column: m - m0
+  const int b0 = blockIdx.y * BT;
+  const int nh = (R + 1) / 2, n_s = R - nh;
+  const double sgn_m = (mi & 1) ? -1. : 1.;
+  const int lc0 = loop_start(tm.l0, NREC == 2 ? tp.l0 : tm.l0, mi) & ~1;
+  const int nch = lc0 < L ? (L - lc0 + PLC - 1) / PLC : 0;
+
+  // the warp's rings start at wi0 of the block's slice; one chain a thread in modes 1/2
+  // gives the second set of warps the d_{m,+s} recursion
+  const int wset = w * SETS / NW;
+  const int wi0 = (w % (NW / SETS)) * RPW;
+  auto live_warp = [&](int ww) {             // has a ring of the grid
+    const int i0 = (ww % (NW / SETS)) * RPW;
+    return i0 < rs && rank * rs + i0 < nh;
+  };
+  const bool live = live_warp(w);
+  // column c of the warp's tile: its recursion (0: d_{m,-s}) and its ring in the slice
+  auto col_half = [&](int c) { return BOTH ? c / 32 : wset; };
+  auto col_ring = [&](int c) { return wi0 + (MODE == 0 ? c : c % 32); };
+
+  Rec st[NCH];
+  double xr[NCH];
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    const int c = 32 * ch + lane, i = col_ring(c), j = rank * rs + i;
+    const bool valid = i < rs && j < nh;
+    if (col_half(c))   // (not `half ? tp : tm`: a reference chosen at run time puts both on the stack)
+      rec_init(st[ch], tp, valid ? j : 0, mi, M, valid);
+    else
+      rec_init(st[ch], tm, valid ? j : 0, mi, M, valid);
+    xr[ch] = x[valid ? j : 0];
+  }
+
+  // B operands of the warp's k-steps (tile columns 4 ks + t4), columns 8 nt + g of the
+  // product: map b0 + 4 nt + g / 2, part g % 2
+  double bf[NOP][PNT][KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int c = 4 * ks + t4, ic = col_ring(c), jc = rank * rs + ic;
+    const bool ok = live && ic < rs && jc < nh;
+    const bool first = col_half(c) == 0;     // a d_{m,-s} chain
+#pragma unroll
+    for (int nt = 0; nt < PNT; ++nt) {
+      const int bb = b0 + 4 * nt + (g >> 1), part = g & 1;
+      const bool okb = ok && bb < B;
+      const size_t n_at = ((size_t)bb * R + jc) * M + mi;
+      const size_t s_at = ((size_t)bb * R + (R - 1 - jc)) * M + mi;
+      const bool oks = okb && jc < n_s;
+      if (MODE == 0) {
+        const double qn = okb ? comp<T>(Qp, n_at, part) : 0.;
+        const double qs = oks ? sgn_m * comp<T>(Qp, s_at, part) : 0.;
+        bf[0][nt][ks] = qn + qs;
+        bf[NOP - 1][nt][ks] = qn - qs;
+      } else {
+        bf[0][nt][ks] = first ? (okb ? comp<T>(Qp, n_at, part) : 0.)
+                              : (oks ? sgn_m * comp<T>(Qp, s_at, part) : 0.);
+        if (MODE == 1)
+          bf[NOP - 1][nt][ks] = first ? (oks ? sgn_m * comp<T>(Qm, s_at, part) : 0.)
+                                      : (okb ? comp<T>(Qm, n_at, part) : 0.);
+      }
+    }
+  }
+
+  // rows l < lc0 are zero: block r writes those with l % cs == r
+  {
+    const int lz = lc0 < L ? lc0 : L;
+    const int nrow = lz > rank ? (lz - rank + cs - 1) / cs : 0;
+    for (int e = tid; e < nrow * NOUT * BT; e += NTH) {
+      const int k = e / (NOUT * BT), v = e % (NOUT * BT), o = v / BT, b = v % BT;
+      if (b0 + b < B)
+        (o == 0 ? A : Bo)[((size_t)(b0 + b) * L + rank + cs * k) * M + mi] = C2{T(0), T(0)};
+    }
+  }
+  if (nch == 0) return;   // every block of the cluster returns here, before any barrier
+
+  // the table rows of chunk c into buffer cb (rows past lmax repeat the last: they feed
+  // steps whose outputs are not written)
+  auto stage = [&](int c, int cb) {
+    for (int e = tid; e < NREC * 3 * PLC; e += NTH) {
+      const int k = e / PLC, s = e % PLC;
+      const double* row = k == 0 ? tm.alpha : k == 1 ? tm.beta : k == 2 ? tm.gamma
+                        : k == 3 ? tp.alpha : k == 4 ? tp.beta : tp.gamma;
+      const int l = lc0 + c * PLC + s < L ? lc0 + c * PLC + s : L - 1;
+      __pipeline_memcpy_async(&tab[cb][k][s], row + (size_t)l * M + mi, 8);
+    }
+    __pipeline_commit();
+  };
+  // the warp's lambda tile of chunk c. A column's recursions seed at l0 - 1, in chunk 0
+  // (lc0 >= l0 - 2), so the later chunks step without the seed test
+  auto recur = [&](int c) {
+    if (!live) return;
+    const int lc = lc0 + c * PLC, cb = c & 1;
+    if (c == 0) {
+#pragma unroll
+      for (int s = 0; s < PLC; ++s)
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int h = 3 * col_half(32 * ch + lane);
+          lam[w][(s & 1) * 8 + (s >> 1)][32 * ch + lane] = deff_mul<double>(st[ch]);
+          rec_step(st[ch], lc + s, tab[cb][h][s], tab[cb][h + 1][s], tab[cb][h + 2][s],
+                   xr[ch]);
+        }
+    } else {
+#pragma unroll
+      for (int s = 0; s < PLC; ++s)
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int h = 3 * col_half(32 * ch + lane);
+          lam[w][(s & 1) * 8 + (s >> 1)][32 * ch + lane] = deff_mul<double>(st[ch]);
+          rec_step_seeded(st[ch], tab[cb][h][s], tab[cb][h + 1][s], tab[cb][h + 2][s],
+                          xr[ch]);
+        }
+    }
+  };
+  // the warp's partial tile of chunk c: rows 8 q + g (l = lc + 2 g + q), complex columns
+  // o * BT + 4 nt + t4
+  auto contract = [&]() {
+    if (!live) return;
+    __syncwarp();
+    if constexpr (MODE == 0) {   // the fold: even rows with Qn + Qs', odd rows with Qn - Qs'
+      double acc[2][PNT][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int nt = 0; nt < PNT; ++nt) acc[q][nt][0] = acc[q][nt][1] = 0.;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const double a0 = lam[w][g][4 * ks + t4], a1 = lam[w][8 + g][4 * ks + t4];
+#pragma unroll
+        for (int nt = 0; nt < PNT; ++nt) {
+          mma_f64(acc[0][nt], a0, bf[0][nt][ks]);
+          mma_f64(acc[1][nt], a1, bf[NOP - 1][nt][ks]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < PNT; ++nt) {
+        wp[w][g][4 * nt + t4] = double2{acc[0][nt][0], acc[0][nt][1]};
+        wp[w][8 + g][4 * nt + t4] = double2{acc[1][nt][0], acc[1][nt][1]};
+      }
+    } else {
+      // modes 1/2: both classes in one 16-row tile; k-step kk covers the tile columns
+      // 16 kk + t4 + 4 i, of recursion kk / 2 when a thread runs both. One sum each
+      // recursion, so that (-1)^l goes on the odd rows of output A's d_{m,+s} sum and of
+      // output B's d_{m,-s} sum
+      constexpr int NH = BOTH ? 2 : 1;
+#pragma unroll
+      for (int o = 0; o < NOUT; ++o) {
+        double acc[NH][PNT][4];
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+#pragma unroll
+          for (int nt = 0; nt < PNT; ++nt) acc[h][nt][0] = acc[h][nt][1] = acc[h][nt][2] =
+              acc[h][nt][3] = 0.;
+#pragma unroll
+        for (int kk = 0; kk < KS / 4; ++kk) {
+          double a[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = lam[w][(i & 1) * 8 + g][16 * kk + t4 + 4 * (i >> 1)];
+#pragma unroll
+          for (int nt = 0; nt < PNT; ++nt) {
+            const double b[4] = {bf[o][nt][4 * kk], bf[o][nt][4 * kk + 1],
+                                 bf[o][nt][4 * kk + 2], bf[o][nt][4 * kk + 3]};
+            mma_f64_k16(acc[BOTH ? kk / 2 : 0][nt], a, b);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < PNT; ++nt) {
+          double e0 = 0., e1 = 0., o0 = 0., o1 = 0.;
+#pragma unroll
+          for (int h = 0; h < NH; ++h) {
+            const int half = BOTH ? h : wset;
+            const double so = (o == 0) == (half == 0) ? 1. : -1.;
+            e0 += acc[h][nt][0];
+            e1 += acc[h][nt][1];
+            o0 += so * acc[h][nt][2];
+            o1 += so * acc[h][nt][3];
+          }
+          wp[w][g][o * BT + 4 * nt + t4] = double2{e0, e1};
+          wp[w][8 + g][o * BT + 4 * nt + t4] = double2{o0, o1};
+        }
+      }
+    }
+  };
+
+  stage(0, 0);
+  if (nch > 1) stage(1, 1);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  recur(0);
+  for (int c = 0; c < nch; ++c) {
+    const int cb = c & 1;
+    contract();
+    // publishes the warps' partials and the next chunk's table rows; every thread is past
+    // its reads of this chunk's table rows, whose buffer is refilled next
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (c + 2 < nch) stage(c + 2, cb);
+    if (tid < E) {                          // the block's sum, in warp order
+      const int p = tid / (NOUT * BT), col = tid % (NOUT * BT);
+      double2 s{0., 0.};
+      for (int ww = 0; ww < NW; ++ww) {
+        if (!live_warp(ww)) continue;
+        const double2 v = wp[ww][p][col];
+        s.x += v.x;
+        s.y += v.y;
+      }
+      bp[cb][tid] = s;
+    }
+    cluster_arrive();
+    if (c + 1 < nch) recur(c + 1);
+    cluster_wait();
+    // block r's share of the outputs: the cluster's sum in rank order, written once
+    const int lc = lc0 + c * PLC;
+    for (int e = rank + cs * tid; e < E; e += cs * NTH) {
+      double2 s{0., 0.};
+      for (int r = 0; r < cs; ++r) {
+        const double2 v = *cl.map_shared_rank(&bp[cb][e], r);
+        s.x += v.x;
+        s.y += v.y;
+      }
+      const int p = e / (NOUT * BT), col = e % (NOUT * BT), o = col / BT, b = col % BT;
+      const int l = lc + 2 * (p & 7) + (p >> 3);
+      if (l < L && b0 + b < B)
+        (o == 0 ? A : Bo)[((size_t)(b0 + b) * L + l) * M + mi] = C2{T(s.x), T(s.y)};
+    }
+  }
+  // no block leaves while another may still read its partials
+  cluster_arrive();
+  cluster_wait();
+}
+
 Tables make_tables(const void* a, const void* b, const void* g, const void* l0,
                    const void* sv, const void* sk) {
   return Tables{static_cast<const double*>(a), static_cast<const double*>(b),
@@ -685,6 +1063,69 @@ int launch_anal(const void* Qp, const void* Qm, void* A, void* Bo, void* ws, Tab
       static_cast<C2*>(A), static_cast<C2*>(Bo), static_cast<const C2*>(ws), tm.l0,
       TWO ? tp.l0 : tm.l0, B, L, M, nseg - 1);
   return (int)cudaGetLastError();
+}
+
+// K2: one cluster of cs blocks of nw warps for each (batch tile of BT maps, m), block r on
+// the northern rings r rs .. (r + 1) rs - 1. The shape comes from the wrapper's planner
+// (legendre_kernels.plan_pair) and is checked here.
+template <typename T, int NW, int BT, int MODE>
+int launch_anal_pair_mma(const void* Qp, const void* Qm, void* A, void* Bo, Tables tm,
+                         Tables tp, const void* x, int B, int L, int M, int R, int cs, int rs,
+                         int device, void* stream) {
+  using C2 = typename C2t<T>::type;
+  constexpr int RMAX = pair_rings<MODE, BT>(NW);
+  constexpr int smem = pair_smem<MODE, BT>(NW);
+  static_assert(smem <= 232448, "a K2 block's shared memory exceeds 227 KB");
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int nh = (R + 1) / 2;
+  const int btiles = (B + BT - 1) / BT;
+  if (cs < 1 || cs > PMAXCS || rs < 1 || rs > RMAX || (long long)cs * rs < nh ||
+      btiles > 65535 || M > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kern = anal_pair_mma_kernel<T, NW, BT, MODE>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (cs > 8) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, btiles, M);
+  cfg.blockDim = dim3(NW * 32, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int nclusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&nclusters, (void*)kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (nclusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const C2*>(Qp), static_cast<const C2*>(Qm),
+                         static_cast<C2*>(A), static_cast<C2*>(Bo), tm, tp,
+                         static_cast<const double*>(x), B, L, M, R, rs);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_anal_pair_mma_mode(const void* Qp, const void* Qm, void* A, void* Bo, Tables tm,
+                              Tables tp, const void* x, int B, int L, int M, int R, int mode,
+                              int nw, int bt, int cs, int rs, int device, void* stream) {
+#define PLK_K2(NW, BT, MODE)                                                               \
+  if (nw == NW && bt == BT && mode == MODE)                                                \
+    return launch_anal_pair_mma<T, NW, BT, MODE>(Qp, Qm, A, Bo, tm, tp, x, B, L, M, R, cs, \
+                                                 rs, device, stream);
+  PLK_K2(8, 4, 0) PLK_K2(16, 4, 0) PLK_K2(8, 8, 0) PLK_K2(16, 8, 0)
+  PLK_K2(8, 4, 1) PLK_K2(16, 4, 1) PLK_K2(8, 8, 1) PLK_K2(16, 8, 1)
+  PLK_K2(8, 4, 2) PLK_K2(16, 4, 2) PLK_K2(8, 8, 2) PLK_K2(16, 8, 2)
+#undef PLK_K2
+  return (int)cudaErrorInvalidValue;
 }
 
 // the pair modes 0-2 of one data type and block shape, chosen at run time
@@ -807,6 +1248,33 @@ int plk_anal_pair_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TAB
   return launch_anal_pair<double, PLK_A_PAIR64>(Qp, Qm, A, Bo, ws, PLK_TABLES_M,
                                                 PLK_TABLES_P, x, B, L, M, R, mode, nseg,
                                                 device, stream);
+}
+
+// K2 on the FP64 tensor cores: nw warps a block (8 or 16), batch tiles of bt maps (4 or
+// 8), clusters of cs blocks of rs northern rings each.
+int plk_anal_pair_mma_f32(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
+                          const void* x, int B, int L, int M, int R, int mode, int nw, int bt,
+                          int cs, int rs, int device, void* stream) {
+  return launch_anal_pair_mma_mode<float>(Qp, Qm, A, Bo, PLK_TABLES_M, PLK_TABLES_P, x, B, L,
+                                          M, R, mode, nw, bt, cs, rs, device, stream);
+}
+
+int plk_anal_pair_mma_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
+                          const void* x, int B, int L, int M, int R, int mode, int nw, int bt,
+                          int cs, int rs, int device, void* stream) {
+  return launch_anal_pair_mma_mode<double>(Qp, Qm, A, Bo, PLK_TABLES_M, PLK_TABLES_P, x, B, L,
+                                           M, R, mode, nw, bt, cs, rs, device, stream);
+}
+
+// K2's fixed shape for the wrapper's mirror: (l steps a chunk << 16) | (most blocks a
+// cluster << 8) | lanes of a warp
+int plk_anal_pair_shape() { return (PLC << 16) | (PMAXCS << 8) | 32; }
+
+// bytes of dynamic shared memory of a K2 block of nw warps on batch tiles of bt maps
+int plk_anal_pair_smem(int mode, int nw, int bt) {
+  if (bt == 4)
+    return mode == 0 ? pair_smem<0, 4>(nw) : mode == 1 ? pair_smem<1, 4>(nw) : pair_smem<2, 4>(nw);
+  return mode == 0 ? pair_smem<0, 8>(nw) : mode == 1 ? pair_smem<1, 8>(nw) : pair_smem<2, 8>(nw);
 }
 
 // Plain mode (K3/K4), one table set on all R rings.

@@ -27,6 +27,7 @@ import collections
 import ctypes
 import fcntl
 import hashlib
+import itertools
 import os
 import re
 import shutil
@@ -74,6 +75,20 @@ WAVES = 4
 # keeps the main path's peak (10.9 GiB before the split) far under 16 GiB.
 WORKSPACE_CAP = 2 * 2 ** 30
 
+# K2's fixed shape (csrc/legendre_pair.cu's PLC, PMAXCS and the 32 chains of a warp, checked
+# against the library at load): l steps a chunk, most blocks in a cluster, one recursion
+# chain a thread. A block has 8 or 16 warps on a batch tile of 4 or 8 maps; clusters above
+# 8 blocks are a non-portable size.
+PAIR_LC, PAIR_MAX_CLUSTER, PAIR_CHAINS = 16, 16, 32
+PAIR_WARPS = (8, 16)
+PAIR_TILES = (4, 8)
+PAIR_PORTABLE_CLUSTER = 8
+# registers: one chain, the B operands of a warp's 8 k-steps and the accumulators a thread;
+# 128 registers a thread at most (65536 an SM over the 256 threads of each of 2 blocks, or
+# the 512 of one)
+PAIR_MAX_REGS = 128
+SMEM_BYTES = 232448                     # a block's shared memory on the H100 (227 KB)
+
 _lib = None
 
 
@@ -86,6 +101,81 @@ def reset_launches():
 
 SegmentPlan = collections.namedtuple(
     'SegmentPlan', 'nseg passes passes_per_seg rows_per_pass blocks workspace_bytes')
+
+
+PairPlan = collections.namedtuple(
+    'PairPlan', 'cluster rings_per_block m_per_block batch_tile lc warps blocks smem_bytes')
+
+
+def pair_recs(mode):
+    """Recursions of a K2 mode: d_{m,-s} alone in mode 0, both in modes 1 and 2."""
+    return 1 if mode == 0 else 2
+
+
+def pair_outs(mode):
+    return 2 if mode == 1 else 1
+
+
+def pair_nch(bt):
+    """Recursion chains a K2 thread runs: two on the batch tile of 4 maps, else one."""
+    return 2 if bt == PAIR_TILES[0] else 1
+
+
+def pair_rings(mode, nw, bt):
+    """Northern rings a K2 block of `nw` warps holds: 32 a warp, or 64 when a thread runs
+    two rings (mode 0 on 4 maps); one chain a thread in modes 1/2 gives half the warps to
+    each recursion."""
+    nch = pair_nch(bt)
+    rpw = PAIR_CHAINS * nch if mode == 0 else PAIR_CHAINS
+    sets = 2 if mode != 0 and nch == 1 else 1
+    return nw // sets * rpw
+
+
+def pair_smem(mode, nw, bt):
+    """Bytes of dynamic shared memory of a K2 block of `nw` warps on a batch tile of `bt`
+    maps (the source's pair_smem): each warp's lambda tile (LC rows of its 32 or 64 chains
+    + 4 doubles), its partial tile (LC rows of outputs x maps + 4 complex f64), two buffers
+    of the block's partial tile and of the chunk's table rows."""
+    ls = PAIR_CHAINS * pair_nch(bt) + 4
+    ps = pair_outs(mode) * bt + 4
+    elems = PAIR_LC * pair_outs(mode) * bt
+    return (nw * PAIR_LC * ls * 8 + nw * PAIR_LC * ps * 16 + 2 * elems * 16
+            + 2 * pair_recs(mode) * 3 * PAIR_LC * 8)
+
+
+def pair_operand_doubles(mode, bt):
+    """f64 registers a thread keeps for the B operands of its warp's k-steps (8 a chain a
+    lane): two sets (mode 0: even and odd rows; mode 1: the two outputs) or one (mode 2),
+    each of bt / 4 n-tiles of 8 columns."""
+    return 8 * pair_nch(bt) * (1 if mode == 2 else 2) * (bt // 4)
+
+
+def plan_pair(nrings, M, B, mode):
+    """K2's launch shape for a pair call of B maps and M columns on `nrings` rings: a
+    PairPlan. One cluster of blocks for each (m, batch tile: 4 maps up to batch 4, else 8);
+    the blocks of a cluster split the nh = ceil(nrings / 2) northern rings into equal slices
+    (`rings_per_block`, the last one shorter; `pair_rings` at most). The fewest warps (8,
+    else 16) whose cluster stays within the portable 8 blocks; else 16 warps in up to 16
+    blocks; more rings raise."""
+    nh = (nrings + 1) // 2
+    bt = PAIR_TILES[0] if B <= PAIR_TILES[0] else PAIR_TILES[-1]
+    for nw in PAIR_WARPS:
+        cs = -(-nh // pair_rings(mode, nw, bt))
+        if cs <= PAIR_PORTABLE_CLUSTER:
+            break
+    if cs > PAIR_MAX_CLUSTER:
+        raise ValueError('K2 takes at most %d northern rings in mode %d at batch %d, got %d'
+                         % (PAIR_MAX_CLUSTER * pair_rings(mode, PAIR_WARPS[-1], bt), mode,
+                            B, nh))
+    rs = -(-nh // cs)
+    return PairPlan(cs, rs, 1, bt, PAIR_LC, nw, cs * -(-B // bt) * M, pair_smem(mode, nw, bt))
+
+
+def pair_slices(plan, nrings):
+    """[(first, end)] northern rings of each block of a cluster of `plan`, in rank order."""
+    nh = (nrings + 1) // 2
+    rs = plan.rings_per_block
+    return [(r * rs, min(nh, (r + 1) * rs)) for r in range(plan.cluster)]
 
 
 def synth_shape(kind, dt, B):
@@ -251,6 +341,23 @@ def _load():
                                        % (kind, suffix, ('narrow', 'wide')[wide],
                                           tuple(got >> k & 0xff for k in (24, 16, 8, 0)),
                                           shape))
+        for suffix in DTYPES:
+            fn = getattr(lib, 'plk_anal_pair_mma_%s' % suffix)
+            fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 5 + [i] * 4 + [i, p]
+            fn.restype = i
+        lib.plk_anal_pair_shape.restype = i
+        want = PAIR_LC << 16 | PAIR_MAX_CLUSTER << 8 | PAIR_CHAINS
+        if lib.plk_anal_pair_shape() != want:
+            raise RuntimeError('K2 has the shape code %#x, its mirror says %#x'
+                               % (lib.plk_anal_pair_shape(), want))
+        lib.plk_anal_pair_smem.argtypes = [i, i, i]
+        lib.plk_anal_pair_smem.restype = i
+        for mode, nw, bt in itertools.product((0, 1, 2), PAIR_WARPS, PAIR_TILES):
+            got = lib.plk_anal_pair_smem(mode, nw, bt)
+            if got != pair_smem(mode, nw, bt):
+                raise RuntimeError('K2 mode %d, %d warps, batch tile %d: %d bytes of shared '
+                                   'memory, its mirror says %d'
+                                   % (mode, nw, bt, got, pair_smem(mode, nw, bt)))
         lib.plk_anal_tile.argtypes = [i, i]
         lib.plk_anal_tile.restype = i
         for (kind, suffix), (bt, rpp) in ANAL_TILE.items():
@@ -362,6 +469,11 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
     return Fp, Fm
 
 
+# the K2 modes that run on the FP64 tensor cores (anal_pair_mma_kernel); the others run
+# anal_pair_kernel's segments
+MMA_MODES = (0,)
+
+
 def anal_pair(Qp, Qm, spin, lmax, t_m, t_p, nseg=None):
     """K2: (A, Bc) = NS-pair analysis of Qp (with d_{m,-spin}) and Qm (d_{m,+spin}).
 
@@ -379,10 +491,22 @@ def anal_pair(Qp, Qm, spin, lmax, t_m, t_p, nseg=None):
         _check_tables(t, dev, L, M, (R + 1) // 2)
     A = torch.empty((B, L, M), dtype=Qp.dtype, device=dev)
     Bc = None if Qm is None else torch.empty_like(A)
-    plan, ws = _plan('anal_pair', Qp, (R + 1) // 2, L, 1 if Qm is None else 2, nseg)
     mode = _mode(spin, Qm is not None)
-    _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R, mode, dev, _ptr(ws),
-                 plan.nseg)
+    if mode in MMA_MODES:
+        plan = plan_pair(R, M, B, mode)
+        last_plan['anal_pair'] = plan
+        fn = getattr(_load(), 'plk_anal_pair_mma_%s' % _suffix(Qp.dtype))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(_ptr(Qp), _ptr(Qm), _ptr(A), _ptr(Bc), *_tab_args(t_m), *_tab_args(t_p),
+                _ptr(t_m['x']), B, L, M, R, mode, plan.warps, plan.batch_tile, plan.cluster,
+                plan.rings_per_block, dev.index, ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError('anal_pair kernel launch failed: CUDA error %d' % rc)
+        launches['anal_pair'] += 1
+    else:
+        plan, ws = _plan('anal_pair', Qp, (R + 1) // 2, L, 1 if Qm is None else 2, nseg)
+        _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R, mode, dev, _ptr(ws),
+                     plan.nseg)
     shape = (mode, B, _suffix(Qp.dtype))
     anal_pair_shapes[shape] = anal_pair_shapes.get(shape, 0) + 1
     return A, Bc

@@ -480,9 +480,10 @@ def cuda_device():
 @pytest.mark.parametrize('nrings', [65, 66, 513])
 def test_kernels_match_plain_on_card(cuda_device, nrings):
     """K1/K2 against the plain engine on the card: f32 <= 1e-5, f64 <= 1e-12 of max; both
-    bitwise reproducible. 513 rings are 257 recursion rows, 11 ring passes: the ring sum
-    is split into segments there, and also run forced into one. K1 also at batch 5 and
-    with mmax < lmax."""
+    bitwise reproducible. 513 rings are 257 northern rings: K2 splits them over a cluster
+    of blocks in modes 1 and 2. K1 also at batch 5 and with mmax < lmax; K2 also at batch 1
+    and 9 (a second batch tile), with mmax < lmax and on the tables of an m-block that
+    starts at m0 = 10."""
     lmax = 64
     theta = pgl(nrings - 1).theta
     gen = torch.Generator(device=cuda_device).manual_seed(nrings)
@@ -506,12 +507,6 @@ def test_kernels_match_plain_on_card(cuda_device, nrings):
                 # deterministic: the ring sums are reduced in a fixed order
                 again = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p)
                 assert all(torch.equal(a, b) for a, b in zip(again, ka) if b is not None)
-                if nrings == 513:
-                    assert lk.last_plan['anal_pair'].nseg > 1
-                    one = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p, nseg=1)
-                    assert lk.last_plan['anal_pair'].nseg == 1
-                    assert all(_err(a.cpu(), b.cpu()) <= tol
-                               for a, b in zip(one, pa) if b is not None)
                 # K1: every output element written by one thread, so bitwise reproducible
                 again = lk.synth_pair(C, cm, spin, nrings, t_m, t_p)
                 assert all(torch.equal(a, b) for a, b in zip(again, ks) if b is not None)
@@ -527,6 +522,22 @@ def test_kernels_match_plain_on_card(cuda_device, nrings):
                     ps = pcore.legendre_synth_pair_plain(C5, cm, spin, nrings, tm_, tp_)
                     assert all(_err(a.cpu(), b.cpu()) <= tol
                                for a, b in zip(ks, ps) if b is not None)
+            # K2's ragged shapes: batch 1 and 9, mmax 40 < lmax, and the columns m0 = 10..64
+            # of an m-block (its own tables)
+            b_m, b_p = pcore.pair_tables(lmax, lmax, spin, theta, None, cuda_device, 10)
+            for tm_, tp_, M, batches in ((t_m, t_p, lmax + 1, (1, 9)), (h_m, h_p, 41, (3,)),
+                                         (b_m, b_p, lmax - 9, (4,))):
+                for B in batches:
+                    Q2, Q2m = (torch.randn((B, nrings, M), generator=gen, device=cuda_device,
+                                           dtype=cdt) for _ in range(2))
+                    for qm in (None, Q2m):
+                        ka = lk.anal_pair(Q2, qm, spin, lmax, tm_, tp_)
+                        pa = pcore.legendre_anal_pair_plain(Q2, qm, spin, lmax, tm_, tp_)
+                        assert all(_err(a.cpu(), b.cpu()) <= tol
+                                   for a, b in zip(ka, pa) if b is not None), (B, M)
+                        again = lk.anal_pair(Q2, qm, spin, lmax, tm_, tp_)
+                        assert all(torch.equal(a, b) for a, b in zip(again, ka)
+                                   if b is not None)
 
 
 @pytest.mark.cuda
