@@ -471,7 +471,7 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
 
 # the K2 modes that run on the FP64 tensor cores (anal_pair_mma_kernel); the others run
 # anal_pair_kernel's segments
-MMA_MODES = (0,)
+MMA_MODES = (0, 1, 2)
 
 
 def anal_pair(Qp, Qm, spin, lmax, t_m, t_p, nseg=None):
