@@ -15,13 +15,14 @@ Phases:
   0 device      CUDA present (no CPU path), card name and power limit, TF32 off
   1 build       nvcc build of csrc/legendre_pair.cu, all four kernels (timed; registers)
   2 kernels     K1/K2 vs plain version: spins 0-3, odd/even rings, lmax 256, f32
-                (<= 1e-5 of max) and f64 (<= 1e-12 of max), the analysis with its ring sum
-                split into segments (NS > 1, as the planner has it there) and forced into
-                one (NS = 1), K1 also at batch 5 (not a multiple of a batch tile) and with
-                mmax 128 (M not a multiple of 32); lmax 2048 on the 3073-ring QE grid,
+                (<= 1e-5 of max) and f64 (<= 1e-12 of max), K1 also at batch 5 (not a
+                multiple of a batch tile) and with mmax 128 (M not a multiple of 32), K2
+                also at batch 1 and 9, with mmax 128 and on the tables of an m-block from
+                m0 = 64, bitwise equal on a second run; lmax 2048 on the 3073-ring QE grid,
                 spin 1, f32, batch 4 and 8 (<= 1e-5 of max), times with K1's block shape
-                and K2's NS, blocks and workspace, the batch-4 to batch-8 time ratios of
-                K1 and K2, and both bitwise equal from run to run
+                and K2's cluster plan, the batch-4 to batch-8 time ratios of K1 and K2, and
+                both bitwise equal from run to run; a traced K2 call launches its one
+                cluster kernel, no second pass (anal_pair_sum_kernel) and no workspace
   2b plain      K3/K4 vs plain version at lmax 256 on 201 and 202 random rings (one within
                 1e-3 of each pole) and the 255 rings of HEALPix nside 64, n = -3..3,
                 mmax = lmax and mmax < lmax, f32 (<= 1e-5) and f64 (<= 1e-12 of max), K4
@@ -50,13 +51,14 @@ Phases:
                 system, the solutions within 1e-10 (T at 35 uK-arcmin: within 10x the CPU
                 path's own change under a 1e-15 change of its maps and inverted dense
                 block, as that system amplifies rounding by its condition), and a traced
-                warm solve on the card with no host-to-device copy; (6b) CinvT at lmax 2048,
+                warm solve on the card with no host-to-device copy, K2 launched as its
+                cluster kernel with no second pass; (6b) CinvT at lmax 2048,
                 f64, batch 8 (host dense block to l 64): every row below 1e-5 (recurred and
                 recomputed residual), iterations, seconds, seconds an iteration, K1/K2
                 launches by (mode, batch, type), peak < 40 GiB, 10 warm iterations traced
                 (device time by kernel group); the f32 solve, not checked;
                 (6c) CinvP, f64, batch 4, the E/B block to l 32 probed on the card (chunk,
-                seconds, K2 workspace <= its cap); (6d) AlmMapLib -> IVFCinv -> IVFFtl(l >=
+                seconds, K2's cluster plan); (6d) AlmMapLib -> IVFCinv -> IVFFtl(l >=
                 102) -> QELib ptt/p_p on 2 sims, finite, against phase 4's qlm (printed);
                 then K1/K2 at 6b's shape timed against their plain versions (<= 1e-12)
   7 lensed      the lensed masked chain of params/anisofilt_example_torch.py
@@ -773,8 +775,11 @@ def main():
         return torch.randn(shape, generator=gen, device=dev, dtype=cdt)
 
     def split(kind):
-        """The last call's ring split, for the phase lines."""
+        """The last call's ring split, for the phase lines: K2's cluster, K4's segments."""
         pl = lk.last_plan[kind]
+        if kind == 'anal_pair':
+            return ('clusters of %d blocks x %d rings, %d warps, batch tile %d, %d blocks'
+                    % (pl.cluster, pl.rings_per_block, pl.warps, pl.batch_tile, pl.blocks))
         return 'NS %d, %d blocks, workspace %.0f MiB' % (pl.nseg, pl.blocks,
                                                           pl.workspace_bytes / 2 ** 20)
 
@@ -784,7 +789,7 @@ def main():
         return '%d maps x %d rings x %d warps, %d block(s) an SM' % (bt, rpt, nws, minb)
 
     worst = {'synth_pair': 0., 'anal_pair': 0.}
-    nsegs = set()
+    clusters = set()
     for lmax, nrings in ((256, 257), (256, 258)):
         theta = gl_geometry(nrings - 1).theta
         for cdt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
@@ -811,13 +816,27 @@ def main():
                         (lk.synth_pair(Ch, Chm, spin, nrings, h_m, h_p),
                          core.legendre_synth_pair_plain(Ch, Chm, spin, nrings, h_m, h_p)))
                         for a, b in zip(k_, p_) if b is not None)
-                    pa = core.legendre_anal_pair_plain(Q, qm, spin, lmax, t_m, t_p)
+                    # K2's ragged shapes: batch 1 and 9 (a second batch tile of one map),
+                    # mmax 128 and the columns m0 = 64.. of an m-block (its own tables)
+                    b_m, b_p = core.pair_tables(lmax, lmax, spin, theta, None, dev, 64)
                     ea = 0.
-                    for nseg in (None, 1):     # the planner's segments (6 there), and one
-                        ka = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p, nseg=nseg)
-                        check((lk.last_plan['anal_pair'].nseg == 1) == (nseg == 1),
-                              'K2 segments at %d rings: %s' % (nrings, split('anal_pair')))
-                        nsegs.add(lk.last_plan['anal_pair'].nseg)
+                    for Qx, qmx, tm_, tp_ in (
+                            (Q, qm, t_m, t_p),
+                            (crandn((1, nrings, lmax + 1), cdt),
+                             None if qm is None else crandn((1, nrings, lmax + 1), cdt), t_m, t_p),
+                            (crandn((9, nrings, lmax + 1), cdt),
+                             None if qm is None else crandn((9, nrings, lmax + 1), cdt), t_m, t_p),
+                            (Q[:, :, :129].contiguous(),
+                             None if qm is None else qm[:, :, :129].contiguous(), h_m, h_p),
+                            (Q[:, :, 64:].contiguous(),
+                             None if qm is None else qm[:, :, 64:].contiguous(), b_m, b_p)):
+                        ka = lk.anal_pair(Qx, qmx, spin, lmax, tm_, tp_)
+                        clusters.add(lk.last_plan['anal_pair'].cluster)
+                        pa = core.legendre_anal_pair_plain(Qx, qmx, spin, lmax, tm_, tp_)
+                        again = lk.anal_pair(Qx, qmx, spin, lmax, tm_, tp_)
+                        check(all(torch.equal(a, b) for a, b in zip(again, ka) if b is not None),
+                              'K2 at lmax %d, %d rings, batch %d, %d columns is not '
+                              'deterministic' % (lmax, nrings, Qx.shape[0], Qx.shape[2]))
                         ea = max([ea] + [rel_max(a, b) for a, b in zip(ka, pa)
                                          if b is not None])
                     torch.cuda.synchronize()
@@ -828,9 +847,10 @@ def main():
                     worst['synth_pair'] = max(worst['synth_pair'], es)
                     worst['anal_pair'] = max(worst['anal_pair'], ea)
     phase(2, 'kernel vs plain at lmax 256, spins 0-3, 257/258 rings, f32 and f64, K1 at batch '
-             '3 and 5 and mmax 256 and 128, K2 in %s ring segments: worst synth %.2e, anal '
-             '%.2e of max'
-          % ('/'.join(map(str, sorted(nsegs))), worst['synth_pair'], worst['anal_pair']))
+             '3 and 5 and mmax 256 and 128, K2 at batch 1, 3 and 9, mmax 256 and 128 and m0 '
+             '64 in clusters of %s blocks, bitwise equal on a second run: worst synth %.2e, '
+             'anal %.2e of max'
+          % ('/'.join(map(str, sorted(clusters))), worst['synth_pair'], worst['anal_pair']))
 
     geom = gl_geometry(3 * LMAX // 2)          # the QE grid of lmax 2048: 3073 x 6250
     nr = geom.nrings
@@ -849,6 +869,28 @@ def main():
         A0, B0 = lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p)
         ms_a, (A, Bc) = cuda_ms(lambda: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p), 3)
         check(torch.equal(A0, A) and torch.equal(B0, Bc), 'anal_pair is not deterministic')
+        # one traced call: the cluster kernel alone, no second pass, no workspace (the
+        # call allocates its two outputs and nothing else)
+        del A0, B0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out2 = lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p)
+            torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - before
+        names = [e.name for e in prof.events()]
+        n_mma = sum('anal_pair_mma_kernel' in n for n in names)
+        n_sum = sum('anal_pair_sum_kernel' in n for n in names)
+        # (the caching allocator rounds a block up to a multiple of 512 bytes)
+        out_bytes = sum(-(-o.numel() * o.element_size() // 512) * 512 for o in out2)
+        del out2, prof
+        check(n_mma == 1 and n_sum == 0 and grown == out_bytes,
+              'a K2 call launched %d cluster kernels and %d second passes, and grew the memory '
+              'by %d bytes for %d bytes of outputs' % (n_mma, n_sum, grown, out_bytes))
+        phase(2, 'a traced K2 call at batch %d: %d anal_pair_mma_kernel launch, %d '
+                 'anal_pair_sum_kernel launches, %d bytes allocated = its two outputs (no '
+                 'workspace)' % (B, n_mma, n_sum, grown))
         pms_s, (Pp, Pm) = cuda_ms(
             lambda: core.legendre_synth_pair_plain(C, Cm, 1, nr, t_m, t_p), 1)
         pms_a, (PA, PB) = cuda_ms(
@@ -865,7 +907,7 @@ def main():
               'max), both bitwise equal on a second run'
               % (nr, geom.nphi, B, ms_s, shape('pair', B), pms_s, es, ms_a, split('anal_pair'),
                  pms_a, ea))
-        del C, Cm, Fp, Fm, Qp, Qm, A, Bc, A0, B0, Pp, Pm, PA, PB
+        del C, Cm, Fp, Fm, Qp, Qm, A, Bc, Pp, Pm, PA, PB
     torch.cuda.empty_cache()
     phase(2, 'batch 4 / batch 8 time ratio: K1 synth_pair %.4f, K2 anal_pair %.4f'
           % (stats[4]['synth'][0] / stats[8]['synth'][0],
@@ -1228,17 +1270,20 @@ def main():
         names = [e.name for e in prof.events()]
         h2d, d2h = sum('HtoD' in n for n in names), sum('DtoH' in n for n in names)
         k1 = sum('synth_pair_kernel' in n for n in names)
+        k2, k2s = (sum(k in n for n in names) for k in ('anal_pair_mma_kernel',
+                                                          'anal_pair_sum_kernel'))
         phase(6, '(6a) Cinv%s at lmax %d (lmax_dense %d), f64, batch 2, the anisofilt mask, '
                  '%g uK-arcmin: %d iterations on the card, %d on the CPU; right-hand side and '
                  'forward op %.2e of max from the CPU path\'s, preconditioner %.2e; the card\'s '
                  'solution has a residual of %s in the CPU system and is %.2e of max from the '
                  'CPU solution (limit %.2e; the CPU solution moves by %.2e under a 1e-15 '
                  'change of its maps and inverted dense block); a warm solve on the card '
-                 'traced: %d K1 launches, %d host-to-device and %d device-to-host copies over '
-                 '%d iterations'
+                 'traced: %d K1 launches, %d K2 (anal_pair_mma_kernel) and %d '
+                 'anal_pair_sum_kernel launches, %d host-to-device and %d device-to-host '
+                 'copies over %d iterations'
               % (field.upper(), lsmall, ld, nlev, it_g, it_c, ops, pre,
-                 np.array2string(res.numpy(), precision=3), err, limit, floor, k1, h2d, d2h,
-                 it_w))
+                 np.array2string(res.numpy(), precision=3), err, limit, floor, k1, k2, k2s,
+                 h2d, d2h, it_w))
         check(it_g == it_c == it_n and it_g > 5 and bool((rel_g < 1e-5).all())
               and bool((res < 1e-5).all()),
               'Cinv%s at lmax %d: iterations %d (card) / %d (CPU) / %d (perturbed), card '
@@ -1247,8 +1292,10 @@ def main():
               % (field.upper(), ops))
         check(err <= limit, 'Cinv%s at %g uK-arcmin, card vs CPU: %.2e > %.2e'
               % (field.upper(), nlev, err, limit))
-        check(k1 > 0 and h2d == 0 and d2h <= it_w + 2, 'Cinv%s solve trace: %d K1 launches, '
-              '%d host-to-device, %d device-to-host copies' % (field.upper(), k1, h2d, d2h))
+        check(k1 > 0 and k2 > 0 and k2s == 0 and h2d == 0 and d2h <= it_w + 2,
+              'Cinv%s solve trace: %d K1 launches, %d K2 launches, %d second passes, %d '
+              'host-to-device, %d device-to-host copies' % (field.upper(), k1, k2, k2s, h2d,
+                                                            d2h))
         del f_gpu, f_cpu, f_n, prof
     # 6b-6d: lmax 2048, the anisofilt configuration on the idealized parfile's sims; the
     # dense blocks stay in `dense_blocks` for phase 7c's filters (the same keys)
@@ -1271,10 +1318,10 @@ def main():
               % (step.upper(), mode, batch, st['k1'], st['k2']))
         check(st['peak_gib'] < 40., 'Cinv%s peak memory %.2f GiB' % (step.upper(), st['peak_gib']))
     pr = m6['p_probe']
-    check(pr['peak_gib'] < 40. and pr['workspace_bytes'] <= lk.WORKSPACE_CAP
+    check(pr['peak_gib'] < 40. and pr['k2_plan'] is not None
           and pr['launches']['synth_pair'] > 0 and pr['launches']['anal_pair'] > 0,
-          'CinvP probe: peak %.2f GiB, workspace %s, launches %s'
-          % (pr['peak_gib'], pr['workspace_bytes'], pr['launches']))
+          'CinvP probe: peak %.2f GiB, K2 plan %s, launches %s'
+          % (pr['peak_gib'], pr['k2_plan'], pr['launches']))
     ro = m6['route']
     check(ro['launches']['synth_pair'] > 0 and ro['launches']['anal_pair'] > 0,
           'the masked route launched %s' % ro['launches'])

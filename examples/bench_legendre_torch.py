@@ -5,8 +5,8 @@ r"""Time the Legendre kernels K1-K4 alone on one CUDA device:
 
 A loop of seconds for kernel work, where chip_smoke.py takes minutes. It builds the library,
 holds K1-K4 against their plain torch twins at lmax 256 (f32 <= 1e-5, f64 <= 1e-12 of max;
-257 rings for the pair kernels, 201 random rings for the plain ones; the analysis kernels
-once with the planner's ring segments and once forced to one segment), then times, with
+257 rings for the pair kernels, 201 random rings for the plain ones; K4 once with the
+planner's ring segments and once forced to one segment), then times, with
 CUDA events, `--reps` launches after one warm-up, without the twins (they take seconds at
 these sizes; ten times the launches at the pixel-window shape, which takes ~1 ms):
 
@@ -36,13 +36,14 @@ ROADMAP fault 3.2's record (`precision_rows`): K1's spin-1 pair synthesis in f32
 f64 at lmax 512, 1024, 2048 and 4096 on the QE grid, on the alms of
 examples/f32_precision_jax.py, which measures the JAX package's f32 engine.
 
-Every timed shape is run twice and must be bitwise equal; where the planner splits the
+Every timed shape is run twice and must be bitwise equal; where K4's planner splits the
 rings, the result is also held against the one-segment result (f32 <= 1e-5, f64 <= 1e-12
-of max). `--sweep` also times the lmax-2048 analysis shapes with the ring sum forced
-into 1, 2, 4, 8 and 16 segments. `--ptxas` prints the registers and spills of every
-instantiation of the synthesis and analysis kernels (`legendre_kernels.ptxas_report`).
-One line per shape, each with the card's name and power limit (and the block shape of a
-synthesis); the last line of standard output is one JSON object with the same numbers.
+of max). `--sweep` also times K4's lmax-2048 shape with the ring sum forced into 1, 2, 4,
+8 and 16 segments. `--ptxas` prints the registers and spills of every instantiation of the
+synthesis and analysis kernels (`legendre_kernels.ptxas_report`). One line per shape, each
+with the card's name and power limit (and the block shape of a synthesis, K2's cluster
+plan); the library rows give each kernel's time over the bmm calls' in the same call.
+The last line of standard output is one JSON object with the same numbers.
 Raises without a card.
 """
 import argparse
@@ -421,16 +422,17 @@ def streamed_rows(dev, gen, smi, reps):
                        rings=R, batch=B, kernel_ms=k_ms,
                        packed_ms=sum(b['packed_ms'] for b in info),
                        bmm_ms=sum(b['bmm_ms'] for b in info), rel_err=err,
+                       kernel_over_bmm=k_ms / sum(b['bmm_ms'] for b in info),
                        blocks=len(info), largest_block_gb=max(box) / 1e9,
                        table_gb=sum(b['table_gb'] for b in info),
                        build_s=sum(b['build_s'] for b in info), per_block=info, card=smi)
             rows.append(row)
             print('  %s %s batch %d, streamed over %d m-blocks (largest %.2f GB, %.1f GB in '
-                  'all, built in %.2f s): kernel %.3f ms, torch.bmm %.3f ms, the packed '
-                  'transform %.3f ms; %.2e of max from the kernel | %s'
+                  'all, built in %.2f s): kernel %.3f ms, torch.bmm %.3f ms (the kernel takes '
+                  '%.2fx), the packed transform %.3f ms; %.2e of max from the kernel | %s'
                   % (kname, name, B, row['blocks'], row['largest_block_gb'], row['table_gb'],
-                     row['build_s'], k_ms, row['bmm_ms'], row['packed_ms'], err, smi),
-                  flush=True)
+                     row['build_s'], k_ms, row['bmm_ms'], row['kernel_over_bmm'],
+                     row['packed_ms'], err, smi), flush=True)
             del x, xm, k_out, out
             torch.cuda.empty_cache()
         del t_m, t_p
@@ -485,13 +487,15 @@ def library_rows(dev, gen, smi, reps):
                                        % (name, kind, B, err, tol))
                 row = dict(case=name, kernel='K1' if kind == 'synth' else 'K2', spin=spin,
                            two=two, dtype=dt, lmax=lmax, rings=R, m=[m0, m1], batch=B,
-                           kernel_ms=k_ms, packed_ms=p_ms, bmm_ms=g_ms, rel_err=err,
+                           kernel_ms=k_ms, packed_ms=p_ms, bmm_ms=g_ms,
+                           kernel_over_bmm=k_ms / g_ms, rel_err=err,
                            table_gb=pk.table_bytes / 1e9, build_s=pk.build_seconds, card=smi)
                 rows.append(row)
-                print('  %s %s batch %d: kernel %.3f ms, torch.bmm %.3f ms (%d call%s), the '
-                      'packed transform %.3f ms; %.2e of max from the kernel | %s'
-                      % (row['kernel'], name, B, k_ms, g_ms, len(products),
-                         '' if len(products) == 1 else 's', p_ms, err, smi), flush=True)
+                print('  %s %s batch %d: kernel %.3f ms, torch.bmm %.3f ms (%d call%s; the '
+                      'kernel takes %.2fx), the packed transform %.3f ms; %.2e of max from the '
+                      'kernel | %s' % (row['kernel'], name, B, k_ms, g_ms, len(products),
+                                       '' if len(products) == 1 else 's', k_ms / g_ms, p_ms,
+                                       err, smi), flush=True)
                 del x, xm, products, k_out, p_out
         del pk, t_m, t_p
         torch.cuda.empty_cache()
@@ -532,7 +536,7 @@ def main():
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument('--reps', type=int, default=3)
     p.add_argument('--sweep', action='store_true',
-                   help='also time the lmax-2048 shapes at forced segment counts')
+                   help="also time K4's lmax-2048 shape at forced segment counts")
     p.add_argument('--ptxas', action='store_true',
                    help="print the compiler's register and spill report of the synthesis and "
                         "analysis kernels")
@@ -555,7 +559,7 @@ def main():
     print('built in %.1f s | %s' % (time.perf_counter() - t0, smi), flush=True)
     if args.ptxas:
         for k in lk.build_report():
-            if k['kernel'] in ('synth_pair_kernel', 'anal_pair_kernel'):
+            if k['kernel'] in ('synth_pair_kernel', 'anal_pair_kernel', 'anal_pair_mma_kernel'):
                 print('    %s<%s>: %d registers, %d bytes stack, %d/%d bytes spill stores/loads'
                       % (k['kernel'], ', '.join(map(str, k['args'])), k['registers'],
                          k['stack'], k['spill_stores'], k['spill_loads']))
@@ -566,6 +570,8 @@ def main():
 
     def plan_of(kind):
         pl = lk.last_plan[kind]
+        if kind == 'anal_pair':                    # K2's cluster plan
+            return dict(pl._asdict())
         return {'nseg': pl.nseg, 'blocks': pl.blocks, 'workspace_mib': pl.workspace_bytes / 2 ** 20}
 
     # ------------------------------------------------ the four kernels against their twins
@@ -576,7 +582,7 @@ def main():
     rng = np.random.RandomState(256)
     th_r = np.sort(rng.uniform(0., np.pi, 201))
     th_r[0], th_r[-1] = 4e-4, np.pi - 7e-4
-    segs = set()
+    segs, clusters = set(), set()
     for cdt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
         for spin in (0, 1, 2, 3):
             t_m, t_p = core.pair_tables(lmax, lmax, spin, theta, None, dev)
@@ -588,11 +594,10 @@ def main():
                 worst['synth_pair'] = max([worst['synth_pair']] + [
                     rel_max(a, b) for a, b in zip(ks, ps) if b is not None])
                 pa = core.legendre_anal_pair_plain(Q, qm, spin, lmax, t_m, t_p)
-                for nseg in (None, 1):
-                    ka = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p, nseg=nseg)
-                    segs.add(lk.last_plan['anal_pair'].nseg)
-                    worst['anal_pair'] = max([worst['anal_pair']] + [
-                        rel_max(a, b) for a, b in zip(ka, pa) if b is not None])
+                ka = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p)
+                clusters.add(lk.last_plan['anal_pair'].cluster)
+                worst['anal_pair'] = max([worst['anal_pair']] + [
+                    rel_max(a, b) for a, b in zip(ka, pa) if b is not None])
         for n in range(-3, 4):
             t = core.full_tables(lmax, lmax, n, th_r, None, dev)
             C, Q = crandn((3, lmax + 1, lmax + 1), cdt), crandn((3, len(th_r), lmax + 1), cdt)
@@ -607,18 +612,19 @@ def main():
             if not v <= tol:
                 raise RuntimeError('%s vs its plain twin at lmax %d, %s: %.2e > %.0e'
                                    % (k, lmax, cdt, v, tol))
-        print('lmax 256, %s: worst of max vs the twins %s (segment counts run: %s)'
-              % (cdt, ', '.join('%s %.2e' % kv for kv in worst.items()),
-                 sorted(segs)), flush=True)
+        print('lmax 256, %s: worst of max vs the twins %s (K2 clusters of %s blocks, K4 '
+              'segment counts %s)' % (cdt, ', '.join('%s %.2e' % kv for kv in worst.items()),
+                                      sorted(clusters), sorted(segs)), flush=True)
         worst = dict.fromkeys(worst, 0.)
 
     # ------------------------------------------------------------------ the timed shapes
     results = []
 
     def timed(label, kind, call, tol, sweep, reps=args.reps, shape=None):
-        """Warm up, time, check run-to-run equality and, for a split ring sum, agreement
-        with one segment. `call(nseg)` returns a tuple of outputs; the synthesis calls
-        ignore `nseg` and name their block shape (`legendre_kernels.synth_shape`)."""
+        """Warm up, time, check run-to-run equality and, for K4's split ring sum, agreement
+        with one segment. `call(nseg)` returns a tuple of outputs; the other kernels ignore
+        `nseg`, the synthesis calls name their block shape (`legendre_kernels.synth_shape`)
+        and K2 its cluster plan."""
         first = call(None)
         mean, best, out = event_ms(lambda: call(None), reps)
         for a, b in zip(first, out):
@@ -629,7 +635,12 @@ def main():
         if shape is not None:
             row['block_shape'] = shape
             note = ' | %d maps x %d rings x %d warps, %d block(s) an SM' % shape
-        if kind in ('anal_pair', 'anal'):
+        if kind == 'anal_pair':
+            row['plan'] = plan_of(kind)
+            note = (' | clusters of %(cluster)d blocks x %(rings_per_block)d rings, %(warps)d '
+                    'warps, batch tile %(batch_tile)d, %(blocks)d blocks, %(smem_bytes)d bytes '
+                    'of shared memory a block' % row['plan'])
+        if kind == 'anal':
             row.update(plan_of(kind))
             note = ' | NS %d, %d blocks, workspace %.0f MiB' % (
                 row['nseg'], row['blocks'], row['workspace_mib'])
@@ -667,8 +678,7 @@ def main():
         del C, Cm
         Qp, Qm = (crandn((B, nr, LMAX + 1), torch.complex64) for _ in range(2))
         timed('K2 anal_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d' % (LMAX, nr, B),
-              'anal_pair', lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p, nseg=nseg),
-              1e-5, args.sweep)
+              'anal_pair', lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p), 1e-5, False)
         del Qp, Qm
     del t_m, t_p
     t_0, _ = core.pair_tables(LMAX, LMAX, 0, geom.theta, None, dev)
@@ -698,8 +708,8 @@ def main():
         Q = crandn((B, ncg, L), torch.complex128)
         with_bound(timed('K2 anal_pair, spin 0, one input, f64, lmax %d, %d rings, batch %d '
                          '(CinvT)' % (LMAX, ncg, B), 'anal_pair',
-                         lambda nseg: lk.anal_pair(Q, None, 0, LMAX, t_0, t_0, nseg=nseg)[:1],
-                         1e-12, args.sweep), [t_0], 0, B)
+                         lambda nseg: lk.anal_pair(Q, None, 0, LMAX, t_0, t_0)[:1],
+                         1e-12, False), [t_0], 0, B)
         del C, Q
     del t_0
     t_m, t_p = core.pair_tables(LMAX, LMAX, 2, cg_geom.theta, None, dev)
@@ -712,8 +722,8 @@ def main():
     Qp, Qm = (crandn((4, ncg, L), torch.complex128) for _ in range(2))
     with_bound(timed('K2 anal_pair, spin-2 pair, f64, lmax %d, %d rings, batch 4 (CinvP)'
                      % (LMAX, ncg), 'anal_pair',
-                     lambda nseg: lk.anal_pair(Qp, Qm, 2, LMAX, t_m, t_p, nseg=nseg), 1e-12,
-                     args.sweep), [t_m, t_p], 1, 4)
+                     lambda nseg: lk.anal_pair(Qp, Qm, 2, LMAX, t_m, t_p), 1e-12,
+                     False), [t_m, t_p], 1, 4)
     del Qp, Qm, t_m, t_p
     torch.cuda.empty_cache()
 

@@ -190,12 +190,11 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     chunk = pcinv.probe_chunk(geom, lmax, 2, torch.float64)
     plan = lk.last_plan.get('anal_pair')
     out['p_probe'] = dict(s=time.perf_counter() - t0, chunk=chunk, peak_gib=peak(),
-                          workspace_bytes=None if plan is None else plan.workspace_bytes,
-                          nseg=None if plan is None else plan.nseg, **_launches())
+                          k2_plan=None if plan is None else plan._asdict(), **_launches())
     log('P: probe of the E/B block to l %d (%d basis vectors) %.2fs in chunks of %d, peak '
-        '%.2f GiB, K2 workspace %s bytes (NS %s); launches %s, K1 %s, K2 %s'
+        '%.2f GiB, K2 in clusters of %s blocks (no workspace); launches %s, K1 %s, K2 %s'
         % (dense_p, 2 * (dense_p + 1) ** 2, out['p_probe']['s'], chunk,
-           out['p_probe']['peak_gib'], out['p_probe']['workspace_bytes'], out['p_probe']['nseg'],
+           out['p_probe']['peak_gib'], None if plan is None else plan.cluster,
            out['p_probe']['launches'], out['p_probe']['k1'], out['p_probe']['k2']))
     qu = [maps.get_sim_pmap(i) for i in range(BATCH_P)]
     qmaps, umaps = torch.stack([a for a, _ in qu]), torch.stack([b for _, b in qu])

@@ -38,14 +38,14 @@ for _p in (_REPO, os.path.join(_REPO, 'examples')):
 import torch
 
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
-# csrc/legendre_pair.cu's kernels: direction, second pass or not, and the mode, which is the
-# last template argument
-_LEGENDRE = re.compile(r'(synth|anal)_pair(_sum)?_kernel<[^>]*?(\d+)>')
+# csrc/legendre_pair.cu's kernels: direction, K4's second pass or K2's cluster kernel, and
+# the mode, which is the last template argument
+_LEGENDRE = re.compile(r'(synth|anal)_pair(_sum|_mma)?_kernel<[^>]*?(\d+)>')
 
 
 def device_group(e):
     """Group of a device activity: K1-K4 by kernel name and mode, cuFFT, copies, rest. The
-    second pass of a split ring sum (anal_pair_sum_kernel) falls to K2 or K4 by its mode."""
+    second pass of K4's split ring sum (anal_pair_sum_kernel) falls to K4."""
     if e['cat'] != 'kernel':
         return 'copies' if e['cat'] == 'gpu_memcpy' else 'memset'
     m = _LEGENDRE.search(e['name'])
@@ -58,7 +58,7 @@ def device_group(e):
 
 def is_second_pass(e):
     m = _LEGENDRE.search(e['name']) if e['cat'] == 'kernel' else None
-    return bool(m and m.group(2))
+    return bool(m and m.group(2) == '_sum')
 
 
 def union_seconds(intervals):

@@ -10,25 +10,25 @@ copy of the source with some constants replaced, parts joined by ':':
   S_PLAIN64_WIDE = batch tile, rings per thread, warps per block, blocks meant for an SM of
       the synthesis kernels K1/K3 (the PLK_S_* block shapes, by kind of grid and data type;
       the wide shape runs the calls whose batch exceeds the narrow batch tile);
-  PAIR32, PAIR64, PLAIN32, PLAIN64 = the same four numbers of the analysis kernels K2/K4
-      (the PLK_A_* block shapes);
-  LCS, LCH = l steps of a staged chunk of the synthesis and the analysis; LUNROLL =
-      unrolling of the synthesis's l loop; KS = l steps between two barriers of the
-      analysis;
+  PLAIN32, PLAIN64 = the same four numbers of the plain analysis K4 (the PLK_A_* block
+      shapes; K2's launch shape comes from `legendre_kernels.plan_pair`, and its fixed
+      constants are not tunable: PLC = 16 rows make its two 8-row parity classes);
+  LCS, LCH = l steps of a staged chunk of the synthesis and of K4; LUNROLL = unrolling of
+      the synthesis's l loop; KS = l steps between two barriers of K4;
   default = the source as it is.
 
 Every variant is first held against the plain torch twins at lmax 256 (pair and plain
 grid, f32 <= 1e-5 and f64 <= 1e-12 of max; the synthesis at batch 3 and 5, narrow and wide
-shapes, with mmax 256 and 128; the analysis with the planner's ring segments and with
-one), then timed (CUDA events, least of 3 after a warm-up; 20 at the pixel-window shape)
+shapes, with mmax 256 and 128; K4 with the planner's ring segments and with one), then
+timed (CUDA events, least of 3 after a warm-up; 20 at the pixel-window shape)
 at lmax 2048: K1 spin-1 pair on the 3073-ring QE grid in f32 at batch 8 and 4 and spin 0
 with one input at batch 4 (the main path's K1 shapes), and the pair in f64 at batch 4; K3
 n = -2 on the 8191 rings of HEALPix nside 2048 at batch 4 in f64 and at batch 8 in f64
 and f32 (the wide shapes); K2 spin-1 pair in f32 at batch 8 and 4, with one input at
 batch 8, and in f64 at batch 4; K4 n = -2 on the 8191 rings at batch 4 in f64 and f32; K4
 at the exact pixel window's shape (48 node rings, 64 shapes, lmax 512, f64).
-One line a variant, with the segment counts in brackets, then each synthesis and analysis
-kernel's registers/spilled bytes by template arguments. Compare variants only within one
+One line a variant, with K2's cluster size and K4's segment count in brackets, then each
+synthesis and analysis kernel's registers/spilled bytes by template arguments. Compare variants only within one
 run: two runs may land on two cards. Raises without a card, and for a variant that does
 not build, launch or agree with the twins.
 """
@@ -47,7 +47,8 @@ import torch
 
 KINDS = {'PAIR32': ('pair', 'f32'), 'PAIR64': ('pair', 'f64'),
          'PLAIN32': ('plain', 'f32'), 'PLAIN64': ('plain', 'f64')}
-SHAPES = tuple(KINDS) + tuple('S_' + k + w for k in KINDS for w in ('', '_WIDE'))
+ANAL_KINDS = ('PLAIN32', 'PLAIN64')         # K4's block shapes; K2 has none to tune
+SHAPES = ANAL_KINDS + tuple('S_' + k + w for k in KINDS for w in ('', '_WIDE'))
 LMAX = 2048
 
 
@@ -70,7 +71,7 @@ def least_ms(fn, reps=3):
 
 def variant_source(text, spec):
     """(source text, block shapes) of the variant `spec` of the source `text`; the shapes
-    are keyed by SHAPES (PAIR32 ... analysis, S_PAIR32 ... synthesis)."""
+    are keyed by SHAPES (PLAIN32, PLAIN64 K4, S_PAIR32 ... synthesis)."""
     shapes = {}
     for k in SHAPES:
         define = '#define PLK_%s ' % (k if k.startswith('S_') else 'A_' + k)
@@ -165,19 +166,21 @@ def main():
             f.write(text)
         # point the wrappers at the variant: its source, a fresh library, its shapes
         lk.SOURCE, lk._lib = src, None
-        lk.ANAL_TILE = {KINDS[k]: (shapes[k][0], shapes[k][1] * shapes[k][2]) for k in KINDS}
+        lk.ANAL_TILE = {KINDS[k]: (shapes[k][0], shapes[k][1] * shapes[k][2])
+                        for k in ANAL_KINDS}
         lk.SYNTH_SHAPES = {KINDS[k]: (shapes['S_' + k], shapes['S_' + k + '_WIDE'])
                            for k in KINDS}
         t0 = time.perf_counter()
         lk._load()
         out = [spec, 'built in %.0f s' % (time.perf_counter() - t0)]
         for c, tol in ((c64, 1e-5), (c128, 1e-12)):
+            ka = lk.anal_pair(*Qs[c], 2, 256, ts_m, ts_p)
             for nseg in (None, 1):
-                ka = lk.anal_pair(*Qs[c], 2, 256, ts_m, ts_p, nseg=nseg)
                 err = max([rel_max(a, b) for a, b in zip(ka, ref_pair[c])]
                           + [rel_max(lk.anal(Qr[c], 256, tr, nseg=nseg), ref_plain[c])])
                 if not err <= tol:
-                    raise RuntimeError('%s, nseg %s: %.2e of max from the twins' % (c, nseg, err))
+                    raise RuntimeError('%s, K4 nseg %s: %.2e of max from the twins'
+                                       % (c, nseg, err))
         for S, Sm, tm_, tp_, tpl, ref_p, ref_s in synth_cases:
             tol = 1e-5 if S.dtype == c64 else 1e-12
             err = max([rel_max(a, b) for a, b in zip(lk.synth_pair(S, Sm, 2, 257, tm_, tp_), ref_p)]
@@ -204,12 +207,15 @@ def main():
                 ('K4 pixel window', 'anal', lambda: lk.anal(Gm, 512, tpw), 20)):
             ms = least_ms(fn, reps)
             out.append('%s %.3f ms' % (label, ms) if kind is None else
+                       '%s %.3f ms (cluster %d)' % (label, ms, lk.last_plan[kind].cluster)
+                       if kind == 'anal_pair' else
                        '%s %.3f ms (NS %d)' % (label, ms, lk.last_plan[kind].nseg))
         print(' | '.join(out), flush=True)
         print('    registers/spill store bytes: ' + ', '.join(
             '%s<%s> %d/%d' % (k['kernel'][:5], ','.join(map(str, k['args'])), k['registers'],
                               k['spill_stores'])
-            for k in lk.build_report() if k['kernel'] in ('synth_pair_kernel', 'anal_pair_kernel')),
+            for k in lk.build_report()
+            if k['kernel'] in ('synth_pair_kernel', 'anal_pair_kernel', 'anal_pair_mma_kernel')),
             flush=True)
 
 

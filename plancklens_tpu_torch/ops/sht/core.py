@@ -28,7 +28,8 @@ chip_smoke.py. On an asymmetric grid the pair functions make two plain calls, as
 reference does.
 
 Precision: the recursion always runs in f64 (S = 256); the accumulation runs in the data
-type (f32 in production on the card, f64 in the tests). The reference's f32 engine runs
+type (f32 in production on the card, f64 in the tests), but for kernel K2, which
+accumulates in f64 on the tensor cores and rounds each output once. The reference's f32 engine runs
 the recursion in f32, which near the poles cannot resolve the small angles (cos theta
 rounds to within 1e-7 of 1): at lmax 2048 on the 3073-ring QE grid an f32-recursion
 spin-1 synthesis is off by 5.4e-4 rms and 9.6e-3 of max against f64 (H100), and by up to

@@ -3,10 +3,10 @@
 //
 // Replaces the four TPU kernels of the JAX reference package
 // (plancklens_tpu/ops/sht/pallas_kernel.py):
-//   K1  _make_synth_pair_kernel + _synth_pair_pallas   -> synth_pair_kernel, modes 0-2
-//   K2  _make_anal_pair_kernel  + _anal_pair_pallas    -> anal_pair_kernel,  modes 0-2
-//   K3  _synth_kernel + _synth_pallas                  -> synth_pair_kernel, mode 3
-//   K4  _anal_kernel  + _anal_pallas                   -> anal_pair_kernel,  mode 3
+//   K1  _make_synth_pair_kernel + _synth_pair_pallas   -> synth_pair_kernel,    modes 0-2
+//   K2  _make_anal_pair_kernel  + _anal_pair_pallas    -> anal_pair_mma_kernel, modes 0-2
+//   K3  _synth_kernel + _synth_pallas                  -> synth_pair_kernel,    mode 3
+//   K4  _anal_kernel  + _anal_pallas                   -> anal_pair_kernel,     mode 3
 // All run the scaled three-term Wigner-d recursion over l. The pair modes run it on the
 // northern half of a north-south symmetric ring grid, for d^l_{m,-s} and d^l_{m,+s} at
 // once, and get the southern rings from the mirror identity
@@ -15,13 +15,12 @@
 // asymmetric ring sets), with no mirror: north accumulators only, no southern rows.
 //
 // What bounds them on the H100: not HBM. Per (l, ring, m) the work is an f64 recursion
-// step of ~10 operations per recursion and 2 multiply-adds per map in the data type
-// (real/imag part), per hemisphere in the pair modes; the coefficients (synthesis) and
-// recursion tables are read again at every l step, and the Fourier modes (analysis) stay
-// in registers. At the main path's shapes (lmax 2048, 1537 northern rings, 2049 m, 8 maps)
-// the pair modes' arithmetic is bound by FP32 throughput at ~6 ms, the plain mode at
-// HEALPix shapes (8191 rings, 4 maps, f64) by FP64 at ~11 ms; the kernels take a few
-// times that (PERF.md has the times).
+// step of ~10 operations per recursion and 2 multiply-adds per map (real/imag part), per
+// hemisphere in the pair modes; the coefficients (synthesis) and recursion tables are read
+// again at every l step, and the Fourier modes (analysis) stay on chip. At the main path's
+// shapes (lmax 2048, 1537 northern rings, 2049 m, 8 maps) the pair modes' arithmetic is
+// bound by FP32 throughput at ~6 ms, the plain mode at HEALPix shapes (8191 rings, 4 maps,
+// f64) by FP64 at ~11 ms; the kernels take a few times that (PERF.md has the times).
 //
 // What bounds the synthesis (K1/K3), and what its design does about it. Each thread owns
 // (ring, m) points and writes each output element once, so nothing is reduced across
@@ -48,49 +47,74 @@
 // What is left is issue: counting its instructions, a step of the f32 pair mode 1 issues
 // in about half the time it takes (PERF.md).
 //
-// What bounds the analysis (K2/K4), and what its design does about it. Each l step of a
-// block is latency, not arithmetic: table rows to fetch, a chain of dependent f64
-// operations per ring, a cross-warp sum through shared memory behind a barrier and an add
-// into global memory, and registers allow one block an SM, so nothing else runs meanwhile.
-// The time of a call is (steps of all blocks) x (latency of a step) / (SMs kept busy).
-// Keeping the SMs busy, the grid:
+// K2, the pair analysis (anal_pair_mma_kernel, below). For one column m it is a matrix
+// product over the rings, A[l, map] = sum_j lambda_l(j) Q[j, map]: the recursion produces
+// lambda one chunk of 16 l at a time, and the FP64 tensor cores contract it. What bounded
+// the earlier design (one block's ring passes adding into the outputs in HBM, a cross-warp
+// sum behind a barrier every 2 l steps, a workspace and a second kernel for a split ring
+// sum, the accumulate on the FP64/FP32 pipes beside the recursion) is gone by
+// construction; what bounds it now is the recursion's latency and the per-chunk phases of
+// a block that holds its SM alone or with one other (128 registers a thread, a third to a
+// half of them the B operands): at the CinvT shape (f64, batch 8, 1025 northern rings)
+// ~10 ms against a bound of 1.03, of which ~4 ms go with the recursion and ~3 ms with the
+// MMA phase (PERF.md). Its design:
+//   * a thread runs one recursion chain (on 8-map batch tiles) or two (on 4-map tiles: two
+//     rings in mode 0, both recursions of a ring in modes 1/2), in f64, step for step as
+//     rec_step rounds (never contracted into FMAs), the effective value by deff_mul; a
+//     column's seed lies in its first chunk, so the later chunks step without the test;
+//   * each warp writes its chains' lambda into its own tile in shared memory, rows ordered
+//     by the parity of l, and contracts the tile with B operands it loaded from Q once and
+//     keeps in registers (f32 data widened to f64, each output rounded once to f32; TF32
+//     would not compute the same function): mode 0 folds the mirror as Qn +- Qs' into one
+//     operand per parity class (m8n8k4), modes 1/2 take both classes as one 16-row tile
+//     (Hopper's m16n8k16) and put (-1)^l on the odd rows of each recursion's sum;
+//   * the blocks of one (m, batch tile) are one thread-block cluster (up to 8 blocks, up to
+//     16 as a non-portable size) holding all northern rings: a block sums its warps'
+//     partials, and block r sums its share of a chunk's outputs over the cluster in rank
+//     order through distributed shared memory and writes each element once, so there is no
+//     read-back of the outputs, no workspace and no second kernel; the cluster barrier is
+//     split around the next chunk's recursion, and two buffers of block partials make one
+//     barrier a chunk both publish and free;
+//   * the table rows of the next chunks arrive by cp.async, two buffers in turn; the grid
+//     is (cluster rank, batch tile, m), so clusters start in order of m and the low m,
+//     whose l loop is longest, run first.
+// Q is (B, R, M) and A is (B, L, M), m fastest: a block of one m reads and writes 8- or
+// 16-byte elements at stride M, a 32-byte sector each (the inputs once and each output once:
+// at the CinvT shape ~0.5 GB of each, ~0.3 ms at the HBM rate).
+//
+// K4, the plain analysis (anal_pair_kernel in mode 3). Each l step of a block is latency,
+// not arithmetic: table rows to fetch, a chain of dependent f64 operations per ring, a
+// cross-warp sum through shared memory behind a barrier and an add into global memory, and
+// registers allow one block an SM, so nothing else runs meanwhile. The time of a call is
+// (steps of all blocks) x (latency of a step) / (SMs kept busy). Keeping the SMs busy:
 //   * the ring sum is split: block (s, batch tile, m-tile) runs only the ring passes of
 //     segment s, a whole number of passes (one pass = warps x rings per thread), so a
-//     call is many short blocks in several waves instead of one wave of 65 x ceil(B/BT)
-//     blocks as slow as its longest;
-//   * the m-tile is the slowest grid dimension, so blocks start in order of m: the low-m
-//     tiles, whose l loop is longest (it starts at l0(m) - 1), run first and the short
-//     ones fill the tail;
-//   * segment 0 adds into the outputs themselves, segment s > 0 into partial s - 1 of a
-//     workspace (NS - 1, legs, B, L, M) that the wrapper allocates; anal_pair_sum_kernel
-//     then adds the partials to the outputs in the order s = 1, 2, ... One segment
-//     (small ring counts, or enough m and batch tiles to fill the card without a split)
-//     needs no workspace and no second kernel. The segment count comes from the wrapper
-//     (legendre_kernels.plan_segments: about 4 waves of blocks, under a workspace cap).
+//     call is many short blocks in several waves instead of one wave as slow as its
+//     longest; the m-tile is the slowest grid dimension, so the low-m tiles run first;
+//   * segment 0 adds into the output itself, segment s > 0 into partial s - 1 of a
+//     workspace (NS - 1, B, L, M) that the wrapper allocates; anal_pair_sum_kernel then
+//     adds the partials to the output in the order s = 1, 2, ... The segment count comes
+//     from the wrapper (legendre_kernels.plan_segments: about 4 waves of blocks, under a
+//     workspace cap).
 // Shortening the step, the block:
-//   * many rings a thread and few warps (PLK_A_* below: 8 warps x 3 rings in the pair
-//     modes, 8 x 8 on plain grids in f64, at 150 to 250 registers): the independent
-//     recursions of a thread's rings overlap each other's latency, and fewer warps leave
-//     fewer partial sums to exchange;
+//   * many rings a thread and few warps (PLK_A_* below, at 150 to 250 registers): the
+//     independent recursions of a thread's rings overlap each other's latency;
 //   * the table rows of the next LCH l steps are staged into shared memory by cp.async
-//     while the current LCH compute (all warps of a block need the same 3 or 6 rows of
-//     256 bytes, a new set from L2 at every l), two buffers in turn;
+//     while the current LCH compute, two buffers in turn;
 //   * one barrier for KS l steps, not two for one: the warps leave their sums of a group
 //     of KS steps in one of two shared-memory buffers used in turn, so the barrier that
-//     publishes a group also frees the buffer of the group before; the KS * NV rows of a
-//     group are shared out over all warps for the cross-warp sum;
+//     publishes a group also frees the buffer of the group before;
 //   * the running sum that a row is added to (every ring pass of a segment after its
-//     first) is fetched from global memory before the group's arithmetic, not between
-//     barriers.
-// What is left is still latency: counting its operations, the arithmetic units could take
-// a step in about a third of the time it takes (PERF.md).
+//     first) is fetched from global memory before the group's arithmetic.
+// It still takes the effective value through deff (ldexp), which K1/K2 replaced by deff_mul.
 //
 // Precision. The recursion always runs in f64 (S = 256), also for f32 data: an f32
 // recursion, as the TPU kernels ran it, loses the small angles near the poles (cos theta
 // and 2 cos theta round to within 1e-7 of 1 and 2): at lmax 2048 on the 3073-ring QE grid
 // its spin-1 synthesis is off by 5.4e-4 rms and 9.6e-3 of max against f64, and by up to
-// 4e-2 on single polar rings. The H100 has native FP64. The accumulation runs in the data
-// type. HEALPix's polar rings (theta = 4.0e-4 at nside 2048) seed far below f64's range;
+// 4e-2 on single polar rings. The H100 has native FP64. K1, K3 and K4 accumulate in the
+// data type; K2 accumulates in f64 on the tensor cores and rounds each output once to the
+// data type. HEALPix's polar rings (theta = 4.0e-4 at nside 2048) seed far below f64's range;
 // the exponent count k of the scaled recursion carries them, north and south alike.
 //
 // Layout of the work. Synthesis: one thread per (ring, m) of RPT rings keeps the recursion
@@ -98,11 +122,11 @@
 // C[b, l, m..m+31] is one coalesced copy into shared memory, which all warps of the block
 // read.
 // Analysis: the sum over rings is a cross-thread reduction, made deterministic (no float
-// atomics) at each of its three levels: the warps of a block reduce through shared memory
-// in a fixed order; each element of an output or a partial is written by one block, which
-// adds the sums of its segment's ring passes in order; and the partials are added in
-// order of segment. Nothing is tiled over l and there is no tensor-core path;
-// both are later work (PERF.md).
+// atomics). K2: the tensor-core products in a fixed order, the warps' partials summed in
+// warp order, the blocks' in rank order. K4: the warps of a block reduce through shared
+// memory in a fixed order; each element of the output or a partial is written by one
+// block, which adds the sums of its segment's ring passes in order; and the partials are
+// added in order of segment.
 //
 // Layouts (all contiguous, complex interleaved): C (B, L, M), F (B, R, M), Q (B, R, M),
 // A (B, L, M); f64 tables alpha/beta/gamma (L, M), seed_v/seed_k (nh, M), l0 (M), x (nh)
@@ -113,7 +137,8 @@
 // one recursion over all rings.
 //
 // Plain C interface (ctypes); each entry point returns the first error of the launches it
-// makes (cudaGetLastError() after each, the second pass of the analysis included).
+// makes (cudaGetLastError() after each, K4's second pass included; K2's cluster launch
+// through cudaLaunchKernelEx, which also fails when no cluster of its size fits).
 #include <cooperative_groups.h>
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -236,12 +261,6 @@ __device__ __forceinline__ int loop_start(const int* l0m, const int* l0p, int m_
 template <int MODE>
 __host__ __device__ __forceinline__ int rec_rows(int R) {
   return MODE == PLAIN ? R : (R + 1) / 2;
-}
-
-// outputs of an analysis call: two legs in mode 1, else one
-template <int MODE>
-__host__ __device__ constexpr int anal_legs() {
-  return MODE == 1 ? 2 : 1;
 }
 
 // ------------------------------------------------------------------ K1/K3 synthesis
@@ -391,41 +410,35 @@ synth_pair_kernel(const typename C2t<T>::type* __restrict__ Cp,
   }
 }
 
-// ------------------------------------------------------------------- K2/K4 analysis
+// ------------------------------------------------------------------------ K4 analysis
 // A block is NWA warps (lanes along m, warps along rings) of RPT rings a thread, on a
-// batch tile of BT maps; MINB blocks are meant to share an SM.
+// batch tile of BT maps; MINB blocks are meant to share an SM. Plain mode only (MODE is
+// PLAIN: one recursion over every ring, no mirror); K2 is anal_pair_mma_kernel below.
 constexpr int LCH = 16;   // l steps of one staged chunk of table rows
 constexpr int KS = 2;     // l steps between two barriers of a block (measured: 1 and 4 are slower)
 
 template <typename T, int BT, int RPT, int NWA, int MINB, int MODE>
 __global__ void __launch_bounds__(NWA * 32, MINB)
 anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
-                 const typename C2t<T>::type* __restrict__ Qm,
                  typename C2t<T>::type* __restrict__ A,
-                 typename C2t<T>::type* __restrict__ Bo,
                  typename C2t<T>::type* __restrict__ ws,
-                 Tables tm, Tables tp, const double* __restrict__ x,
+                 Tables tm, const double* __restrict__ x,
                  int B, int L, int M, int R, int pps) {
   using C2 = typename C2t<T>::type;
-  constexpr bool TWO = MODE == 1 || MODE == 2;
-  constexpr bool HASM = MODE == 1;
-  constexpr bool MIRROR = MODE != PLAIN;
-  constexpr int NLEG = anal_legs<MODE>();
-  constexpr int NV = BT * NLEG;      // (map, leg) outputs of a thread per l
-  static_assert(NV <= NWA, "one warp per output for the rows below the loop");
-  constexpr int PPW = (KS * NV + NWA - 1) / NWA;   // (step, output) rows a warp sums
+  static_assert(MODE == PLAIN, "the pair modes run anal_pair_mma_kernel");
+  static_assert(BT <= NWA, "one warp per output for the rows below the loop");
+  constexpr int PPW = (KS * BT + NWA - 1) / NWA;   // (step, output) rows a warp sums
 
   // two buffers of the warps' partial sums of KS successive l steps, used in turn
   static_assert(LCH % KS == 0, "whole groups of steps in a chunk of table rows");
   extern __shared__ __align__(16) unsigned char smem[];
-  T (*const red)[KS][NV][2][NWA][32] = reinterpret_cast<T (*)[KS][NV][2][NWA][32]>(smem);
+  T (*const red)[KS][BT][2][NWA][32] = reinterpret_cast<T (*)[KS][BT][2][NWA][32]>(smem);
   // two buffers of the recursion tables' rows of LCH successive l, staged by cp.async:
   // the rows of the next chunk arrive while this one computes
-  constexpr int NT = TWO ? 6 : 3;
-  double (*const tab)[NT][LCH][32] =
-      reinterpret_cast<double (*)[NT][LCH][32]>(smem + 2 * sizeof(T[KS][NV][2][NWA][32]));
+  double (*const tab)[3][LCH][32] =
+      reinterpret_cast<double (*)[3][LCH][32]>(smem + 2 * sizeof(T[KS][BT][2][NWA][32]));
 
-  const int nh = rec_rows<MODE>(R), n_s = R - nh;
+  const int nh = R;
   const int lane = threadIdx.x, w = threadIdx.y;
   // grid (ring segment, batch tile, m-tile): the m-tile is slowest, so the tiles with the
   // longest l loop start first
@@ -435,20 +448,17 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
   const bool mvalid = m < M;
   const int m_in = mvalid ? m : M - 1;      // a column to read for lanes past mmax
   const int b0 = blockIdx.y * BT;
-  const T sgn_m = (m & 1) ? T(-1) : T(1);
-  const int lbeg = loop_start(tm.l0, TWO ? tp.l0 : tm.l0, m_first);
+  const int lbeg = loop_start(tm.l0, tm.l0, m_first);
 
-  // Output v < NV of a block is (map b0 + v / NLEG, leg v % NLEG): a row of the outputs
-  // in segment 0, of partial seg - 1 of the workspace otherwise. Every row l >= lbeg is
-  // written in each ring pass of the segment; segment 0 also writes the rows below lbeg,
-  // once, and no partial holds them.
+  // Output v < BT of a block is map b0 + v: a row of the output in segment 0, of partial
+  // seg - 1 of the workspace otherwise. Every row l >= lbeg is written in each ring pass of
+  // the segment; segment 0 also writes the rows below lbeg, once, and no partial holds them.
   auto out_row = [&](int v, int l) {
-    C2* const base = seg == 0 ? (v % NLEG == 0 ? A : Bo)
-                              : ws + ((size_t)(seg - 1) * NLEG + v % NLEG) * ((size_t)B * L * M);
-    return base + ((size_t)(b0 + v / NLEG) * L + l) * M + m;
+    C2* const base = seg == 0 ? A : ws + (size_t)(seg - 1) * ((size_t)B * L * M);
+    return base + ((size_t)(b0 + v) * L + l) * M + m;
   };
-  auto out_valid = [&](int v) { return mvalid && (b0 + v / NLEG) < B; };
-  if (seg == 0 && w < NV && out_valid(w)) {
+  auto out_valid = [&](int v) { return mvalid && (b0 + v) < B; };
+  if (seg == 0 && w < BT && out_valid(w)) {
     for (int l = 0; l < lbeg; ++l) *out_row(w, l) = C2{T(0), T(0)};
   }
 
@@ -466,18 +476,13 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
       __pipeline_memcpy_async(&tab[cb][0][i][lane], tm.alpha + at, 8);
       __pipeline_memcpy_async(&tab[cb][1][i][lane], tm.beta + at, 8);
       __pipeline_memcpy_async(&tab[cb][2][i][lane], tm.gamma + at, 8);
-      if (TWO) {
-        __pipeline_memcpy_async(&tab[cb][3][i][lane], tp.alpha + at, 8);
-        __pipeline_memcpy_async(&tab[cb][4][i][lane], tp.beta + at, 8);
-        __pipeline_memcpy_async(&tab[cb][5][i][lane], tp.gamma + at, 8);
-      }
     }
     __pipeline_commit();
   };
   for (int j0 = j_begin; j0 < j_end; j0 += NWA * RPT) {
-    Rec rm[RPT], rp[RPT];
+    Rec rm[RPT];
     double xr[RPT];
-    C2 qpn[RPT][BT], qps[RPT][BT], qmn[RPT][BT], qms[RPT][BT];
+    C2 qpn[RPT][BT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int jj = j0 + w + r * NWA;
@@ -485,22 +490,11 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
       const int j = jj < nh ? jj : 0;
       xr[r] = x[j];
       rec_init(rm[r], tm, j, m, M, v);
-      if (TWO) rec_init(rp[r], tp, j, m, M, v);
 #pragma unroll
       for (int b = 0; b < BT; ++b) {
         const bool vb = v && (b0 + b) < B;
         const size_t base = (size_t)(b0 + b) * R;
-        const C2 z{T(0), T(0)};
-        qpn[r][b] = vb ? Qp[(base + j) * M + m] : z;
-        if (MIRROR) {
-          C2 s = (vb && j < n_s) ? Qp[(base + R - 1 - j) * M + m] : z;
-          qps[r][b] = C2{sgn_m * s.x, sgn_m * s.y};
-        }
-        if (HASM) {
-          qmn[r][b] = vb ? Qm[(base + j) * M + m] : z;
-          C2 s = (vb && j < n_s) ? Qm[(base + R - 1 - j) * M + m] : z;
-          qms[r][b] = C2{sgn_m * s.x, sgn_m * s.y};
-        }
+        qpn[r][b] = vb ? Qp[(base + j) * M + m] : C2{T(0), T(0)};
       }
     }
     const bool first = j0 == j_begin;
@@ -513,18 +507,18 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
       if (lc + LCH < L) stage(lc + LCH, cb ^ 1);
       const int lend = lc + LCH < L ? lc + LCH : L;
       // The l steps go in groups of KS between barriers. In a group every warp leaves its
-      // rings' sums of each step in shared memory; after the barrier the KS * NV (step,
+      // rings' sums of each step in shared memory; after the barrier the KS * BT (step,
       // output) rows of the group are shared out over the warps, PPW a warp, each summed
       // over the warps' partials in a fixed order and added to the running sum in global
       // memory, which was fetched before the group's arithmetic to hide its latency.
       for (int ls = lc; ls < lend; ls += KS, ++group) {
-        T (&rd)[KS][NV][2][NWA][32] = red[group & 1];
+        T (&rd)[KS][BT][2][NWA][32] = red[group & 1];
         C2 prev[PPW];
 #pragma unroll
         for (int i = 0; i < PPW; ++i) {
-          const int p = w + i * NWA, kk = p / NV, v = p % NV;
+          const int p = w + i * NWA, kk = p / BT, v = p % BT;
           prev[i] = C2{T(0), T(0)};
-          if (!first && p < KS * NV && ls + kk < lend && out_valid(v))
+          if (!first && p < KS * BT && ls + kk < lend && out_valid(v))
             prev[i] = *out_row(v, ls + kk);
         }
 #pragma unroll
@@ -533,43 +527,23 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
           if (l >= lend) break;
           const double am = tab[cb][0][l - lc][lane], bm = tab[cb][1][l - lc][lane],
                        gm = tab[cb][2][l - lc][lane];
-          const double ap = TWO ? tab[cb][3][l - lc][lane] : 0.,
-                       bp = TWO ? tab[cb][4][l - lc][lane] : 0.,
-                       gp = TWO ? tab[cb][5][l - lc][lane] : 0.;
-          const T sgn = (l & 1) ? T(-1) : T(1);
-          C2 va[BT], vb[BT];
+          C2 va[BT];
 #pragma unroll
-          for (int b = 0; b < BT; ++b) va[b] = vb[b] = C2{T(0), T(0)};
+          for (int b = 0; b < BT; ++b) va[b] = C2{T(0), T(0)};
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
             const T dm = deff<T>(rm[r]);
-            const T dp = TWO ? deff<T>(rp[r]) : dm;
-            const T dps = sgn * dp, dms = sgn * dm;
 #pragma unroll
             for (int b = 0; b < BT; ++b) {
-              if (MIRROR) {
-                va[b].x += qpn[r][b].x * dm + qps[r][b].x * dps;
-                va[b].y += qpn[r][b].y * dm + qps[r][b].y * dps;
-              } else {
-                va[b].x += qpn[r][b].x * dm;
-                va[b].y += qpn[r][b].y * dm;
-              }
-              if (HASM) {
-                vb[b].x += qmn[r][b].x * dp + qms[r][b].x * dms;
-                vb[b].y += qmn[r][b].y * dp + qms[r][b].y * dms;
-              }
+              va[b].x += qpn[r][b].x * dm;
+              va[b].y += qpn[r][b].y * dm;
             }
             rec_step(rm[r], l, am, bm, gm, xr[r]);
-            if (TWO) rec_step(rp[r], l, ap, bp, gp, xr[r]);
           }
 #pragma unroll
           for (int b = 0; b < BT; ++b) {
-            rd[kk][b * NLEG][0][w][lane] = va[b].x;
-            rd[kk][b * NLEG][1][w][lane] = va[b].y;
-            if (HASM) {
-              rd[kk][b * NLEG + 1][0][w][lane] = vb[b].x;
-              rd[kk][b * NLEG + 1][1][w][lane] = vb[b].y;
-            }
+            rd[kk][b][0][w][lane] = va[b].x;
+            rd[kk][b][1][w][lane] = va[b].y;
           }
         }
         // one barrier a group: the next group writes the other buffer, and this buffer
@@ -580,8 +554,8 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
         __syncthreads();
 #pragma unroll
         for (int i = 0; i < PPW; ++i) {
-          const int p = w + i * NWA, kk = p / NV, v = p % NV;
-          if (p < KS * NV && ls + kk < lend && out_valid(v)) {
+          const int p = w + i * NWA, kk = p / BT, v = p % BT;
+          if (p < KS * BT && ls + kk < lend && out_valid(v)) {
             T sx = T(0), sy = T(0);
 #pragma unroll
             for (int ww = 0; ww < NWA; ++ww) {   // fixed order: deterministic
@@ -596,29 +570,25 @@ anal_pair_kernel(const typename C2t<T>::type* __restrict__ Qp,
   }
 }
 
-// second pass of a split ring sum: out += partial 0 + partial 1 + ... in this order, for
+// second pass of K4's split ring sum: out += partial 0 + partial 1 + ... in this order, for
 // the rows l >= lbeg of each m-tile (segment 0 wrote the rows below, the partials do not
 // hold them). One thread per output element; MODE as in the analysis kernel.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(256)
 anal_pair_sum_kernel(typename C2t<T>::type* __restrict__ A,
-                     typename C2t<T>::type* __restrict__ Bo,
                      const typename C2t<T>::type* __restrict__ ws,
-                     const int* __restrict__ l0m, const int* __restrict__ l0p,
-                     int B, int L, int M, int npart) {
+                     const int* __restrict__ l0, int B, int L, int M, int npart) {
   using C2 = typename C2t<T>::type;
-  constexpr int NLEG = anal_legs<MODE>();
+  static_assert(MODE == PLAIN, "the pair modes have no second pass");
   const size_t n = (size_t)B * L * M;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= NLEG * n) return;
-  const int leg = (int)(idx / n);
-  const size_t e = idx - leg * n;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
   const int m = (int)(e % M), l = (int)((e / M) % L);
-  if (l < loop_start(l0m, l0p, m & ~31)) return;
-  C2* const o = (leg == 0 ? A : Bo) + e;
+  if (l < loop_start(l0, l0, m & ~31)) return;
+  C2* const o = A + e;
   C2 acc = *o;
   for (int s = 0; s < npart; ++s) {           // fixed order: deterministic
-    const C2 p = ws[((size_t)s * NLEG + leg) * n + e];
+    const C2 p = ws[(size_t)s * n + e];
     acc.x += p.x;
     acc.y += p.y;
   }
@@ -1023,19 +993,16 @@ int launch_synth(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables tm,
   return (int)cudaGetLastError();
 }
 
-// The ring sum in `nseg` segments of a whole number of passes each; `ws` holds the
-// nseg - 1 partials (legs, B, L, M) of the segments after the first and may be null for
-// one segment, when the outputs are written directly and no second kernel runs.
-template <typename T, int BT, int RPT, int NWA, int MINB, int MODE>
-int launch_anal(const void* Qp, const void* Qm, void* A, void* Bo, void* ws, Tables tm,
-                Tables tp, const void* x, int B, int L, int M, int R, int nseg, int device,
-                void* stream) {
+// K4: the ring sum in `nseg` segments of a whole number of passes each; `ws` holds the
+// nseg - 1 partials (B, L, M) of the segments after the first and may be null for one
+// segment, when the output is written directly and no second kernel runs.
+template <typename T, int BT, int RPT, int NWA, int MINB>
+int launch_anal(const void* Q, void* A, void* ws, Tables t, const void* x, int B, int L, int M,
+                int R, int nseg, int device, void* stream) {
   using C2 = typename C2t<T>::type;
-  constexpr bool TWO = MODE == 1 || MODE == 2;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int nh = rec_rows<MODE>(R);
-  const int passes = (nh + NWA * RPT - 1) / (NWA * RPT);
+  const int passes = (R + NWA * RPT - 1) / (NWA * RPT);
   const int btiles = (B + BT - 1) / BT, mtiles = (M + 31) / 32;
   if (nseg < 1 || nseg > passes || (nseg > 1 && ws == nullptr) || btiles > 65535 ||
       mtiles > 65535)
@@ -1047,21 +1014,18 @@ int launch_anal(const void* Qp, const void* Qm, void* A, void* Bo, void* ws, Tab
   dim3 grid(nseg, btiles, mtiles);
   // two buffers each of per-warp partial sums and of staged table rows: up to 112 KB, so
   // dynamic shared memory
-  const int smem = 2 * KS * BT * anal_legs<MODE>() * 2 * NWA * 32 * (int)sizeof(T) +
-                   2 * (TWO ? 6 : 3) * LCH * 32 * (int)sizeof(double);
-  e = cudaFuncSetAttribute(anal_pair_kernel<T, BT, RPT, NWA, MINB, MODE>,
+  const int smem = 2 * KS * BT * 2 * NWA * 32 * (int)sizeof(T) + 2 * 3 * LCH * 32 * (int)sizeof(double);
+  e = cudaFuncSetAttribute(anal_pair_kernel<T, BT, RPT, NWA, MINB, PLAIN>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  anal_pair_kernel<T, BT, RPT, NWA, MINB, MODE><<<grid, block, smem, st>>>(
-      static_cast<const C2*>(Qp), static_cast<const C2*>(Qm), static_cast<C2*>(A),
-      static_cast<C2*>(Bo), static_cast<C2*>(ws), tm, tp, static_cast<const double*>(x), B,
-      L, M, R, pps);
+  anal_pair_kernel<T, BT, RPT, NWA, MINB, PLAIN><<<grid, block, smem, st>>>(
+      static_cast<const C2*>(Q), static_cast<C2*>(A), static_cast<C2*>(ws), t,
+      static_cast<const double*>(x), B, L, M, R, pps);
   e = cudaGetLastError();
   if (e != cudaSuccess || nseg == 1) return (int)e;
-  const size_t total = (size_t)anal_legs<MODE>() * B * L * M;
-  anal_pair_sum_kernel<T, MODE><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      static_cast<C2*>(A), static_cast<C2*>(Bo), static_cast<const C2*>(ws), tm.l0,
-      TWO ? tp.l0 : tm.l0, B, L, M, nseg - 1);
+  const size_t total = (size_t)B * L * M;
+  anal_pair_sum_kernel<T, PLAIN><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      static_cast<C2*>(A), static_cast<const C2*>(ws), t.l0, B, L, M, nseg - 1);
   return (int)cudaGetLastError();
 }
 
@@ -1141,18 +1105,6 @@ int launch_synth_pair(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables
   }
 }
 
-template <typename T, int BT, int RPT, int NWA, int MINB>
-int launch_anal_pair(const void* Qp, const void* Qm, void* A, void* Bo, void* ws, Tables tm,
-                     Tables tp, const void* x, int B, int L, int M, int R, int mode,
-                     int nseg, int device, void* stream) {
-  switch (mode) {
-    case 0: return launch_anal<T, BT, RPT, NWA, MINB, 0>(Qp, Qm, A, Bo, ws, tm, tp, x, B, L, M, R, nseg, device, stream);
-    case 1: return launch_anal<T, BT, RPT, NWA, MINB, 1>(Qp, Qm, A, Bo, ws, tm, tp, x, B, L, M, R, nseg, device, stream);
-    case 2: return launch_anal<T, BT, RPT, NWA, MINB, 2>(Qp, Qm, A, Bo, ws, tm, tp, x, B, L, M, R, nseg, device, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // Synthesis: batch tile, rings per thread, warps per block and blocks meant for an SM, of
 // each kind of grid and data type, a narrow shape and a wide one; a call whose batch
 // exceeds the narrow shape's batch tile runs the wide one (legendre_kernels.synth_shape
@@ -1172,12 +1124,10 @@ constexpr int shape_code(int bt, int rpt, int nws, int minb) {
 }
 constexpr int batch_tile(int bt, int, int, int) { return bt; }
 
-// Analysis: batch tile, rings per thread, warps per block and blocks meant for an SM, of
-// each kind of grid and data type. Measured on the H100 (PERF.md): few warps with many
-// rings a thread, at 210 to 250 registers and one block an SM, beat more warps or more
-// blocks with fewer rings, except for f32 data on plain grids.
-#define PLK_A_PAIR32 4, 3, 8, 1
-#define PLK_A_PAIR64 2, 3, 8, 1
+// K4: batch tile, rings per thread, warps per block and blocks meant for an SM, by data
+// type. Measured on the H100 (PERF.md): few warps with many rings a thread, at 210 to 250
+// registers and one block an SM, beat more warps or more blocks with fewer rings, except
+// for f32 data.
 #define PLK_A_PLAIN32 4, 4, 16, 1
 #define PLK_A_PLAIN64 2, 8, 8, 1
 constexpr int tile_code(int bt, int rpt, int nwa, int) { return (bt << 16) | (nwa * rpt); }
@@ -1193,12 +1143,8 @@ constexpr int tile_code(int bt, int rpt, int nwa, int) { return (bt << 16) | (nw
 
 extern "C" {
 
-// (batch tile << 16) | rows of one ring pass of the analysis kernels, for the wrapper's
-// segment planner
-int plk_anal_tile(int plain, int f64) {
-  return plain ? (f64 ? tile_code(PLK_A_PLAIN64) : tile_code(PLK_A_PLAIN32))
-               : (f64 ? tile_code(PLK_A_PAIR64) : tile_code(PLK_A_PAIR32));
-}
+// (batch tile << 16) | rows of one ring pass of K4, for the wrapper's segment planner
+int plk_anal_tile(int f64) { return f64 ? tile_code(PLK_A_PLAIN64) : tile_code(PLK_A_PLAIN32); }
 
 // (batch tile << 24) | (rings per thread << 16) | (warps << 8) | blocks an SM of the
 // synthesis kernel that a call of the kind and data type runs, narrow or wide, for the
@@ -1234,32 +1180,16 @@ int plk_synth_pair_f64(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_T
                                                  x, B, L, M, R, mode, device, stream);
 }
 
-// Analysis: the ring sum in nseg segments, ws the workspace of nseg - 1 partials.
-int plk_anal_pair_f32(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
-                      const void* x, int B, int L, int M, int R, int mode, void* ws,
-                      int nseg, int device, void* stream) {
-  return launch_anal_pair<float, PLK_A_PAIR32>(Qp, Qm, A, Bo, ws, PLK_TABLES_M, PLK_TABLES_P,
-                                               x, B, L, M, R, mode, nseg, device, stream);
-}
-
-int plk_anal_pair_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
-                      const void* x, int B, int L, int M, int R, int mode, void* ws,
-                      int nseg, int device, void* stream) {
-  return launch_anal_pair<double, PLK_A_PAIR64>(Qp, Qm, A, Bo, ws, PLK_TABLES_M,
-                                                PLK_TABLES_P, x, B, L, M, R, mode, nseg,
-                                                device, stream);
-}
-
 // K2 on the FP64 tensor cores: nw warps a block (8 or 16), batch tiles of bt maps (4 or
 // 8), clusters of cs blocks of rs northern rings each.
-int plk_anal_pair_mma_f32(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
+int plk_anal_pair_f32(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
                           const void* x, int B, int L, int M, int R, int mode, int nw, int bt,
                           int cs, int rs, int device, void* stream) {
   return launch_anal_pair_mma_mode<float>(Qp, Qm, A, Bo, PLK_TABLES_M, PLK_TABLES_P, x, B, L,
                                           M, R, mode, nw, bt, cs, rs, device, stream);
 }
 
-int plk_anal_pair_mma_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
+int plk_anal_pair_f64(const void* Qp, const void* Qm, void* A, void* Bo, PLK_TABLE_ARGS,
                           const void* x, int B, int L, int M, int R, int mode, int nw, int bt,
                           int cs, int rs, int device, void* stream) {
   return launch_anal_pair_mma_mode<double>(Qp, Qm, A, Bo, PLK_TABLES_M, PLK_TABLES_P, x, B, L,
@@ -1304,16 +1234,14 @@ int plk_synth_f64(const void* C, void* F, PLK_PLAIN_TABLE_ARGS, const void* x, i
 
 int plk_anal_f32(const void* Q, void* A, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
                  int L, int M, int R, void* ws, int nseg, int device, void* stream) {
-  const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_anal<float, PLK_A_PLAIN32, PLAIN>(Q, nullptr, A, nullptr, ws, t, t, x, B, L,
-                                                  M, R, nseg, device, stream);
+  return launch_anal<float, PLK_A_PLAIN32>(Q, A, ws, make_tables(a, b, g, l0, sv, sk), x, B,
+                                           L, M, R, nseg, device, stream);
 }
 
 int plk_anal_f64(const void* Q, void* A, PLK_PLAIN_TABLE_ARGS, const void* x, int B,
                  int L, int M, int R, void* ws, int nseg, int device, void* stream) {
-  const Tables t = make_tables(a, b, g, l0, sv, sk);
-  return launch_anal<double, PLK_A_PLAIN64, PLAIN>(Q, nullptr, A, nullptr, ws, t, t, x, B, L,
-                                                   M, R, nseg, device, stream);
+  return launch_anal<double, PLK_A_PLAIN64>(Q, A, ws, make_tables(a, b, g, l0, sv, sk), x, B,
+                                            L, M, R, nseg, device, stream);
 }
 
 }  // extern "C"

@@ -12,11 +12,14 @@ functions run these wrappers for CUDA tensors and the twins for CPU tensors. The
 wrappers here take CUDA tensors only: anything else raises, and so does a failed build
 or launch.
 
-The analysis kernels K2/K4 split their ring sum over the card: `plan_segments` (plain
-Python, no CUDA call) chooses the number of ring segments NS from the call's shape and the
-card's SM count, the wrapper allocates the workspace of NS - 1 partial sums, and a second
-hand-written kernel adds the partials to the outputs in a fixed order. With NS = 1 the
-outputs are written directly and no second kernel runs.
+K2 runs one thread-block cluster for each (m, batch tile): `plan_pair` (plain Python, no
+CUDA call) chooses the cluster size, the rings of each block, the warps and the batch tile
+from the call's shape; the blocks' partial sums meet in distributed shared memory, each
+output element is written once, and there is no workspace and no second kernel. K4 splits
+its ring sum over the card: `plan_segments` chooses the number of ring segments NS from the
+call's shape and the card's SM count, the wrapper allocates the workspace of NS - 1 partial
+sums, and a second hand-written kernel adds the partials to the output in a fixed order.
+With NS = 1 the output is written directly and no second kernel runs.
 
 The shared library is compiled by nvcc from the checkout's sources at first use into
 `plancklens_tpu_torch/_build/`, named by a hash of the source and flags (both dtypes are
@@ -43,21 +46,21 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '
 DTYPES = ('f32', 'f64')
 
 # kernel launches since the last reset, one count per kernel (chip_smoke.py reads them to
-# show that the main path went through the kernels). A call of `anal_pair`/`anal` counts
-# once, whether or not its ring sum takes a second pass.
+# show that the main path went through the kernels). A call of `anal` counts once, whether
+# or not its ring sum takes a second pass.
 launches = {'synth_pair': 0, 'anal_pair': 0, 'synth': 0, 'anal': 0}
 # K1's and K2's launches by (mode, batch, 'f32' or 'f64'), reset with `launches`: the
 # shapes a path really runs them at
 synth_pair_shapes = {}
 anal_pair_shapes = {}
-# the segment plan of the last `anal_pair` and `anal` call
+# the plan of the last `anal_pair` call (a PairPlan) and of the last `anal` call (a
+# SegmentPlan)
 last_plan = {}
 
-# (batch tile, rows of one ring pass) of the analysis kernels, by kind of grid and data
-# type; rows are rings of the recursion, warps x rings per thread of a block. They are
-# csrc/legendre_pair.cu's PLK_A_* block shapes, checked against the library at load.
-ANAL_TILE = {('pair', 'f32'): (4, 24), ('pair', 'f64'): (2, 24),
-             ('plain', 'f32'): (4, 64), ('plain', 'f64'): (2, 64)}
+# (batch tile, rows of one ring pass) of K4 by data type; rows are rings, warps x rings per
+# thread of a block. They are csrc/legendre_pair.cu's PLK_A_* block shapes, checked against
+# the library at load.
+ANAL_TILE = {('plain', 'f32'): (4, 64), ('plain', 'f64'): (2, 64)}
 # (batch tile, rings per thread, warps, blocks meant for an SM) of the synthesis kernels,
 # a narrow and a wide shape by kind of grid and data type: csrc/legendre_pair.cu's PLK_S_*
 # block shapes, checked against the library at load. A call whose batch exceeds the
@@ -66,26 +69,23 @@ SYNTH_SHAPES = {('pair', 'f32'): ((4, 3, 8, 1), (8, 2, 8, 1)),
                 ('pair', 'f64'): ((4, 1, 8, 1), (4, 1, 8, 1)),
                 ('plain', 'f32'): ((4, 6, 8, 1), (8, 4, 8, 1)),
                 ('plain', 'f64'): ((4, 6, 8, 1), (8, 3, 8, 1))}
-# Blocks wanted for a split ring sum, in waves of one block an SM: the blocks differ in
+# Blocks wanted for K4's split ring sum, in waves of one block an SM: the blocks differ in
 # length by the l range of their m-tile, and the short ones fill the tail of many waves.
 WAVES = 4
-# Most bytes of partial sums a call may allocate. One partial of the largest main-path
-# call (two outputs, batch 8, lmax 2048, complex64) is 0.50 GiB, of the HEALPix path's
-# (one output, batch 4, complex128) 0.25 GiB: 2 GiB allows 4 and 9 segments there, and
-# keeps the main path's peak (10.9 GiB before the split) far under 16 GiB.
+# Most bytes of partial sums a K4 call may allocate. One partial of the HEALPix path's call
+# (batch 4, lmax 2048, complex128) is 0.25 GiB: 2 GiB allows 9 segments there.
 WORKSPACE_CAP = 2 * 2 ** 30
 
-# K2's fixed shape (csrc/legendre_pair.cu's PLC, PMAXCS and the 32 chains of a warp, checked
-# against the library at load): l steps a chunk, most blocks in a cluster, one recursion
-# chain a thread. A block has 8 or 16 warps on a batch tile of 4 or 8 maps; clusters above
-# 8 blocks are a non-portable size.
+# K2's fixed shape (csrc/legendre_pair.cu's PLC and PMAXCS and a warp's 32 lanes, checked
+# against the library at load): l steps a chunk, most blocks in a cluster, recursion chains
+# of a warp per chain a thread (one on a batch tile of 8 maps, two on one of 4). A block
+# has 8 or 16 warps; clusters above 8 blocks are a non-portable size.
 PAIR_LC, PAIR_MAX_CLUSTER, PAIR_CHAINS = 16, 16, 32
 PAIR_WARPS = (8, 16)
 PAIR_TILES = (4, 8)
 PAIR_PORTABLE_CLUSTER = 8
-# registers: one chain, the B operands of a warp's 8 k-steps and the accumulators a thread;
-# 128 registers a thread at most (65536 an SM over the 256 threads of each of 2 blocks, or
-# the 512 of one)
+# registers a K2 thread may take (__launch_bounds__: 65536 an SM over the 256 threads of
+# each of 2 blocks, or the 512 of one)
 PAIR_MAX_REGS = 128
 SMEM_BYTES = 232448                     # a block's shared memory on the H100 (227 KB)
 
@@ -319,8 +319,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        # the analysis entry points take (workspace, segments) before (device, stream)
-        for name, extra in (('plk_synth_pair', []), ('plk_anal_pair', [p, i])):
+        # the pair entry points take two table sets; K2's its launch shape (warps, batch
+        # tile, cluster, rings a block) and K4's (workspace, segments) before (device, stream)
+        for name, extra in (('plk_synth_pair', []), ('plk_anal_pair', [i] * 4)):
             for suffix in DTYPES:
                 fn = getattr(lib, '%s_%s' % (name, suffix))
                 fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 5 + extra + [i, p]
@@ -341,10 +342,6 @@ def _load():
                                        % (kind, suffix, ('narrow', 'wide')[wide],
                                           tuple(got >> k & 0xff for k in (24, 16, 8, 0)),
                                           shape))
-        for suffix in DTYPES:
-            fn = getattr(lib, 'plk_anal_pair_mma_%s' % suffix)
-            fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 5 + [i] * 4 + [i, p]
-            fn.restype = i
         lib.plk_anal_pair_shape.restype = i
         want = PAIR_LC << 16 | PAIR_MAX_CLUSTER << 8 | PAIR_CHAINS
         if lib.plk_anal_pair_shape() != want:
@@ -358,10 +355,10 @@ def _load():
                 raise RuntimeError('K2 mode %d, %d warps, batch tile %d: %d bytes of shared '
                                    'memory, its mirror says %d'
                                    % (mode, nw, bt, got, pair_smem(mode, nw, bt)))
-        lib.plk_anal_tile.argtypes = [i, i]
+        lib.plk_anal_tile.argtypes = [i]
         lib.plk_anal_tile.restype = i
         for (kind, suffix), (bt, rpp) in ANAL_TILE.items():
-            tile = lib.plk_anal_tile(int(kind == 'plain'), int(suffix == 'f64'))
+            tile = lib.plk_anal_tile(int(suffix == 'f64'))
             if tile != (bt << 16 | rpp):
                 raise RuntimeError('the %s %s analysis kernel tiles (%d, %d), the planner '
                                    'assumes (%d, %d)' % (kind, suffix, tile >> 16,
@@ -432,17 +429,17 @@ def _launch_pair(kind, a_p, a_m, o_p, o_m, t_m, t_p, B, L, M, R, mode, dev, *ext
             *_tab_args(t_m), *_tab_args(t_p), _ptr(t_m['x']), B, L, M, R, mode, *extra)
 
 
-def _plan(kind, Q, rows, L, nout, nseg):
-    """The segment plan of an analysis call on Q (B, nrings, M) and its workspace of
-    nseg - 1 partial sums (nout, B, L, M), None for one segment."""
-    B, _, M = Q.shape
-    bt, rpp = ANAL_TILE['plain' if kind == 'anal' else 'pair', _suffix(Q.dtype)]
+def _plan_anal(Q, L, nseg):
+    """The segment plan of a K4 call on Q (B, nrings, M) and its workspace of nseg - 1
+    partial sums (B, L, M), None for one segment."""
+    B, R, M = Q.shape
+    bt, rpp = ANAL_TILE['plain', _suffix(Q.dtype)]
     sms = torch.cuda.get_device_properties(Q.device).multi_processor_count
-    plan = plan_segments(rows, L, M, B, bt, rpp, nout, Q.element_size(), sms, nseg=nseg)
-    last_plan[kind] = plan
+    plan = plan_segments(R, L, M, B, bt, rpp, 1, Q.element_size(), sms, nseg=nseg)
+    last_plan['anal'] = plan
     ws = None
     if plan.nseg > 1:
-        ws = torch.empty((plan.nseg - 1, nout, B, L, M), dtype=Q.dtype, device=Q.device)
+        ws = torch.empty((plan.nseg - 1, B, L, M), dtype=Q.dtype, device=Q.device)
     return plan, ws
 
 
@@ -469,17 +466,12 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
     return Fp, Fm
 
 
-# the K2 modes that run on the FP64 tensor cores (anal_pair_mma_kernel); the others run
-# anal_pair_kernel's segments
-MMA_MODES = (0, 1, 2)
-
-
-def anal_pair(Qp, Qm, spin, lmax, t_m, t_p, nseg=None):
+def anal_pair(Qp, Qm, spin, lmax, t_m, t_p):
     """K2: (A, Bc) = NS-pair analysis of Qp (with d_{m,-spin}) and Qm (d_{m,+spin}).
 
     Qp, Qm: (B, nrings, M) complex64/128 contiguous CUDA tensors, quadrature-weighted
     (Qm may be None). Returns (B, lmax+1, M) complex outputs, Bc None when Qm is None.
-    The ring sum runs in `plan_segments`' segments (`nseg` forces a count). Deterministic:
+    One launch of `plan_pair`'s clusters, left in `last_plan['anal_pair']`. Deterministic:
     the ring sums are reduced in a fixed order at every level."""
     B, R, M = Qp.shape
     L = lmax + 1
@@ -492,21 +484,10 @@ def anal_pair(Qp, Qm, spin, lmax, t_m, t_p, nseg=None):
     A = torch.empty((B, L, M), dtype=Qp.dtype, device=dev)
     Bc = None if Qm is None else torch.empty_like(A)
     mode = _mode(spin, Qm is not None)
-    if mode in MMA_MODES:
-        plan = plan_pair(R, M, B, mode)
-        last_plan['anal_pair'] = plan
-        fn = getattr(_load(), 'plk_anal_pair_mma_%s' % _suffix(Qp.dtype))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_ptr(Qp), _ptr(Qm), _ptr(A), _ptr(Bc), *_tab_args(t_m), *_tab_args(t_p),
-                _ptr(t_m['x']), B, L, M, R, mode, plan.warps, plan.batch_tile, plan.cluster,
-                plan.rings_per_block, dev.index, ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError('anal_pair kernel launch failed: CUDA error %d' % rc)
-        launches['anal_pair'] += 1
-    else:
-        plan, ws = _plan('anal_pair', Qp, (R + 1) // 2, L, 1 if Qm is None else 2, nseg)
-        _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R, mode, dev, _ptr(ws),
-                     plan.nseg)
+    plan = plan_pair(R, M, B, mode)
+    last_plan['anal_pair'] = plan
+    _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R, mode, dev, plan.warps,
+                 plan.batch_tile, plan.cluster, plan.rings_per_block)
     shape = (mode, B, _suffix(Qp.dtype))
     anal_pair_shapes[shape] = anal_pair_shapes.get(shape, 0) + 1
     return A, Bc
@@ -540,7 +521,7 @@ def anal(Q, lmax, t, nseg=None):
     dev = Q.device
     _check_tables(t, dev, L, M, R)
     A = torch.empty((B, L, M), dtype=Q.dtype, device=dev)
-    plan, ws = _plan('anal', Q, R, L, 1, nseg)
+    plan, ws = _plan_anal(Q, L, nseg)
     _launch('anal', Q.dtype, dev, _ptr(Q), _ptr(A), *_tab_args(t), _ptr(t['x']),
             B, L, M, R, _ptr(ws), plan.nseg)
     return A

@@ -67,6 +67,10 @@ def _k(name, cat, ts, dur, corr):
 @pytest.mark.parametrize('name,cat,group', [
     ('void synth_pair_kernel<float, 4, 4, 1>(float2 const*)', 'kernel', 'K1 synth_pair'),
     ('void anal_pair_kernel<float, 4, 1, 2>(float2 const*)', 'kernel', 'K2 anal_pair'),
+    ('void (anonymous namespace)::anal_pair_mma_kernel<double, 8, 4, 1>(double2 const*)',
+     'kernel', 'K2 anal_pair'),
+    ('void (anonymous namespace)::anal_pair_mma_kernel<float, 16, 8, 0>(float2 const*)',
+     'kernel', 'K2 anal_pair'),
     ('void synth_pair_kernel<double, 4, 1, 3>(double2 const*)', 'kernel', 'K3 synth'),
     ('void anal_pair_kernel<double, 4, 1, 3>(double2 const*)', 'kernel', 'K4 anal'),
     ('void (anonymous namespace)::anal_pair_sum_kernel<float, 1>(float2*)', 'kernel',
@@ -82,15 +86,13 @@ def test_device_group(name, cat, group):
 
 
 def test_second_pass_counts_with_its_kernel():
-    """A split ring sum is two device rows, the analysis kernel and its second pass: both
-    fall into the kernel's group, in the main-path summary and the HEALPix one, and the
-    group's calls count the kernel's calls."""
-    k2 = 'void (anonymous namespace)::anal_pair_kernel<float, 4, 2, 1>(float2 const*)'
-    k2s = 'void (anonymous namespace)::anal_pair_sum_kernel<float, 1>(float2*)'
+    """K4's split ring sum is two device rows, the analysis kernel and its second pass:
+    both fall into K4's group, in the main-path summary and the HEALPix one, and the
+    group's calls count the kernel's calls; K2's cluster kernel is one row a call."""
+    k2 = 'void (anonymous namespace)::anal_pair_mma_kernel<float, 16, 8, 1>(float2 const*)'
     k4 = 'void (anonymous namespace)::anal_pair_kernel<double, 2, 2, 3>(double2 const*)'
     k4s = 'void (anonymous namespace)::anal_pair_sum_kernel<double, 3>(double2*)'
-    rows = [_x(k2, 'kernel', 10, 100), _x(k2s, 'kernel', 110, 5),
-            _x(k2, 'kernel', 200, 100),                      # one segment: no second pass
+    rows = [_x(k2, 'kernel', 10, 100), _x(k2, 'kernel', 200, 105),
             _x(k4, 'kernel', 400, 300), _x(k4s, 'kernel', 700, 7)]
     for window, fn in (('main_path', prof.summarize), ('healpix_path', hprof.summarize_path)):
         out = fn([_x(window, 'user_annotation', 0, 1000)] + rows)

@@ -12,10 +12,12 @@ Spins 0-3, single transforms (Cm/Qm None), odd and even ring counts, mmax < lmax
 and 3. The kernel wrappers refuse CPU tensors; the kernels themselves are held against
 the plain engine on a CUDA device by the `cuda`-marked test (and by chip_smoke.py).
 
-* the ring split of the analysis kernels K2/K4, as far as the CPU reaches: the segment
-  planner (`legendre_kernels.plan_segments`/`segment_rows`) at the shapes the paths use
-  and over a hypothesis sweep, and the split itself as a sum: the plain analysis of each
-  ring segment alone, added in segment order, equals the whole call to 1e-12 of max.
+* the ring split of the analysis kernels, as far as the CPU reaches: K2's cluster planner
+  (`legendre_kernels.plan_pair`/`pair_slices`) and K4's segment planner
+  (`plan_segments`/`segment_rows`) at the shapes the paths use and over hypothesis sweeps,
+  and each split itself as a sum: the plain analysis of each block's ring slice (K2) or
+  ring segment (K4) alone, added in rank or segment order, equals the whole call to 1e-12
+  of max.
 """
 import re
 
@@ -245,23 +247,57 @@ def _check_plan(plan, rows, L, M, B, bt, rpp, nout, esize, sms, cap):
         assert plan.nseg <= max(1, -(-lk.WAVES * sms // base))
 
 
-# (rows, L, M, B, 'pair'/'plain', dtype, outputs): the shapes the paths run, and the
-# segment count expected on a 132-SM card
+def _check_pair_plan(plan, nrings, M, B, mode):
+    """K2's cluster: every northern ring in exactly one block's slice, in rank order; every
+    (m, batch tile) one cluster; the slices fit a block; the block fits 227 KB of shared
+    memory and the register budget."""
+    nh = (nrings + 1) // 2
+    slices = lk.pair_slices(plan, nrings)
+    assert len(slices) == plan.cluster <= lk.PAIR_MAX_CLUSTER
+    seen = np.zeros(nh, int)
+    for a, b in slices:
+        assert 0 <= a < b <= nh and b - a <= plan.rings_per_block
+        seen[a:b] += 1
+    assert (seen == 1).all()
+    assert plan.rings_per_block <= lk.pair_rings(mode, plan.warps, plan.batch_tile)
+    assert plan.m_per_block == 1 and plan.lc == lk.PAIR_LC
+    assert plan.blocks == plan.cluster * -(-B // plan.batch_tile) * M
+    assert plan.batch_tile == (4 if B <= 4 else 8) and plan.warps in lk.PAIR_WARPS
+    assert plan.smem_bytes == lk.pair_smem(mode, plan.warps, plan.batch_tile) <= lk.SMEM_BYTES
+    # the B operands (<= 32 doubles), the accumulators and the chains' states in 128
+    # registers, and 128 registers for every thread of the blocks an SM holds
+    assert lk.pair_operand_doubles(mode, plan.batch_tile) <= 32
+    assert plan.warps * 32 * lk.PAIR_MAX_REGS * (16 // plan.warps) <= 65536
+    if plan.cluster > lk.PAIR_PORTABLE_CLUSTER:
+        assert plan.warps == lk.PAIR_WARPS[-1]      # non-portable only at the most warps
+
+
+# (rows or rings, L, M, B, 'pair'/'plain', dtype, outputs or mode, expected): the shapes
+# the paths run. K4 ('plain'): recursion rows and its segment count on a 132-SM card. K2
+# ('pair'): the grid's rings, the mode and its plan (cluster, rings a block, warps, batch
+# tile)
 PATH_SHAPES = [
-    (1537, 2049, 2049, 8, 'pair', 'f32', 2, 4),    # K2, QE grid of lmax 2048, two outputs
-    (1537, 2049, 2049, 8, 'pair', 'f32', 1, 5),
-    (1537, 2049, 2049, 4, 'pair', 'f32', 2, 8),
-    (1537, 2049, 2049, 4, 'pair', 'f32', 1, 9),
+    (3073, 2049, 2049, 8, 'pair', 'f32', 1, (7, 220, 16, 8)),   # K2, QE grid of lmax 2048
+    (3073, 2049, 2049, 8, 'pair', 'f32', 2, (7, 220, 16, 8)),
+    (3073, 2049, 2049, 4, 'pair', 'f32', 1, (7, 220, 8, 4)),
+    (3073, 2049, 2049, 4, 'pair', 'f32', 2, (7, 220, 8, 4)),
     (8191, 2049, 2049, 4, 'plain', 'f64', 1, 5),   # K4, all rings of nside 2048
     (48, 513, 513, 64, 'plain', 'f64', 1, 1),      # the exact pixel window's node grids
     (48, 513, 513, 1, 'plain', 'f64', 1, 1),
-    (129, 257, 257, 3, 'pair', 'f32', 2, 6),       # the 257/258-ring checks at lmax 256
-    (129, 257, 257, 3, 'pair', 'f64', 2, 6),
+    (257, 257, 257, 3, 'pair', 'f32', 1, (1, 129, 8, 4)),   # the 257-ring checks at lmax 256
+    (257, 257, 257, 3, 'pair', 'f64', 0, (1, 129, 8, 4)),
 ]
 
 
 @pytest.mark.parametrize('rows,L,M,B,kind,dt,nout,want', PATH_SHAPES)
 def test_segment_plan_at_path_shapes(rows, L, M, B, kind, dt, nout, want):
+    if kind == 'pair':                 # K2: `rows` are the grid's rings, `nout` the mode
+        plan = lk.plan_pair(rows, M, B, nout)
+        _check_pair_plan(plan, rows, M, B, nout)
+        assert (plan.cluster, plan.rings_per_block, plan.warps, plan.batch_tile) == want
+        if rows >= 3073:                  # the QE grid's calls fill the card many times
+            assert plan.blocks >= 50 * SMS
+        return
     bt, rpp = lk.ANAL_TILE[kind, dt]
     esize = 8 if dt == 'f32' else 16
     plan = lk.plan_segments(rows, L, M, B, bt, rpp, nout, esize, SMS)
@@ -280,16 +316,31 @@ def test_segment_plan_at_path_shapes(rows, L, M, B, kind, dt, nout, want):
 
 @settings(max_examples=300, deadline=None)
 @given(rows=st.integers(1, 20000), lmax=st.integers(1, 4096), mfrac=st.floats(0.05, 1.),
-       B=st.integers(1, 96), kind=st.sampled_from(['pair', 'plain']),
-       dt=st.sampled_from(['f32', 'f64']), nout=st.integers(1, 2),
+       B=st.integers(1, 96), dt=st.sampled_from(['f32', 'f64']), nout=st.integers(1, 2),
        sms=st.integers(1, 264), cap_mib=st.integers(0, 8192))
-def test_segment_plan_sweep(rows, lmax, mfrac, B, kind, dt, nout, sms, cap_mib):
+def test_segment_plan_sweep(rows, lmax, mfrac, B, dt, nout, sms, cap_mib):
     L, M = lmax + 1, max(1, int(mfrac * (lmax + 1)))
-    bt, rpp = lk.ANAL_TILE[kind, dt]
+    bt, rpp = lk.ANAL_TILE['plain', dt]
     esize = 8 if dt == 'f32' else 16
     cap = cap_mib * 2 ** 20
     plan = lk.plan_segments(rows, L, M, B, bt, rpp, nout, esize, sms, cap=cap)
     _check_plan(plan, rows, L, M, B, bt, rpp, nout, esize, sms, cap)
+
+
+@settings(max_examples=300, deadline=None)
+@given(nrings=st.integers(1, 20000), M=st.integers(1, 4097), B=st.integers(1, 96),
+       mode=st.sampled_from([0, 1, 2]))
+def test_pair_plan_sweep(nrings, M, B, mode):
+    """K2's planner over ring counts, columns, batches and modes: a plan that holds
+    `_check_pair_plan`, or, past the most rings 16 blocks of 16 warps hold, a ValueError."""
+    nh = (nrings + 1) // 2
+    bt = 4 if B <= 4 else 8
+    most = lk.PAIR_MAX_CLUSTER * lk.pair_rings(mode, lk.PAIR_WARPS[-1], bt)
+    if nh > most:
+        with pytest.raises(ValueError, match='northern rings'):
+            lk.plan_pair(nrings, M, B, mode)
+        return
+    _check_pair_plan(lk.plan_pair(nrings, M, B, mode), nrings, M, B, mode)
 
 
 def _segment_mask(nrings, a, b, pair):
@@ -304,31 +355,34 @@ def _segment_mask(nrings, a, b, pair):
     return torch.from_numpy(keep)[None, :, None]
 
 
-@pytest.mark.parametrize('nrings', [143, 144])
+@pytest.mark.parametrize('nrings', [1537, 1538])
 @pytest.mark.parametrize('spin', [0, 1, 2, 3])
 def test_ring_segments_add_up_pair(nrings, spin):
-    """K2's split on the CPU: the plain pair analysis of each segment's rings (zero
-    weights elsewhere), added in order, is the whole call to 1e-12 of max in f64; ragged
-    last pass, equator ring and mirror rows included."""
-    lmax = 24
+    """K2's cluster on the CPU: the plain pair analysis of each block's ring slice (zero
+    weights elsewhere, mirror rings included), summed in rank order, is the whole call to
+    1e-12 of max in f64; 769 northern rings make a ragged last slice, and 1537 rings an
+    equator ring."""
+    lmax, B = 24, 2
     rng = np.random.RandomState(100 * spin + nrings)
     theta = pgl(nrings - 1).theta
     t_m, t_p = pcore.pair_tables(lmax, lmax, spin, theta, None, 'cpu')
-    Q, Qm = _t(_c(rng, (2, nrings, lmax + 1))), _t(_c(rng, (2, nrings, lmax + 1)))
-    whole = pcore.legendre_anal_pair_plain(Q, Qm, spin, lmax, t_m, t_p)
-    nh = (nrings + 1) // 2
-    bt, rpp = lk.ANAL_TILE['pair', 'f64']
-    for force in (None, 2):
-        plan = lk.plan_segments(nh, lmax + 1, lmax + 1, 2, bt, rpp, 2, 16, SMS, nseg=force)
-        assert plan.nseg == (3 if force is None else 2)
+    Q, Qm = _t(_c(rng, (B, nrings, lmax + 1))), _t(_c(rng, (B, nrings, lmax + 1)))
+    for qm in (None, Qm):
+        mode = 1 if qm is not None else (0 if spin == 0 else 2)
+        plan = lk.plan_pair(nrings, lmax + 1, B, mode)
+        assert plan.cluster == (2 if mode == 0 else 4)
+        sl = lk.pair_slices(plan, nrings)
+        assert sl[-1][1] - sl[-1][0] < plan.rings_per_block        # a ragged last slice
+        whole = pcore.legendre_anal_pair_plain(Q, qm, spin, lmax, t_m, t_p)
         total, seen = [0., 0.], torch.zeros(1, nrings, 1, dtype=torch.float64)
-        for a, b in lk.segment_rows(plan, nh):
+        for a, b in sl:
             keep = _segment_mask(nrings, a, b, True)
             seen += keep
-            part = pcore.legendre_anal_pair_plain(Q * keep, Qm * keep, spin, lmax, t_m, t_p)
-            total = [x + y for x, y in zip(total, part)]
-        assert torch.equal(seen, torch.ones_like(seen))      # every ring in one segment
-        assert _err(total[0], whole[0]) <= 1e-12 and _err(total[1], whole[1]) <= 1e-12
+            part = pcore.legendre_anal_pair_plain(Q * keep, None if qm is None else qm * keep,
+                                                  spin, lmax, t_m, t_p)
+            total = [x + (0. if y is None else y) for x, y in zip(total, part)]
+        assert torch.equal(seen, torch.ones_like(seen))      # every ring in one slice
+        assert all(_err(x, y) <= 1e-12 for x, y in zip(total, whole) if y is not None)
 
 
 @pytest.mark.parametrize('nrings', [191, 192])
