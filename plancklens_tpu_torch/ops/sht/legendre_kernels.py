@@ -319,8 +319,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        # the pair entry points take two table sets; K2's its launch shape (warps, batch
-        # tile, cluster, rings a block) and K4's (workspace, segments) before (device, stream)
+        # the pair entry points take two table sets, K2's also its launch shape (warps,
+        # batch tile, cluster, rings a block); the plain ones one set, K4's also (workspace,
+        # segments); all end with (device, stream)
         for name, extra in (('plk_synth_pair', []), ('plk_anal_pair', [i] * 4)):
             for suffix in DTYPES:
                 fn = getattr(lib, '%s_%s' % (name, suffix))
