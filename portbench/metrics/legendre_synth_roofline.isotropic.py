@@ -1,0 +1,6 @@
+"""legendre_synth_roofline of the isotropic cells (reader: portbench/metrics/_readers.py)."""
+from portbench.metrics._readers import legendre_synth_roofline as read  # noqa: F401
+
+LAYER = 'SHT Legendre phase: ops/sht core, kernels K1-K4'
+UNIT = '%'
+MOVES = 'sims_per_hour.isotropic'

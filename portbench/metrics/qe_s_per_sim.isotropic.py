@@ -1,0 +1,6 @@
+"""qe_s_per_sim of the isotropic cells (reader: portbench/metrics/_readers.py)."""
+from portbench.metrics._readers import qe_s_per_sim as read  # noqa: F401
+
+LAYER = 'QE: models/qest QELib'
+UNIT = 's'
+MOVES = 'sims_per_hour.isotropic'
