@@ -14,6 +14,18 @@ sim, when the parfile has nhl_dd). Sims inside the mean-field set make the qcl s
 (the reference's MF-containment guard): run it on the parfile's mc_sims_var. Each stage's time is measured with CUDA events on a CUDA device and with
 the host clock otherwise. The stage functions are importable (chip_smoke.py drives them).
 
+Tracing: `--trace run_trace.json` turns on the port's tracer (plancklens_tpu_torch/
+utils/trace.py) and writes its records, counters and summary there at exit. Each stage is
+a span stage.<name> (sims: first index and count) holding the spans of its layers:
+filt.ivf (a filtering), cg.solve / cg.iter / cg.stop (a C^-1 solve, an iteration, the
+host's read of the stop flag), qe.eval / qe.leg / qe.out (a QE, its legs, its output
+analysis), copy.to_host / copy.to_device (a cacher's copy, with its bytes and device
+seconds), sht.legendre (a Legendre call, with its shape) and sht.recursion_tables (a
+table build); the counters are cg.iters, copy.to_host_bytes, copy.to_device_bytes,
+sht.tables_hit and sht.tables_miss. The summary gives each span's calls and host seconds
+(and device seconds of the copies): a run's stage, solve, QE and copy seconds. Tracing
+does not synchronise the device; under torch.profiler the spans are ranges of its trace.
+
 Several processes (--mesh, as examples/run_qlms.py's; one process a GPU):
 
     torchrun --nproc_per_node N examples/run_qlms_torch.py <parfile> --mesh ...
@@ -44,6 +56,8 @@ if _REPO not in sys.path:
 import numpy as np
 import torch
 
+from plancklens_tpu_torch.utils import trace
+
 
 def load_parfile(path, device=None, **inject):
     """Import a parameter file; `device` sets PLK_DEVICE for it first, and `inject` sets
@@ -60,12 +74,15 @@ def load_parfile(path, device=None, **inject):
 
 class StageTimer:
     """Seconds of a stage: CUDA events on a CUDA device (synchronised at the end), the
-    host clock otherwise."""
+    host clock otherwise. A `name` makes the stage the tracer's span of that name (attr
+    sims: the first of `idxs` and their count)."""
 
-    def __init__(self, device):
+    def __init__(self, device, name=None, idxs=()):
         self.cuda = torch.device(device).type == 'cuda'
+        self._span = trace.NOOP if name is None else trace.span(name, sims=trace.sims(idxs))
 
     def __enter__(self):
+        self._span.__enter__()
         if self.cuda:
             self._e0 = torch.cuda.Event(enable_timing=True)
             self._e1 = torch.cuda.Event(enable_timing=True)
@@ -81,13 +98,14 @@ class StageTimer:
             self.seconds = self._e0.elapsed_time(self._e1) / 1e3
         else:
             self.seconds = time.perf_counter() - self._t0
+        self._span.__exit__(*exc)
         return False
 
 
 def stage_filt(par, idxs):
     """Filtered (t, e, b) alm batches of sims idxs; a filter with only the per-index
     interface (the masked IVFCinv chain, one sim a solve) is called sim by sim."""
-    with StageTimer(par.DEVICE) as t:
+    with StageTimer(par.DEVICE, 'stage.filt', idxs) as t:
         if hasattr(par.ivfs, 'get_sim_teblm_batch'):
             out = par.ivfs.get_sim_teblm_batch(idxs)
         else:
@@ -99,7 +117,7 @@ def stage_filt(par, idxs):
 def stage_qe(par, keys, idxs):
     """{key: (nsims, nalm) qlm batch} of qlms_dd."""
     out = {}
-    with StageTimer(par.DEVICE) as t:
+    with StageTimer(par.DEVICE, 'stage.qe', idxs) as t:
         for k in keys:
             out[k] = par.qlms_dd.get_sim_qlm_batch(k, idxs)
     return out, t.seconds
@@ -109,7 +127,7 @@ def stage_mf(par, keys):
     """{key: [mean field of each non-empty half of mc_sims_mf_dd]}."""
     out = {}
     halves = [h for h in (par.mc_sims_mf_dd[0::2], par.mc_sims_mf_dd[1::2]) if len(h)]
-    with StageTimer(par.DEVICE) as t:
+    with StageTimer(par.DEVICE, 'stage.mf', par.mc_sims_mf_dd) as t:
         for k in keys:
             out[k] = [par.qlms_dd.get_sim_qlm_mf(k, h) for h in halves]
     return out, t.seconds
@@ -118,7 +136,7 @@ def stage_mf(par, keys):
 def stage_qcl(par, keys, idxs):
     """{(key, 'dd'|'ds'|'ss'): (nsims, lmax_qlm+1) spectra}; raises for sims in the MF set."""
     out = {}
-    with StageTimer(par.DEVICE) as t:
+    with StageTimer(par.DEVICE, 'stage.qcl', idxs) as t:
         for k in keys:
             for lib, name in [(par.qcls_dd, 'dd'), (par.qcls_ds, 'ds'), (par.qcls_ss, 'ss')]:
                 out[(k, name)] = lib.get_sim_qcl_batch(k, idxs)
@@ -128,7 +146,7 @@ def stage_qcl(par, keys, idxs):
 def stage_xin(par, keys, idxs):
     """{key: (nsims, lmax_qlm+1) cross-spectra of qlms_dd with the input potentials}."""
     out = {}
-    with StageTimer(par.DEVICE) as t:
+    with StageTimer(par.DEVICE, 'stage.xin', idxs) as t:
         for k in keys:
             out[k] = np.stack([par.qlms_x_in.get_sim_qcl(k, int(i)) for i in idxs])
     return out, t.seconds
@@ -137,7 +155,7 @@ def stage_xin(par, keys, idxs):
 def stage_nhl(par, keys, idx):
     """{key: semi-analytic unnormalised N0 of sim idx}."""
     out = {}
-    with StageTimer(par.DEVICE) as t:
+    with StageTimer(par.DEVICE, 'stage.nhl', idx) as t:
         for k in keys:
             out[k] = par.nhl_dd.get_sim_nhl(int(idx), k, k)
     return out, t.seconds
@@ -196,7 +214,22 @@ def main():
                    help="torch device (default 'cuda'; 'cpu' runs the plain torch path)")
     p.add_argument('--mesh', action='store_true',
                    help='split the sims over the ranks of a torch.distributed run')
+    p.add_argument('--trace', default=None, metavar='PATH',
+                   help="turn the port's tracer on and write its spans, counters and "
+                        "summary as JSON to PATH at exit")
     args = p.parse_args()
+    if args.trace:
+        trace.enable()
+        try:
+            run(p, args)
+        finally:
+            trace.dump(args.trace)
+    else:
+        run(p, args)
+
+
+def run(p, args):
+    """The stages `args` name, on the parfile's libraries."""
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         p.error("no CUDA device is available for --device %s; pass --device cpu to run "

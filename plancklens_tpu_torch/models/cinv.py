@@ -29,6 +29,7 @@ from ..utils.cls import cli, cldict2arr
 from ..utils.hashing import clhash
 from ..ops.sht import SHT
 from ..ops.sht.core import recursion_tables
+from ..utils import trace
 from ..ops.sht.transforms import _resolve_device, _on_device
 from ..ops import cg
 
@@ -825,7 +826,8 @@ class IVFCinv:
         self.device = (cinv_t if cinv_t is not None else cinv_p).device
 
     def _load(self, cacher, name):
-        return torch.as_tensor(np.asarray(cacher.load(name))).to(self.device)
+        return trace.to_device(np.asarray(cacher.load(name)), self.device,
+                               name.split('_')[0])
 
     def _soltn(self, name):
         if self.soltn_cacher is not None and self.soltn_cacher.is_cached(name):
@@ -834,7 +836,7 @@ class IVFCinv:
 
     def _store_soltn(self, name, x):
         if self.soltn_cacher is not None:
-            self.soltn_cacher.cache(name, x.cpu().numpy())
+            self.soltn_cacher.cache(name, trace.to_host(x, 'wf'))
 
     def hashdict(self):
         return {'cinv_t': self.cinv_t.hashdict() if self.cinv_t else 0,
@@ -875,13 +877,14 @@ class IVFCinv:
             if self.cacher is not None and self.cacher.is_cached(fn):
                 self._cache[key] = self._load(self.cacher, fn)
             else:
-                tmap = self.sim_lib.get_sim_tmap(idx)
-                out, x = self.cinv_t.apply_ivf(tmap, x0=self._soltn('wf_t_%05d' % idx),
-                                               ret_wf=True)
-                self._store_soltn('wf_t_%05d' % idx, x)
-                self._cache[key] = out[0]
-                if self.cacher is not None:
-                    self.cacher.cache(fn, out[0].cpu().numpy())
+                with trace.span('filt.ivf', kind='cinv_t', sims=trace.sims(idx)):
+                    tmap = self.sim_lib.get_sim_tmap(idx)
+                    out, x = self.cinv_t.apply_ivf(tmap, x0=self._soltn('wf_t_%05d' % idx),
+                                                   ret_wf=True)
+                    self._store_soltn('wf_t_%05d' % idx, x)
+                    self._cache[key] = out[0]
+                    if self.cacher is not None:
+                        self.cacher.cache(fn, trace.to_host(out[0], 'ivf'))
         return self._cache[key]
 
     def _eb(self, idx):
@@ -895,14 +898,15 @@ class IVFCinv:
                 self._cache[key] = (self._load(self.cacher, fn_e),
                                     self._load(self.cacher, fn_b))
             else:
-                q, u = self.sim_lib.get_sim_pmap(idx)
-                (e, b), x = self.cinv_p.apply_ivf(q, u, x0=self._soltn('wf_p_%05d' % idx),
-                                                  ret_wf=True)
-                self._store_soltn('wf_p_%05d' % idx, x)
-                self._cache[key] = (e[0], b[0])
-                if self.cacher is not None:
-                    self.cacher.cache(fn_b, b[0].cpu().numpy())
-                    self.cacher.cache(fn_e, e[0].cpu().numpy())
+                with trace.span('filt.ivf', kind='cinv_p', sims=trace.sims(idx)):
+                    q, u = self.sim_lib.get_sim_pmap(idx)
+                    (e, b), x = self.cinv_p.apply_ivf(
+                        q, u, x0=self._soltn('wf_p_%05d' % idx), ret_wf=True)
+                    self._store_soltn('wf_p_%05d' % idx, x)
+                    self._cache[key] = (e[0], b[0])
+                    if self.cacher is not None:
+                        self.cacher.cache(fn_b, trace.to_host(b[0], 'ivf'))
+                        self.cacher.cache(fn_e, trace.to_host(e[0], 'ivf'))
         return self._cache[key]
 
     def get_sim_elm(self, idx):
@@ -1176,7 +1180,8 @@ class IVFCinvJTP:
                 **{'clw_' + k: clhash(np.asarray(v)) for k, v in sorted(self.cl.items())}}
 
     def _load(self, cacher, name):
-        return torch.as_tensor(np.asarray(cacher.load(name))).to(self.device)
+        return trace.to_device(np.asarray(cacher.load(name)), self.device,
+                               name.split('_')[0])
 
     def get_fal(self):
         return self.cinv_tp.get_fal()
@@ -1205,19 +1210,20 @@ class IVFCinvJTP:
             if self.cacher is not None and all(self.cacher.is_cached(f) for f in fns):
                 self._cache[key] = tuple(self._load(self.cacher, f) for f in fns)
             else:
-                tmap = self.sim_lib.get_sim_tmap(idx)
-                q, u = self.sim_lib.get_sim_pmap(idx)
-                fn_x = 'wf_tp_%05d' % idx
-                sol = None
-                if self.soltn_cacher is not None and self.soltn_cacher.is_cached(fn_x):
-                    sol = self._load(self.soltn_cacher, fn_x)
-                (t, e, b), x = self.cinv_tp.apply_ivf(tmap, q, u, x0=sol, ret_wf=True)
-                if self.soltn_cacher is not None:
-                    self.soltn_cacher.cache(fn_x, x.cpu().numpy())
-                self._cache[key] = (t[0], e[0], b[0])
-                if self.cacher is not None:
-                    for f, a in zip(fns, self._cache[key]):
-                        self.cacher.cache(f, a.cpu().numpy())
+                with trace.span('filt.ivf', kind='cinv_tp', sims=trace.sims(idx)):
+                    tmap = self.sim_lib.get_sim_tmap(idx)
+                    q, u = self.sim_lib.get_sim_pmap(idx)
+                    fn_x = 'wf_tp_%05d' % idx
+                    sol = None
+                    if self.soltn_cacher is not None and self.soltn_cacher.is_cached(fn_x):
+                        sol = self._load(self.soltn_cacher, fn_x)
+                    (t, e, b), x = self.cinv_tp.apply_ivf(tmap, q, u, x0=sol, ret_wf=True)
+                    if self.soltn_cacher is not None:
+                        self.soltn_cacher.cache(fn_x, trace.to_host(x, 'wf'))
+                    self._cache[key] = (t[0], e[0], b[0])
+                    if self.cacher is not None:
+                        for f, a in zip(fns, self._cache[key]):
+                            self.cacher.cache(f, trace.to_host(a, 'ivf'))
         return self._cache[key]
 
     def get_sim_tlm(self, idx):

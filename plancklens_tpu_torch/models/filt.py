@@ -16,6 +16,7 @@ import torch
 from ..utils import alm as ualm
 from ..utils.cls import cli, cldict2arr, extcl
 from ..utils.hashing import clhash
+from ..utils import trace
 
 
 def base_ivfs(ivfs):
@@ -125,10 +126,11 @@ class IVFSepTP:
         return self._filt(self.sim_lib.get_sim_blm(idx), self.fbl, self.transf['b'])
 
     def get_sim_teblm_batch(self, idxs):
-        t, e, b = self.sim_lib.get_sim_teblm_batch(idxs)
-        return (self._filt(t, self.ftl, self.transf['t']),
-                self._filt(e, self.fel, self.transf['e']),
-                self._filt(b, self.fbl, self.transf['b']))
+        with trace.span('filt.ivf', kind='sep_tp', sims=trace.sims(idxs)):
+            t, e, b = self.sim_lib.get_sim_teblm_batch(idxs)
+            return (self._filt(t, self.ftl, self.transf['t']),
+                    self._filt(e, self.fel, self.transf['e']),
+                    self._filt(b, self.fbl, self.transf['b']))
 
     # Wiener-filtered alms (reference: plancklens/filt/filt_simple.py:149-183)
     def _wiener(self, alm, key):

@@ -17,6 +17,7 @@ import torch
 from ..utils import alm as ualm
 from ..utils.hashing import mchash
 from ..utils.cachers import cacher_mem
+from ..utils import trace
 
 
 class stats:
@@ -201,7 +202,7 @@ class QeClLib:
             if mfB is not None:
                 qB = qB - mfB
             cl = ualm.alm2cl(qA, self.lmax_qlm, alm2=qB)
-            self.cacher.cache(fn, cl.cpu().numpy())
+            self.cacher.cache(fn, trace.to_host(cl, 'qcl'))
         return np.asarray(self.cacher.load(fn))
 
     def get_dat_qcl(self, k1, k2=None):
@@ -254,7 +255,7 @@ class QeClLib:
             qA = qA - mfA[None, :]
         if mfB is not None:
             qB = qB - mfB[None, :]
-        cls = ualm.alm2cl(qA, self.lmax_qlm, alm2=qB).cpu().numpy()
+        cls = trace.to_host(ualm.alm2cl(qA, self.lmax_qlm, alm2=qB), 'qcl')
         for j, fn in enumerate(fns):
             self.cacher.cache(fn, cls[j])
         return cls

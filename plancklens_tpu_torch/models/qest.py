@@ -14,6 +14,7 @@ import torch
 from ..utils import alm as ualm
 from ..utils.hashing import clhash, mchash
 from ..utils.cachers import cacher_mem
+from ..utils import trace
 from ..utils.cls import cli
 from ..ops.sht import SHT, gl_geometry
 from . import qresp
@@ -30,7 +31,13 @@ def _almxfl(alm, cl):
 
 def _eval_leg(leg, get_alm, sht):
     """Complex spin-weighted position-space field of a (multi-)leg acting on filtered alms
-    (reference math: plancklens/utils_qe.py:50-73). Returns (batch, nrings, nphi) complex."""
+    (reference math: plancklens/utils_qe.py:50-73). Returns (batch, nrings, nphi) complex.
+    Traced as a span qe.leg."""
+    with trace.span('qe.leg', spin=int(leg.spin_ou)):
+        return _leg_field(leg, get_alm, sht)
+
+
+def _leg_field(leg, get_alm, sht):
     lmax = sht.lmax
     glm = None
     clm = None
@@ -86,10 +93,17 @@ def eval_qe(qe_key, lmax_ivf, cls_weight, get_alm, lmax_qlm, geom=None, get_alm2
 
     Returns:
         (glm, clm) batched triangular alms.
+
+    Traced as a span qe.eval (key, lmax_qlm, dtype, batch) around the legs' and the output
+    analysis' spans.
     """
-    qe_list = qresp.get_qes(qe_key, lmax_ivf, cls_weight, transf=transf, profile=profile)
-    return qe_eval(qe_list, get_alm, lmax_qlm, geom=geom, get_alm2=get_alm2,
-                   verbose=verbose, dtype=dtype, device=device)
+    with trace.span('qe.eval', key=qe_key, lmax_qlm=int(lmax_qlm), dtype=str(dtype)) as s:
+        qe_list = qresp.get_qes(qe_key, lmax_ivf, cls_weight, transf=transf,
+                                profile=profile)
+        glm, clm = qe_eval(qe_list, get_alm, lmax_qlm, geom=geom, get_alm2=get_alm2,
+                           verbose=verbose, dtype=dtype, device=device)
+        s.set(batch=int(glm.shape[0]) if glm.ndim > 1 else 1)
+    return glm, clm
 
 
 def qe_eval(qe_list, get_alm, lmax_qlm, geom=None, get_alm2=None, verbose=False,
@@ -121,11 +135,12 @@ def qe_eval(qe_list, get_alm, lmax_qlm, geom=None, get_alm2=None, verbose=False,
         if symmetrize:
             term = term + _eval_leg(q[0], get_alm2, sht_leg) * _eval_leg(q[1], get_alm, sht_leg)
         d = term if d is None else d + term
-    if qe_spin > 0:
-        glm, clm = sht_out.map2alm_spin((d.real, d.imag), qe_spin)
-    else:
-        glm = -sht_out.map2alm(d.real)
-        clm = torch.zeros_like(glm)
+    with trace.span('qe.out', spin=int(qe_spin)):
+        if qe_spin > 0:
+            glm, clm = sht_out.map2alm_spin((d.real, d.imag), qe_spin)
+        else:
+            glm = -sht_out.map2alm(d.real)
+            clm = torch.zeros_like(glm)
     if symmetrize:
         glm = glm * 0.5
         clm = clm * 0.5
@@ -170,7 +185,7 @@ class QELib:
             self._ctag += '_pr%s' % str(clhash(np.asarray(profile, dtype=float)))[:8]
 
     def _load(self, fn):
-        return torch.as_tensor(self.cacher.load(fn)).to(self.device)
+        return trace.to_device(self.cacher.load(fn), self.device, 'qlm')
 
     def hashdict(self):
         h = {'ivfs1': self.ivfs1.hashdict(), 'ivfs2': self.ivfs2.hashdict(),
@@ -290,10 +305,10 @@ class QELib:
                                       self._get_alm_fn(self.ivfs2, idx)
                                       if self.ivfs2 is not self.ivfs1 else None)
             glm = glm[0] if glm.ndim > 1 else glm
-            self.cacher.cache(fn, glm.cpu().numpy())
+            self.cacher.cache(fn, trace.to_host(glm, 'qlm'))
             if k[0] in ['p', 'x']:
                 clm = clm[0] if clm.ndim > 1 else clm
-                self.cacher.cache(fnx, clm.cpu().numpy())
+                self.cacher.cache(fnx, trace.to_host(clm, 'qlm'))
         return self._load(fnx if k[0] == 'x' else fn)
 
     def _eval_key(self, k, get_alm, get_alm2):
@@ -323,8 +338,8 @@ class QELib:
             get_alm2 = self._get_alm_batch_fn(self.ivfs2, idxs)
         glm, clm = self._eval_key(k, get_alm, get_alm2)
         kq = 'p' + k[1:] if k[0] == 'x' else k   # grad product's own key name
-        glm_h = glm.cpu().numpy()
-        clm_h = clm.cpu().numpy() if k[0] in ('p', 'x') else None
+        glm_h = trace.to_host(glm, 'qlm')
+        clm_h = trace.to_host(clm, 'qlm') if k[0] in ('p', 'x') else None
         for j, i in enumerate(idxs):
             self.cacher.cache('qlm%s_%s_%04d' % (self._ctag, kq, i), glm_h[j])
             if clm_h is not None:
@@ -337,5 +352,5 @@ class QELib:
         fn = 'qlm%s_mf_%s_%s' % (self._ctag, k, mchash(mc_sims))
         if not self.cacher.is_cached(fn):
             qlms = self.get_sim_qlm_batch(k, np.asarray(mc_sims))
-            self.cacher.cache(fn, qlms.mean(0).cpu().numpy())
+            self.cacher.cache(fn, trace.to_host(qlms.mean(0), 'qlm_mf'))
         return self._load(fn)

@@ -17,6 +17,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 def _weights(ms, device):
     """f64 dot weights 1 (m = 0) / 2 (m > 0) on `device`."""
@@ -76,17 +78,32 @@ def _step(fwd_op, pre_op, b, x, r, p, rz, w, replace=False):
 
 def _pcg_loop(fwd_op, pre_op, b, x0, iter_max, eps_min, w, roundoff):
     """PCG loop shared by :func:`pcg` and :func:`pcg_ir`, on dot weights `w`. Returns
-    (x, n_iter, rel)."""
-    b, x, r, p, rz = _init(fwd_op, pre_op, b, x0, w)
-    b0 = _posguard(_dot(b, b, w))
-    it = 0
-    while it < iter_max and bool((torch.sqrt(_dot(r, r, w) / b0) > eps_min).any()):
-        # residual replacement only: the conjugate direction is kept (a full restart
-        # destroys the Krylov history and measurably slows convergence)
-        x, r, p, rz = _step(fwd_op, pre_op, b, x, r, p, rz, w,
-                            roundoff > 0 and (it + 1) % roundoff == 0)
-        it += 1
-    return x, it, torch.sqrt(_dot(r, r, w) / b0)
+    (x, n_iter, rel).
+
+    Traced as a span cg.solve (batch, iters, rel_max), a span cg.iter for each iteration
+    and a span cg.stop for the host's read of the stop flag alone (its reduction is
+    launched before the span opens); counter cg.iters."""
+    with trace.span('cg.solve') as s:
+        b, x, r, p, rz = _init(fwd_op, pre_op, b, x0, w)
+        b0 = _posguard(_dot(b, b, w))
+        it = 0
+        while it < iter_max:
+            go = (torch.sqrt(_dot(r, r, w) / b0) > eps_min).any()
+            with trace.span('cg.stop'):
+                go = bool(go)
+            if not go:
+                break
+            with trace.span('cg.iter'):
+                # residual replacement only: the conjugate direction is kept (a full
+                # restart destroys the Krylov history and measurably slows convergence)
+                x, r, p, rz = _step(fwd_op, pre_op, b, x, r, p, rz, w,
+                                    roundoff > 0 and (it + 1) % roundoff == 0)
+            it += 1
+        rel = torch.sqrt(_dot(r, r, w) / b0)
+        trace.count('cg.iters', it)
+        s.set(batch=int(b.shape[0]), iters=it)
+        s.set_max('rel_max', rel)
+    return x, it, rel
 
 
 def pcg(fwd_op, pre_op, b, x0, iter_max, eps_min, ms, roundoff=25):
@@ -113,22 +130,33 @@ def pcg_ir(fwd_op, pre_op, b, x0, iter_max, eps_min, ms, inner_dec=3e-2, inner_c
     iterations, no residual replacement inside), so every inner solve runs where f32 CG
     is still healthy. Costs one extra forward apply per outer step, counted in the
     returned total. Returns (x, total_forward_applies, rel_residual).
+
+    Traced as a span cg.solve (batch, iters, rel_max) around the inner solves' own, each
+    outer step's residual a span cg.iter and its stop test a cg.stop, each counted in
+    cg.iters as the total counts it.
     """
-    b, x = _start(b, x0)
-    w = _weights(ms, b.device)
-    b0 = _posguard(_dot(b, b, w))
-    rel = torch.full((b.shape[0],), float('inf'), dtype=b.real.dtype, device=b.device)
-    it_tot, done = 0, False
-    while not done and it_tot < iter_max:
-        r = b - fwd_op(x)
-        rel = torch.sqrt(_dot(r, r, w) / b0)
-        done = bool((rel <= eps_min).all())
-        it_in = 0
-        if not done:
-            e, it_in, _ = _pcg_loop(fwd_op, pre_op, r, torch.zeros_like(r), inner_cap,
-                                    inner_dec, w, 0)
-            x = x + e
-        it_tot += it_in + 1
+    with trace.span('cg.solve') as s:
+        b, x = _start(b, x0)
+        w = _weights(ms, b.device)
+        b0 = _posguard(_dot(b, b, w))
+        rel = torch.full((b.shape[0],), float('inf'), dtype=b.real.dtype, device=b.device)
+        it_tot, done = 0, False
+        while not done and it_tot < iter_max:
+            with trace.span('cg.iter'):
+                r = b - fwd_op(x)
+                rel = torch.sqrt(_dot(r, r, w) / b0)
+                done = (rel <= eps_min).all()
+            with trace.span('cg.stop'):
+                done = bool(done)
+            trace.count('cg.iters')
+            it_in = 0
+            if not done:
+                e, it_in, _ = _pcg_loop(fwd_op, pre_op, r, torch.zeros_like(r), inner_cap,
+                                        inner_dec, w, 0)
+                x = x + e
+            it_tot += it_in + 1
+        s.set(batch=int(b.shape[0]), iters=it_tot)
+        s.set_max('rel_max', rel)
     return x, it_tot, rel
 
 

@@ -35,6 +35,7 @@ rounds to within 1e-7 of 1): at lmax 2048 on the 3073-ring QE grid an f32-recurs
 spin-1 synthesis is off by 5.4e-4 rms and 9.6e-3 of max against f64 (H100), and by up to
 4e-2 on single polar rings.
 """
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -42,6 +43,7 @@ import torch
 from scipy.special import gammaln
 
 from . import legendre_kernels
+from ...utils import trace
 
 
 def _xi_sign(m, n):
@@ -109,21 +111,33 @@ class _TableCache:
     lmax 2048 on the 3073-ring QE grid is ~150 MB, one on all 8191 rings of HEALPix
     nside 2048 ~300 MB. The token says which rings a set covers: ('ns', grid) the
     northern half of a pair grid, ('full', grid) every ring of a plain one; m0 says which
-    columns (m0..mmax: a rank's m-block of a split transform)."""
+    columns (m0..mmax: a rank's m-block of a split transform).
+
+    It keeps the host interval of every build in `builds` ((start, end) of
+    time.perf_counter_ns), so that a run can tell the seconds its set-up spent on tables
+    from those a later phase spent; while the tracer is live each build is also a span
+    sht.recursion_tables, and hits and misses count in sht.tables_hit / sht.tables_miss."""
 
     def __init__(self, maxsize=16):
         self.maxsize = maxsize
         self._d = OrderedDict()
+        self.builds = []
 
     def get(self, lmax, mmax, n, theta_half, grid_token, device, m0=0):
         key = None if grid_token is None else \
             (lmax, mmax, n, grid_token, str(torch.device(device)), m0)
         if key is not None and key in self._d:
             self._d.move_to_end(key)
+            trace.count('sht.tables_hit')
             return self._d[key]
-        # a named span in profiler traces (examples/profile_qlms_torch.py sums them)
-        with torch.profiler.record_function('sht.recursion_tables'):
+        trace.count('sht.tables_miss')
+        t0 = time.perf_counter_ns()
+        with trace.span('sht.recursion_tables', lmax=int(lmax), n=int(n),
+                        nrings=len(theta_half), m0=int(m0)) as s:
             tab = tables_to_device(recursion_tables(lmax, mmax, n, theta_half, m0), device)
+            s.set(bytes=sum(v.numel() * v.element_size() for v in tab.values()
+                            if isinstance(v, torch.Tensor)))
+        self.builds.append((t0, time.perf_counter_ns()))
         if key is not None:
             self._d[key] = tab
             while len(self._d) > self.maxsize:
@@ -332,25 +346,37 @@ def _check_m0(m0):
                          'the kernels take the mirror sign from the column parity' % m0)
 
 
+def _span(kind, pair, x, second, spin, theta, lmax, m0):
+    """The span sht.legendre of one entry call, with its shape (NOOP when not live)."""
+    if not trace.live():
+        return trace.NOOP
+    return trace.span('sht.legendre', kind=kind, pair=pair, lmax=int(lmax), m0=int(m0),
+                      M=int(x.shape[-1]), spin=int(spin), two=second is not None,
+                      nrings=len(theta), B=int(x.shape[0]),
+                      f64=x.dtype in (torch.complex128, torch.float64))
+
+
 def legendre_synth(C, n, theta, grid_token=None, m0=0):
     """G_jm = sum_l C_lm d^l_{m,n}(theta_j) on any ring set; C (B, lmax+1, M) complex64
     or complex128, columns m0..m0+M-1. CUDA tensors run kernel K3, CPU tensors the plain
     engine."""
     lmax, M = C.shape[-2] - 1, C.shape[-1]
-    t = full_tables(lmax, m0 + M - 1, n, theta, grid_token, C.device, m0)
-    if C.is_cuda:
-        return legendre_kernels.synth(C, len(theta), t)
-    return legendre_synth_plain(C, t)
+    with _span('synth', False, C, None, n, theta, lmax, m0):
+        t = full_tables(lmax, m0 + M - 1, n, theta, grid_token, C.device, m0)
+        if C.is_cuda:
+            return legendre_kernels.synth(C, len(theta), t)
+        return legendre_synth_plain(C, t)
 
 
 def legendre_anal(Q, n, theta, lmax, grid_token=None, m0=0):
     """A_lm = sum_j Q_jm d^l_{m,n}(theta_j); Q (B, nrings, M) complex, quadrature-
     weighted, columns m0..m0+M-1. CUDA tensors run kernel K4, CPU tensors the plain
     engine."""
-    t = full_tables(lmax, m0 + Q.shape[-1] - 1, n, theta, grid_token, Q.device, m0)
-    if Q.is_cuda:
-        return legendre_kernels.anal(Q, lmax, t)
-    return legendre_anal_plain(Q, lmax, t)
+    with _span('anal', False, Q, None, n, theta, lmax, m0):
+        t = full_tables(lmax, m0 + Q.shape[-1] - 1, n, theta, grid_token, Q.device, m0)
+        if Q.is_cuda:
+            return legendre_kernels.anal(Q, lmax, t)
+        return legendre_anal_plain(Q, lmax, t)
 
 
 def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None, m0=0):
@@ -359,15 +385,17 @@ def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None, m0=0):
     m0..m0+M-1 (m0 even). On a symmetric grid CUDA tensors run kernel K1, CPU tensors the
     plain pair engine; on any other grid it makes two plain calls (reference:
     core.py:704-710)."""
-    if not is_symmetric(theta):
-        Fp = legendre_synth(Cp, -spin, theta, grid_token, m0)
-        return Fp, (None if Cm is None else legendre_synth(Cm, spin, theta, grid_token, m0))
-    _check_m0(m0)
     lmax, M = Cp.shape[-2] - 1, Cp.shape[-1]
-    t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Cp.device, m0)
-    if Cp.is_cuda:
-        return legendre_kernels.synth_pair(Cp, Cm, spin, len(theta), t_m, t_p)
-    return legendre_synth_pair_plain(Cp, Cm, spin, len(theta), t_m, t_p)
+    with _span('synth', True, Cp, Cm, spin, theta, lmax, m0):
+        if not is_symmetric(theta):
+            Fp = legendre_synth(Cp, -spin, theta, grid_token, m0)
+            return Fp, (None if Cm is None
+                        else legendre_synth(Cm, spin, theta, grid_token, m0))
+        _check_m0(m0)
+        t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Cp.device, m0)
+        if Cp.is_cuda:
+            return legendre_kernels.synth_pair(Cp, Cm, spin, len(theta), t_m, t_p)
+        return legendre_synth_pair_plain(Cp, Cm, spin, len(theta), t_m, t_p)
 
 
 def legendre_anal_pair(Qp, Qm, spin, theta, lmax, grid_token=None, m0=0):
@@ -375,13 +403,14 @@ def legendre_anal_pair(Qp, Qm, spin, theta, lmax, grid_token=None, m0=0):
     (B, nrings, M) complex, quadrature-weighted, columns m0..m0+M-1 (m0 even). On a
     symmetric grid CUDA tensors run kernel K2, CPU tensors the plain pair engine; on any
     other grid two plain calls."""
-    if not is_symmetric(theta):
-        A = legendre_anal(Qp, -spin, theta, lmax, grid_token, m0)
-        return A, (None if Qm is None else legendre_anal(Qm, spin, theta, lmax, grid_token,
-                                                          m0))
-    _check_m0(m0)
-    M = Qp.shape[-1]
-    t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Qp.device, m0)
-    if Qp.is_cuda:
-        return legendre_kernels.anal_pair(Qp, Qm, spin, lmax, t_m, t_p)
-    return legendre_anal_pair_plain(Qp, Qm, spin, lmax, t_m, t_p)
+    with _span('anal', True, Qp, Qm, spin, theta, lmax, m0):
+        if not is_symmetric(theta):
+            A = legendre_anal(Qp, -spin, theta, lmax, grid_token, m0)
+            return A, (None if Qm is None
+                       else legendre_anal(Qm, spin, theta, lmax, grid_token, m0))
+        _check_m0(m0)
+        M = Qp.shape[-1]
+        t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Qp.device, m0)
+        if Qp.is_cuda:
+            return legendre_kernels.anal_pair(Qp, Qm, spin, lmax, t_m, t_p)
+        return legendre_anal_pair_plain(Qp, Qm, spin, lmax, t_m, t_p)

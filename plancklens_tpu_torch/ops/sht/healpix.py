@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ...utils import alm as ualm
+from ...utils import trace
 from .core import legendre_synth, legendre_anal
 from .transforms import _CDTYPE, _facl, _on_device, _resolve_device
 
@@ -228,7 +229,7 @@ class HealpixSHT:
 
     # -------------------------------------------------------- longitude phase
     # (named spans in profiler traces; examples/profile_healpix_torch.py reads them)
-    @torch.profiler.record_function('healpix.rings_to_map')
+    @trace.traced('healpix.rings_to_map')
     def _rings_to_map(self, F):
         """F (batch, nrings, mmax+1) complex ring Fourier coefficients (F+ convention with
         hermitian m<0 part folded via the real-field relation) -> flat maps.
@@ -259,7 +260,7 @@ class HealpixSHT:
         self._caps.synth(F, out)
         return out
 
-    @torch.profiler.record_function('healpix.map_to_rings')
+    @trace.traced('healpix.map_to_rings')
     def _map_to_rings(self, maps):
         """Adjoint-ish: flat maps -> G_m per ring = sum_k f_k e^{-i m phi_k} (no weights)."""
         g = self.geom
