@@ -22,6 +22,7 @@ host's read of the stop flag), qe.eval / qe.leg / qe.out (a QE, its legs, its ou
 analysis), copy.to_host / copy.to_device (a cacher's copy, with its bytes and device
 seconds), sht.legendre (a Legendre call, with its shape) and sht.recursion_tables (a
 table build); the counters are cg.iters, copy.to_host_bytes, copy.to_device_bytes,
+copy.kept_on_device_bytes (qlms a memory cacher kept on the device, with no copy),
 sht.tables_hit and sht.tables_miss. The summary gives each span's calls and host seconds
 (and device seconds of the copies): a run's stage, solve, QE and copy seconds. Tracing
 does not synchronise the device; under torch.profiler the spans are ranges of its trace.

@@ -156,7 +156,8 @@ class QELib:
         cls_weight: spectra entering the QE weights (e.g. lensed cls)
         lmax_ivf: max CMB multipole used
         lmax_qlm: output band limit
-        cacher: optional cacher for computed qlms (host numpy products)
+        cacher: optional cacher for computed qlms, handed the device tensors (a memory
+            cacher keeps them on the device, a file cacher copies them to the host)
         resplib: qresp.RespLib, needed by the bias-hardened '_bh_' keys
         transf, profile: beam / source profile for the 'ntt' / 'dtt' keys
         dtype: SHT real dtype (None = float64; torch.float32 in production)
@@ -185,7 +186,20 @@ class QELib:
             self._ctag += '_pr%s' % str(clhash(np.asarray(profile, dtype=float)))[:8]
 
     def _load(self, fn):
+        """The cached qlm on self.device: the cached tensor itself when it is there, a copy
+        when the cacher gave a host array or a tensor on another device."""
         return trace.to_device(self.cacher.load(fn), self.device, 'qlm')
+
+    def _cache(self, fn, qlm):
+        """Hand the device tensor qlm to the cacher. While the tracer is live, an entry the
+        cacher took without a copy to the host counts as copy.kept_on_device_bytes."""
+        if not trace.live():
+            self.cacher.cache(fn, qlm)
+            return
+        copied = trace.counters().get('copy.to_host_bytes', 0)
+        self.cacher.cache(fn, qlm)
+        if trace.counters().get('copy.to_host_bytes', 0) == copied:
+            trace.count('copy.kept_on_device_bytes', qlm.numel() * qlm.element_size())
 
     def hashdict(self):
         h = {'ivfs1': self.ivfs1.hashdict(), 'ivfs2': self.ivfs2.hashdict(),
@@ -305,10 +319,10 @@ class QELib:
                                       self._get_alm_fn(self.ivfs2, idx)
                                       if self.ivfs2 is not self.ivfs1 else None)
             glm = glm[0] if glm.ndim > 1 else glm
-            self.cacher.cache(fn, trace.to_host(glm, 'qlm'))
+            self._cache(fn, glm)
             if k[0] in ['p', 'x']:
                 clm = clm[0] if clm.ndim > 1 else clm
-                self.cacher.cache(fnx, trace.to_host(clm, 'qlm'))
+                self._cache(fnx, clm)
         return self._load(fnx if k[0] == 'x' else fn)
 
     def _eval_key(self, k, get_alm, get_alm2):
@@ -338,12 +352,10 @@ class QELib:
             get_alm2 = self._get_alm_batch_fn(self.ivfs2, idxs)
         glm, clm = self._eval_key(k, get_alm, get_alm2)
         kq = 'p' + k[1:] if k[0] == 'x' else k   # grad product's own key name
-        glm_h = trace.to_host(glm, 'qlm')
-        clm_h = trace.to_host(clm, 'qlm') if k[0] in ('p', 'x') else None
         for j, i in enumerate(idxs):
-            self.cacher.cache('qlm%s_%s_%04d' % (self._ctag, kq, i), glm_h[j])
-            if clm_h is not None:
-                self.cacher.cache('qlm%s_%s_%04d' % (self._ctag, 'x' + k[1:], i), clm_h[j])
+            self._cache('qlm%s_%s_%04d' % (self._ctag, kq, i), glm[j])
+            if k[0] in ('p', 'x'):
+                self._cache('qlm%s_%s_%04d' % (self._ctag, 'x' + k[1:], i), clm[j])
         return clm if k[0] == 'x' else glm
 
     def get_sim_qlm_mf(self, k, mc_sims):
@@ -352,5 +364,5 @@ class QELib:
         fn = 'qlm%s_mf_%s_%s' % (self._ctag, k, mchash(mc_sims))
         if not self.cacher.is_cached(fn):
             qlms = self.get_sim_qlm_batch(k, np.asarray(mc_sims))
-            self.cacher.cache(fn, trace.to_host(qlms.mean(0), 'qlm_mf'))
+            self._cache(fn, qlms.mean(0))
         return self._load(fn)

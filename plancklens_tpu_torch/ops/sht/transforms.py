@@ -50,7 +50,11 @@ def _to_rings(Fp, Fm, nphi, phi0):
         X.index_add_(-1, torch.as_tensor(mm % nphi, device=Fp.device), Fp)
         X.index_add_(-1, torch.as_tensor((-mm[1:]) % nphi, device=Fp.device),
                      Fm[..., 1:].contiguous())
-    return torch.fft.ifft(X, dim=-1) * nphi
+    # X is freed before the scaling, which runs in place: the synthesis holds two map-sized
+    # buffers at once, not three
+    f = torch.fft.ifft(X, dim=-1)
+    del X
+    return f.mul_(nphi)
 
 
 def _from_rings(maps, mmax, phi0):
@@ -59,7 +63,7 @@ def _from_rings(maps, mmax, phi0):
     if nphi < 2 * mmax + 1:
         raise ValueError('analysis needs nphi >= 2 mmax + 1 (%d < %d)'
                          % (nphi, 2 * mmax + 1))
-    T = torch.fft.fft(maps, dim=-1) * (2. * np.pi / nphi)
+    T = torch.fft.fft(maps, dim=-1).mul_(2. * np.pi / nphi)
     Gp = T[..., :mmax + 1]
     neg = T[..., nphi - mmax:].flip(-1) if mmax > 0 else T[..., :0]
     Gm = torch.cat([T[..., :1], neg], dim=-1)
@@ -125,8 +129,11 @@ class SHT:
     def _anal_pair(self, maps_c, spin):
         """A = _sa_lm and B = -(g - ic)_lm grids from complex ring maps."""
         Gp, Gm = _from_rings(maps_c, self.mmax, self.geom.phi0)
-        A, Bc = legendre_anal_pair(Gp * self._w, Gm * self._w, spin, self.geom.theta,
-                                   self.lmax, grid_token=self._tok())
+        # the weighted grids replace Gp and Gm, so the rings' FFT that Gp views is freed
+        # before the Legendre phase
+        Gp, Gm = Gp * self._w, Gm * self._w
+        A, Bc = legendre_anal_pair(Gp, Gm, spin, self.geom.theta, self.lmax,
+                                   grid_token=self._tok())
         return A * self._fac, ((-1.) ** spin) * torch.conj(Bc) * self._fac
 
     def _on_device(self, x):
@@ -153,6 +160,7 @@ class SHT:
         batch_shape = tlm.shape[:-1]
         A = self._to_grid(tlm.reshape((-1, tlm.shape[-1]))) * self._fac
         Fp, _ = legendre_synth_pair(A, None, 0, self.geom.theta, grid_token=self._tok())
+        del A       # the grids go before the ring phase, the synthesis' largest
         f = _to_rings(Fp, torch.conj(Fp), self.geom.nphi, self.geom.phi0).real
         return f.reshape(batch_shape + f.shape[-2:])
 
@@ -162,8 +170,8 @@ class SHT:
         m = self._on_device(m)
         batch_shape = m.shape[:-2]
         mc = m.reshape((-1,) + m.shape[-2:]).to(self.cdtype)
-        Gp, _ = _from_rings(mc, self.mmax, self.geom.phi0)
-        A, _ = legendre_anal_pair(Gp * self._w, None, 0, self.geom.theta, self.lmax,
+        Gp = _from_rings(mc, self.mmax, self.geom.phi0)[0] * self._w
+        A, _ = legendre_anal_pair(Gp, None, 0, self.geom.theta, self.lmax,
                                   grid_token=self._tok())
         out = self._from_grid(A * self._fac)
         return out.reshape(batch_shape + out.shape[-1:])
@@ -180,7 +188,9 @@ class SHT:
         C = self._to_grid(clm.reshape((-1, clm.shape[-1])))
         A = -(G + 1j * C)
         Abar = -(G - 1j * C)
+        del G, C
         Fp, Fm = self._synth_pair(A, Abar, spin)
+        del A, Abar     # the grids go before the ring phase, the synthesis' largest
         f = _to_rings(Fp, Fm, self.geom.nphi, self.geom.phi0)
         f = f.reshape(batch_shape + f.shape[-2:])
         return f.real, f.imag

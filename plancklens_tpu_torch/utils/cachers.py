@@ -2,9 +2,15 @@
 
 The framework's products are pure functions of configuration + index, so caching is an
 optimisation, not a correctness requirement (unlike the reference where the filesystem
-cache is the data-exchange mechanism between MPI ranks)."""
+cache is the data-exchange mechanism between MPI ranks).
+
+A torch tensor handed to `cacher_mem` stays where it is, on its device; `cacher_npy` and
+`cacher_pk` copy it to the host (trace.to_host) before they write."""
 import os
 import numpy as np
+import torch
+
+from . import trace
 
 
 def _write(path, dump):
@@ -37,7 +43,7 @@ class cacher_mem:
     def cache(self, fn, obj):
         if self.maxsize is not None and len(self._cache) >= self.maxsize:
             self._cache.pop(next(iter(self._cache)))
-        self._cache[fn] = np.asarray(obj) if not isinstance(obj, tuple) else obj
+        self._cache[fn] = obj if isinstance(obj, (tuple, torch.Tensor)) else np.asarray(obj)
 
     def load(self, fn):
         return self._cache[fn]
@@ -56,6 +62,8 @@ class cacher_npy:
         return os.path.join(self.lib_dir, fn + '.npy')
 
     def cache(self, fn, obj):
+        if isinstance(obj, torch.Tensor):
+            obj = trace.to_host(obj, fn)
         _write(self._path(fn), lambda f: np.save(f, np.asarray(obj)))
         if self.verbose:
             print('cached ' + self._path(fn))
@@ -81,6 +89,8 @@ class cacher_pk:
 
     def cache(self, fn, obj):
         import pickle
+        if isinstance(obj, torch.Tensor):
+            obj = trace.to_host(obj, fn)
         _write(self._path(fn), lambda f: pickle.dump(obj, f))
         if self.verbose:
             print('cached ' + self._path(fn))

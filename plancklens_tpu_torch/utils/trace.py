@@ -267,9 +267,20 @@ def to_host(x, what):
     return out
 
 
+def _is_on(t, device):
+    """True when tensor t already lies on `device` (a bare 'cuda' is the current card)."""
+    d = torch.device(device)
+    if d.type == 'cuda' and d.index is None:
+        d = torch.device('cuda', torch.cuda.current_device())
+    return t.device == d
+
+
 def to_device(a, device, what):
-    """torch.as_tensor(a).to(device) of an array a cacher loaded; while live a span
-    'copy.to_device' (bytes, what; device_s on a card) and 'copy.to_device_bytes'."""
+    """torch.as_tensor(a).to(device) of an array or tensor a cacher loaded; while live a
+    span 'copy.to_device' (bytes, what; device_s on a card) and 'copy.to_device_bytes'. A
+    tensor already on `device` comes back as it is, with no span and no bytes counted."""
+    if isinstance(a, torch.Tensor) and _is_on(a, device):
+        return a
     if not (_on or _profiling()):
         return torch.as_tensor(a).to(device)
     t = torch.as_tensor(a)

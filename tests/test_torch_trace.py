@@ -3,9 +3,9 @@ nothing and enters no profiler range; on, its parents, roots and counters; under
 torch.profiler, every span is a range of the chrome trace joined exactly to its record;
 and on tiny chains, the spans and counters the port's layers emit: CG iterations against
 the n_iter the solvers return, cacher copy bytes against what the QE libraries' cachers
-received and loaded, the table cache's hits and misses, and the Legendre calls' shapes
-against what the benchmark's wrapper (portbench/harness/trace.py) records for the same
-calls."""
+received and loaded (a memory cacher keeps the qlms on the device, a file cacher copies
+them), the table cache's hits and misses, and the Legendre calls' shapes against what the
+benchmark's wrapper (portbench/harness/trace.py) records for the same calls."""
 import importlib.util
 import json
 import os
@@ -18,7 +18,7 @@ import torch
 from plancklens_tpu_torch.ops import cg
 from plancklens_tpu_torch.ops.sht import core, gl_geometry
 from plancklens_tpu_torch.utils import trace
-from plancklens_tpu_torch.utils.cachers import cacher_mem
+from plancklens_tpu_torch.utils.cachers import cacher_mem, cacher_npy
 
 torch.set_num_threads(1)
 
@@ -230,24 +230,40 @@ def test_cg_spans_and_counter_match_n_iter(solver):
                if r['name'] in ('cg.iter', 'cg.stop'))
 
 
-class RecordingCacher(cacher_mem):
-    """cacher_mem that sums the bytes it receives and hands back."""
+def _nbytes(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    return np.asarray(obj).nbytes
 
-    def __init__(self):
-        super().__init__()
-        self.cached = self.loaded = 0
+
+class _Recording:
+    """Cacher mixin that sums the bytes it receives and hands back."""
+    cached = loaded = 0
 
     def cache(self, fn, obj):
-        self.cached += np.asarray(obj).nbytes
+        self.cached += _nbytes(obj)
         super().cache(fn, obj)
 
     def load(self, fn):
         out = super().load(fn)
-        self.loaded += np.asarray(out).nbytes
+        self.loaded += _nbytes(out)
         return out
 
 
-def test_copy_counters_equal_the_cachers_bytes(monkeypatch):
+class RecordingCacher(_Recording, cacher_mem):
+    pass
+
+
+class RecordingNpy(_Recording, cacher_npy):
+    pass
+
+
+@pytest.mark.parametrize('kind', ['mem', 'npy'])
+def test_copy_counters_equal_the_cachers_bytes(kind, monkeypatch, tmp_path):
+    """A memory cacher keeps the QE libraries' qlms as tensors on the library's device: only
+    the spectra cross to the host, nothing comes back, and the qlms count as kept on the
+    device. A file cacher copies the qlms to the host and back, and the copy counters equal
+    the bytes it writes and reads."""
     for k, v in (('PLK_LMAX_IVF', 24), ('PLK_LMAX_QLM', 24), ('PLK_NSIMS', 8),
                  ('PLK_DEVICE', 'cpu')):
         monkeypatch.setenv(k, str(v))
@@ -258,9 +274,11 @@ def test_copy_counters_equal_the_cachers_bytes(monkeypatch):
     spec.loader.exec_module(drv)
     par = drv.load_parfile(os.path.join(ROOT, 'params', 'idealized_example_torch.py'))
     qe_libs = [par.qlms_dd, par.qlms_ds, par.qlms_ss]
-    libs = qe_libs + [par.qcls_dd, par.qcls_ds, par.qcls_ss]
-    for lib in libs:
-        lib.cacher = RecordingCacher()
+    qcl_libs = [par.qcls_dd, par.qcls_ds, par.qcls_ss]
+    libs = qe_libs + qcl_libs
+    for j, lib in enumerate(libs):
+        lib.cacher = RecordingCacher() if kind == 'mem' \
+            else RecordingNpy(str(tmp_path / ('lib%d' % j)))
     trace.enable()
     keys = ['ptt', 'p_p']
     drv.stage_filt(par, np.arange(8))
@@ -268,8 +286,20 @@ def test_copy_counters_equal_the_cachers_bytes(monkeypatch):
     drv.stage_mf(par, keys)
     drv.stage_qcl(par, keys, np.arange(4, 8))
     c = trace.counters()
-    assert c['copy.to_host_bytes'] == sum(lib.cacher.cached for lib in libs) > 0
-    assert c['copy.to_device_bytes'] == sum(lib.cacher.loaded for lib in qe_libs) > 0
+    qe_bytes = sum(lib.cacher.cached for lib in qe_libs)
+    assert qe_bytes > 0 and sum(lib.cacher.loaded for lib in qe_libs) > 0
+    if kind == 'mem':
+        for lib in qe_libs:
+            assert all(isinstance(v, torch.Tensor) and v.device == lib.device
+                       for v in lib.cacher._cache.values())
+        assert c['copy.to_host_bytes'] == sum(lib.cacher.cached for lib in qcl_libs) > 0
+        assert c.get('copy.to_device_bytes', 0) == 0
+        assert c['copy.kept_on_device_bytes'] == qe_bytes
+        assert 'copy.to_device' not in _names()
+    else:
+        assert c['copy.to_host_bytes'] == sum(lib.cacher.cached for lib in libs)
+        assert c['copy.to_device_bytes'] == sum(lib.cacher.loaded for lib in qe_libs)
+        assert 'copy.kept_on_device_bytes' not in c
     recs = trace.records()
     assert sum(r['attrs']['bytes'] for r in recs if r['name'] == 'copy.to_host') \
         == c['copy.to_host_bytes']
