@@ -3,13 +3,15 @@ r"""Simulation libraries: reproducible Gaussian CMB + noise skies in harmonic sp
 Port of plancklens_tpu/models/sims.py (`unit_phases`, `cls_to_coloring`, `CMBUnlLib` and
 its fixed-phi variant, `MapsNlevLib`, `CMBLenLib` and its fixed-phi variant,
 `ExternalAlmLib`, `AlmNlevLib`, `SimLibShuffle`, `SimLibAdd`, `AlmMapLib`,
-`MapsLenNlevLib`). Determinism comes from one `torch.Generator` per (library seed,
-simulation index), seeded through numpy's SeedSequence (pixel noise: per (seed, index,
-field tag)); the streams differ from the reference's `jax.random` draws. For parity
-tests each library also takes `phases=`, a callable idx -> numpy (nfields, nalm) complex
-unit phases (e.g. the reference's own, through `compat.phases_from_numpy`), which
-replaces the generator; `MapsLenNlevLib` takes `noise=`, a callable (idx, tag) -> numpy
-unit-variance pixel noise (`compat.noise_from_numpy`).
+`MapsLenNlevLib`), `HealpixMapLib`, the HEALPix maps of an alm library, and
+`HealpixAlmLib`, the alms analysed from those maps. Determinism comes from one
+`torch.Generator` per (library seed, simulation index), seeded through numpy's
+SeedSequence (pixel noise: per (seed, index, field tag)); the streams differ from the
+reference's `jax.random` draws. For parity tests each library also takes `phases=`, a
+callable idx -> numpy (nfields, nalm) complex unit phases (e.g. the reference's own,
+through `compat.phases_from_numpy`), which replaces the generator; `MapsLenNlevLib` takes
+`noise=`, a callable (idx, tag) -> numpy unit-variance pixel noise
+(`compat.noise_from_numpy`).
 
 Correlated fields are coloured by a per-multipole eigen-decomposition of the N_f x N_f
 spectral matrix, as in the reference (reference: plancklens/sims/cmbs.py:25-101).
@@ -455,6 +457,94 @@ class AlmMapLib:
         elm = self.alm_lib.get_sim_elm(idx)
         blm = self.alm_lib.get_sim_blm(idx)
         return self.sht.alm2map_spin((elm, blm), 2)
+
+
+class HealpixMapLib:
+    """HEALPix maps of an alm simulation library (role of plancklens/sims/maps.py
+    cmb_maps): RING-ordered T and (Q, U) maps at `nside`, synthesised from the library's
+    alms (band limit `lmax`) by HealpixSHT in real dtype `dtype` on `device`.
+
+    Args:
+        alm_lib: library with get_sim_tlm/elm/blm and get_sim_teblm_batch at `lmax`
+        nside: HEALPix resolution of the maps
+        lmax: band limit of the alms
+    """
+
+    def __init__(self, alm_lib, nside, lmax, dtype=torch.float64, *, device):
+        from ..ops.sht.healpix import HealpixSHT
+        self.alm_lib = alm_lib
+        self.nside = int(nside)
+        self.lmax = lmax
+        self.sht = HealpixSHT(nside, lmax, dtype=dtype, use_ring_weights=False, device=device)
+
+    def hashdict(self):
+        return {'alm_lib': self.alm_lib.hashdict(), 'nside': self.nside, 'lmax': self.lmax}
+
+    def get_sim_tmap(self, idx):
+        """(npix,) temperature map of simulation idx."""
+        return self.sht.alm2map(self.alm_lib.get_sim_tlm(idx))
+
+    def get_sim_pmap(self, idx):
+        """(Q, U) maps of simulation idx, from its E and B alms."""
+        elm = self.alm_lib.get_sim_elm(idx)
+        blm = self.alm_lib.get_sim_blm(idx)
+        return self.sht.alm2map_spin((elm, blm), 2)
+
+    def get_sim_tqumap_batch(self, idxs):
+        """(T, Q, U), each (nsims, npix), of simulations idxs: one synthesis a field."""
+        t, e, b = self.alm_lib.get_sim_teblm_batch([int(i) for i in np.atleast_1d(idxs)])
+        q, u = self.sht.alm2map_spin((e, b), 2)
+        return self.sht.alm2map(t), q, u
+
+
+class HealpixAlmLib:
+    """The alms of a HealpixMapLib's maps as healpy's map2alm gives them, iter 3 with no
+    ring weights (the analysis of plancklens/filt/filt_simple.py:346-407,
+    library_fullsky_sepTP): the sims of a map-based full-sky analysis as an alm library,
+    for filt.IVFSepTP. A batch's uncached sims are analysed in one transform call a
+    field; their alms stay on the device for the last 16 sims read, so that the ds and ss
+    legs never analyse a map twice."""
+    ITER = 3
+
+    def __init__(self, map_lib):
+        from ..utils.cachers import cacher_mem
+        self.map_lib = map_lib
+        self.sht = map_lib.sht
+        self.cacher = cacher_mem(maxsize=3 * 16)
+
+    def hashdict(self):
+        return {'map_lib': self.map_lib.hashdict(), 'iter': self.ITER}
+
+    @staticmethod
+    def _fn(idx, f):
+        return ('sim_%04d_%slm' % (idx, f)) if idx >= 0 else 'dat_%slm' % f
+
+    def get_sim_teblm_batch(self, idxs):
+        """(T, E, B) alms, each (nsims, nalm), of simulations idxs."""
+        idxs = [int(i) for i in np.atleast_1d(idxs)]
+        have = {i: tuple(self.cacher.load(self._fn(i, f)) for f in 'teb')
+                for i in dict.fromkeys(idxs)
+                if all(self.cacher.is_cached(self._fn(i, f)) for f in 'teb')}
+        todo = [i for i in dict.fromkeys(idxs) if i not in have]
+        if todo:
+            t, q, u = self.map_lib.get_sim_tqumap_batch(todo)
+            tlm = self.sht.map2alm(t, iter=self.ITER)
+            del t
+            elm, blm = self.sht.map2alm_spin((q, u), 2, iter=self.ITER)
+            for j, i in enumerate(todo):
+                have[i] = tuple(x[j].clone() for x in (tlm, elm, blm))
+                for f, x in zip('teb', have[i]):
+                    self.cacher.cache(self._fn(i, f), x)
+        return tuple(torch.stack([have[i][j] for i in idxs]) for j in range(3))
+
+    def get_sim_tlm(self, idx):
+        return self.get_sim_teblm_batch([idx])[0][0]
+
+    def get_sim_elm(self, idx):
+        return self.get_sim_teblm_batch([idx])[1][0]
+
+    def get_sim_blm(self, idx):
+        return self.get_sim_teblm_batch([idx])[2][0]
 
 
 class CMBLenLib:

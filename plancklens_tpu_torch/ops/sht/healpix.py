@@ -19,7 +19,16 @@ files: a minimal-norm correction to the pixel area making the m=0 quadrature exa
 l <= 3 nside); use_ring_weights=False gives healpy's plain map2alm, whose default is
 iter=3 with no weights. Either way analysis is an approximate inverse, exactly as in the
 reference pipeline.
+
+While the tracer is live (utils/trace.py) each public transform is a span
+`healpix.alm2map` or `healpix.map2alm` (attrs nside, lmax, spin, batch, iter, f64); the
+outermost of them in a call also carries `device_s`, its device seconds by CUDA events
+around the call (the syntheses of map2alm's Jacobi steps nest inside its span). Counters:
+`healpix.jacobi_iters` (Jacobi steps, one a map2alm call and iteration) and
+`healpix.map_bytes` (bytes of the maps map2alm was given).
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -27,6 +36,8 @@ from ...utils import alm as ualm
 from ...utils import trace
 from .core import legendre_synth, legendre_anal
 from .transforms import _CDTYPE, _facl, _on_device, _resolve_device
+
+TRANSFORM_SPANS = ('healpix.alm2map', 'healpix.map2alm')
 
 
 class HealpixGeometry:
@@ -227,6 +238,25 @@ class HealpixSHT:
     def _on_device(self, x):
         return _on_device(x, self.device)
 
+    @contextlib.contextmanager
+    def _span(self, name, batch, spin, iter=0):
+        """Span `name` of a public transform of `batch` maps; the outermost transform span
+        also times the call's device seconds."""
+        if not trace.live():
+            yield
+            return
+        outermost = not trace.within(*TRANSFORM_SPANS)
+        with trace.span(name, nside=self.geom.nside, lmax=self.lmax, spin=int(spin),
+                        batch=int(batch), iter=int(iter),
+                        f64=self.dtype == torch.float64) as s:
+            if outermost:
+                s.time_device(self.device)
+            yield
+
+    def _count_analysis(self, iter, *maps):
+        trace.count('healpix.jacobi_iters', iter)
+        trace.count('healpix.map_bytes', sum(m.numel() * m.element_size() for m in maps))
+
     # -------------------------------------------------------- longitude phase
     # (named spans in profiler traces; examples/profile_healpix_torch.py reads them)
     @trace.traced('healpix.rings_to_map')
@@ -287,8 +317,9 @@ class HealpixSHT:
         tlm = self._on_device(tlm)
         batch_shape = tlm.shape[:-1]
         A = self._to_grid(tlm)
-        Fp = legendre_synth(A * self._fac, 0, self.geom.theta, grid_token=self._token())
-        f = self._rings_to_map(Fp)
+        with self._span('healpix.alm2map', A.shape[0], 0):
+            Fp = legendre_synth(A * self._fac, 0, self.geom.theta, grid_token=self._token())
+            f = self._rings_to_map(Fp)
         return f.reshape(batch_shape + (self.geom.npix,))
 
     def _quad_w(self):
@@ -303,10 +334,12 @@ class HealpixSHT:
         m = self._on_device(m)
         batch_shape = m.shape[:-1]
         mc = m.reshape((-1, m.shape[-1])).to(self.dtype)
-        out = self._map2alm_once(mc)
-        for _ in range(iter):
-            resid = mc - self.alm2map(out)
-            out = out + self._map2alm_once(resid)
+        with self._span('healpix.map2alm', mc.shape[0], 0, iter):
+            self._count_analysis(iter, mc)
+            out = self._map2alm_once(mc)
+            for _ in range(iter):
+                resid = mc - self.alm2map(out)
+                out = out + self._map2alm_once(resid)
         return out.reshape(batch_shape + out.shape[-1:])
 
     def _map2alm_once(self, mc):
@@ -322,21 +355,22 @@ class HealpixSHT:
         clm = self._on_device(clm).broadcast_to(glm.shape)
         batch_shape = glm.shape[:-1]
         Gg, Cc = self._to_grid(glm), self._to_grid(clm)
-        A = -(Gg + 1j * Cc)
-        Abar = -(Gg - 1j * Cc)
-        tok = self._token()
-        Fp = legendre_synth(A * self._fac, -spin, self.geom.theta, grid_token=tok)
-        Fm = legendre_synth(((-1.) ** spin) * torch.conj(Abar) * self._fac, spin,
-                            self.geom.theta, grid_token=tok)
-        # complex map f = sum_{m>=0} Fp e^{im phi} + sum_{m>0} Fm e^{-im phi}:
-        # Re f = Re(Fp_0) + sum_{m>0} Re[(Fp + conj(Fm)) e^{im phi}]
-        # Im f = Im(Fp_0) + sum_{m>0} Re[-i (Fp - conj(Fm)) e^{im phi}]
-        # and _rings_to_map(G) = Re(G_0) + 2 sum_{m>0} Re(G_m e^{im phi}):
-        m0 = (torch.arange(self.mmax + 1, device=self.device) == 0)[None, None, :]
-        G1 = torch.where(m0, Fp, 0.5 * (Fp + torch.conj(Fm)))
-        G2 = torch.where(m0, -1j * Fp, -0.5j * (Fp - torch.conj(Fm)))
-        re = self._rings_to_map(G1)
-        im = self._rings_to_map(G2)
+        with self._span('healpix.alm2map', Gg.shape[0], spin):
+            A = -(Gg + 1j * Cc)
+            Abar = -(Gg - 1j * Cc)
+            tok = self._token()
+            Fp = legendre_synth(A * self._fac, -spin, self.geom.theta, grid_token=tok)
+            Fm = legendre_synth(((-1.) ** spin) * torch.conj(Abar) * self._fac, spin,
+                                self.geom.theta, grid_token=tok)
+            # complex map f = sum_{m>=0} Fp e^{im phi} + sum_{m>0} Fm e^{-im phi}:
+            # Re f = Re(Fp_0) + sum_{m>0} Re[(Fp + conj(Fm)) e^{im phi}]
+            # Im f = Im(Fp_0) + sum_{m>0} Re[-i (Fp - conj(Fm)) e^{im phi}]
+            # and _rings_to_map(G) = Re(G_0) + 2 sum_{m>0} Re(G_m e^{im phi}):
+            m0 = (torch.arange(self.mmax + 1, device=self.device) == 0)[None, None, :]
+            G1 = torch.where(m0, Fp, 0.5 * (Fp + torch.conj(Fm)))
+            G2 = torch.where(m0, -1j * Fp, -0.5j * (Fp - torch.conj(Fm)))
+            re = self._rings_to_map(G1)
+            im = self._rings_to_map(G2)
         return (re.reshape(batch_shape + (self.geom.npix,)),
                 im.reshape(batch_shape + (self.geom.npix,)))
 
@@ -346,12 +380,14 @@ class HealpixSHT:
         batch_shape = m1.shape[:-1]
         mc1 = m1.reshape((-1, m1.shape[-1])).to(self.dtype)
         mc2 = m2.reshape(mc1.shape).to(self.dtype)
-        glm, clm = self._map2alm_spin_once(mc1, mc2, spin)
-        for _ in range(iter):
-            r1, r2 = self.alm2map_spin((glm, clm), spin)
-            dg, dc = self._map2alm_spin_once(mc1 - r1, mc2 - r2, spin)
-            glm = glm + dg
-            clm = clm + dc
+        with self._span('healpix.map2alm', mc1.shape[0], spin, iter):
+            self._count_analysis(iter, mc1, mc2)
+            glm, clm = self._map2alm_spin_once(mc1, mc2, spin)
+            for _ in range(iter):
+                r1, r2 = self.alm2map_spin((glm, clm), spin)
+                dg, dc = self._map2alm_spin_once(mc1 - r1, mc2 - r2, spin)
+                glm = glm + dg
+                clm = clm + dc
         return (glm.reshape(batch_shape + glm.shape[-1:]),
                 clm.reshape(batch_shape + clm.shape[-1:]))
 

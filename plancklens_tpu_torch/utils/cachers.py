@@ -36,16 +36,22 @@ class cacher_none:
 
 
 class cacher_mem:
+    """In-memory cacher; with `maxsize` it holds that many entries, dropping the least
+    recently cached or loaded first."""
+
     def __init__(self, maxsize=None):
         self._cache = {}
         self.maxsize = maxsize
 
     def cache(self, fn, obj):
+        self._cache.pop(fn, None)
         if self.maxsize is not None and len(self._cache) >= self.maxsize:
             self._cache.pop(next(iter(self._cache)))
         self._cache[fn] = obj if isinstance(obj, (tuple, torch.Tensor)) else np.asarray(obj)
 
     def load(self, fn):
+        if self.maxsize is not None:
+            self._cache[fn] = self._cache.pop(fn)
         return self._cache[fn]
 
     def is_cached(self, fn):

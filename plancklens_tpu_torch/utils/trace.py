@@ -147,6 +147,12 @@ def span(name, **attrs):
     return _Span(name, attrs)
 
 
+def within(*names):
+    """True when a live span of one of `names` is open (the outermost span of a name
+    is the one that counts a call once)."""
+    return any(r['name'] in names for r in _stack)
+
+
 def traced(name):
     """Decorator: every call of the function runs inside span(name)."""
     def deco(fn):

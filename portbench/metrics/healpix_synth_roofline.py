@@ -1,0 +1,12 @@
+"""healpix_synth_roofline of the HEALPix map cell: the roofline share of the window's
+plain Legendre syntheses on the HEALPix rings (K3) (reader: portbench/metrics/_healpix.py)."""
+from portbench.metrics._healpix import share
+
+
+def read(ctx):
+    return share(ctx, 'synth')
+
+
+LAYER = 'HEALPix filter: models/sims HealpixMapLib, HealpixAlmLib -> ops/sht/healpix HealpixSHT (K3/K4)'
+UNIT = '%'
+MOVES = 'sims_per_hour.isotropic'
