@@ -21,7 +21,9 @@ filt.ivf (a filtering), cg.solve / cg.iter / cg.stop (a C^-1 solve, an iteration
 host's read of the stop flag), qe.eval / qe.leg / qe.out (a QE, its legs, its output
 analysis), copy.to_host / copy.to_device (a cacher's copy, with its bytes and device
 seconds), sht.legendre (a Legendre call, with its shape) and sht.recursion_tables (a
-table build); the counters are cg.iters, copy.to_host_bytes, copy.to_device_bytes,
+table build); the counters are cg.iters, cg.row_iters and cg.frozen_row_iters (a batch of
+sims solved together, each frozen at its own convergence: the sims' own iterations summed,
+and those computed for sims already frozen), copy.to_host_bytes, copy.to_device_bytes,
 copy.kept_on_device_bytes (qlms a memory cacher kept on the device, with no copy),
 sht.tables_hit and sht.tables_miss. The summary gives each span's calls and host seconds
 (and device seconds of the copies): a run's stage, solve, QE and copy seconds. Tracing
@@ -104,8 +106,10 @@ class StageTimer:
 
 
 def stage_filt(par, idxs):
-    """Filtered (t, e, b) alm batches of sims idxs; a filter with only the per-index
-    interface (the masked IVFCinv chain, one sim a solve) is called sim by sim."""
+    """Filtered (t, e, b) alm batches of sims idxs, through the filter's batch accessor
+    where it has one (the masked IVFCinv -> IVFFtl chain: one T and one P solve over the
+    uncached sims, each frozen at its own convergence); a filter with only the per-index
+    interface is called sim by sim."""
     with StageTimer(par.DEVICE, 'stage.filt', idxs) as t:
         if hasattr(par.ivfs, 'get_sim_teblm_batch'):
             out = par.ivfs.get_sim_teblm_batch(idxs)

@@ -14,7 +14,7 @@ pixel window of nside) with white noise (sims.AlmNlevLib) for sims 0..nsims-1 an
 galactic band |z| > 0.15 and two holes). `smica_chain` loads the parameter file on them
 (PLK_PLANCK_DATA, PLK_SMICA_LMAX, _NSIDE, _NSIMS) and runs, each step timed: the filters'
 construction (mask read and resampled onto the ring grid, the CinvT dense block to l 64 on
-the host), the masked filtering of sims 0..nsims-1 (IVFCinv, one sim a solve), the QEs
+the host), the masked filtering of sims 0..nsims-1 (IVFCinv, one T and one P solve), the QEs
 ptt and p_p at the file's lmax_qlm, the responses, and the cross with the input phi read
 back from FITS, <q x phi_in> / (R_L C_L^pp fsky) over 30 <= L <= 1000. Returns a dict of
 numbers; `log` receives one line per step.

@@ -7,7 +7,8 @@ opfilt_pp.py, opfilt_tp.py, plancklens/filt/filt_cinv.py:56-626). The linear sys
 
 is solved by the PCG of ops/cg.py; its forward op costs one synthesis and one analysis
 (kernels K1/K2 on the card: spin 0 for T, the spin-2 pair for P, both for the joint T/P
-filter CinvTP), and a batch of maps is a leading axis of one lockstep solve. The system
+filter CinvTP), and a batch of maps is a leading axis of one solve: in lockstep, or for
+independent sims (`IVFCinv`'s batches) with each row frozen at its own convergence. The system
 is D_l-rescaled for a scale-balanced criterion (filt_cinv.py:82-92). Preconditioners:
 the diagonal, a dense low-l block (analytic for T, probed for P and T/E/B), the
 reference's descriptor grammar (`parse_pre_op_descr`) and its multigrid chains. Templates (monopole/dipole or arbitrary maps) are
@@ -550,10 +551,12 @@ class CinvT:
     def get_fmask(self):
         return np.where(self.filt.ninv > 0, 1., 0.)
 
-    def solve_wf(self, tmaps, x0=None, monitor=None):
+    def solve_wf(self, tmaps, x0=None, monitor=None, *, freeze_rows=False):
         """Rescaled Wiener solution (x, n_iter, rel) of the system for (batch, nrings,
         nphi) maps (numpy, or tensors on the filter's device). With `monitor` (e.g.
-        ops/cg.monitor_basic) the solve runs cg.pcg_monitored."""
+        ops/cg.monitor_basic) the solve runs cg.pcg_monitored. The batch runs in lockstep
+        (cg.pcg), or with `freeze_rows`, for maps of independent sims each to be solved as
+        if alone, each row stops at its own convergence (cg.pcg_frozen)."""
         tmaps = _maps_in(tmaps, self.device, self.dtype)
         if tmaps.ndim == 2:
             tmaps = tmaps[None]
@@ -561,14 +564,16 @@ class CinvT:
         x0 = torch.zeros_like(b) if x0 is None else _on_device(x0, self.device).to(b.dtype)
         if monitor is not None:
             return cg.pcg_monitored(self.fwd_op, self.pre_op, b, x0, self._ms, monitor)
-        return cg.pcg(self.fwd_op, self.pre_op, b, x0, self.iter_max, self.eps_min, self._ms)
+        solve = cg.pcg_frozen if freeze_rows else cg.pcg
+        return solve(self.fwd_op, self.pre_op, b, x0, self.iter_max, self.eps_min, self._ms)
 
-    def apply_ivf(self, tmaps, x0=None, ret_it=False, ret_wf=False):
+    def apply_ivf(self, tmaps, x0=None, ret_it=False, ret_wf=False, *, freeze_rows=False):
         """bar t = C^{-1}-weighted inverse-variance filtered alms of the input maps.
 
         x0 warm-starts the CG; ret_wf additionally returns the rescaled Wiener solution
-        (reusable as the next x0, reference filt_cinv.py:196-203)."""
-        x, it, rel = self.solve_wf(tmaps, x0=x0)
+        (reusable as the next x0, reference filt_cinv.py:196-203); freeze_rows as for
+        solve_wf."""
+        x, it, rel = self.solve_wf(tmaps, x0=x0, freeze_rows=freeze_rows)
         # x solves the rescaled system; the ivf alm is x * rescal_cl / dl
         out = x * self._ivf_fl
         extras = ((it, rel) if ret_it else ()) + ((x,) if ret_wf else ())
@@ -768,9 +773,11 @@ class CinvP:
         qq, _, uu = self.filt.ninv
         return np.where((qq > 0) | (uu > 0), 1., 0.)
 
-    def solve_wf(self, qmaps, umaps, x0=None):
+    def solve_wf(self, qmaps, umaps, x0=None, *, freeze_rows=False):
         """Rescaled (batch, 2, nalm) E/B Wiener solution (x, n_iter, rel), solved as one
-        (batch, 2 nalm) vector a row."""
+        (batch, 2 nalm) vector a row; the batch in lockstep (cg.pcg), or with
+        `freeze_rows` each row stopped at its own convergence (cg.pcg_frozen), as for
+        CinvT.solve_wf."""
         qmaps = _maps_in(qmaps, self.device, self.dtype)
         umaps = _maps_in(umaps, self.device, self.dtype)
         if qmaps.ndim == 2:
@@ -786,18 +793,20 @@ class CinvP:
         def pre_flat(rf):
             return self.pre_op(rf.reshape(shape)).reshape(bsz, -1)
 
-        xf, it, rel = cg.pcg(fwd_flat, pre_flat, b.reshape(bsz, -1),
-                             x0.expand(shape).reshape(bsz, -1), self.iter_max,
-                             self.eps_min, self._ms2)
+        solve = cg.pcg_frozen if freeze_rows else cg.pcg
+        xf, it, rel = solve(fwd_flat, pre_flat, b.reshape(bsz, -1),
+                            x0.expand(shape).reshape(bsz, -1), self.iter_max,
+                            self.eps_min, self._ms2)
         return xf.reshape(shape), it, rel
 
-    def apply_ivf(self, qmaps, umaps, x0=None, ret_it=False, ret_wf=False):
+    def apply_ivf(self, qmaps, umaps, x0=None, ret_it=False, ret_wf=False, *,
+                  freeze_rows=False):
         """(bar e, bar b) = C^{-1}-weighted inverse-variance filtered E/B alms.
 
         x0 warm-starts the CG from a previous rescaled Wiener solution; with ret_wf the
         solution is returned too (for a solution library, reference
-        filt_cinv.py:196-203)."""
-        x, it, rel = self.solve_wf(qmaps, umaps, x0=x0)
+        filt_cinv.py:196-203); freeze_rows as for solve_wf."""
+        x, it, rel = self.solve_wf(qmaps, umaps, x0=x0, freeze_rows=freeze_rows)
         eb = x * self._ivf_fl
         out = (eb[:, 0], eb[:, 1])
         extras = ((it, rel) if ret_it else ()) + ((x,) if ret_wf else ())
@@ -806,13 +815,23 @@ class CinvP:
 
 class IVFCinv:
     """ivfs-interface adapter over CinvT/CinvP instances filtering a map-space sim library
-    (reference: plancklens/filt/filt_cinv.py:515-626). It filters one sim at a time, as the
-    reference does: a lockstep solve over several sims would let the early ones keep
-    refining, a different result. Alms are returned on the filters' device.
+    (reference: plancklens/filt/filt_cinv.py:515-626). Alms are returned on the filters'
+    device.
+
+    The reference filters one sim a solve. `get_sim_teblm_batch` solves a batch's uncached
+    sims together, one T solve and one P solve, each sim a row of the batch: the Legendre
+    kernels recurse once a ring for every map of a call, so four sims cost about what one
+    does. Each row is frozen at its own convergence (cg.pcg_frozen), so each sim gets the
+    iterates, iteration count and solution of its own solve, to rounding; a lockstep solve
+    would let the early sims keep refining, a different result. The per-sim accessors
+    (`get_sim_tlm`, `get_sim_elm`, ...) are that path at batch 1: bitwise the one-sim solve.
+    A missing sub-filter (cinv_t or cinv_p None) gives None for its fields of a batch.
 
     `cacher` persists the filtered alms (restartability); `soltn_cacher` persists the raw
     CG solutions so re-runs warm-start the solver instead of starting from zero (role of
-    the reference's soltn_lib, filt_cinv.py:196-203, filt_simple.py:27-33)."""
+    the reference's soltn_lib, filt_cinv.py:196-203, filt_simple.py:27-33). Both are
+    written a sim at a time under the per-sim names whatever the batch (`ivf_tlm_%05d`,
+    `ivf_elm_%05d`, `ivf_blm_%05d`; `wf_t_%05d`, `wf_p_%05d`, each a (1, ...) solution)."""
 
     def __init__(self, cinv_t, cinv_p, sim_lib, cl_weights, cacher=None,
                  soltn_cacher=None):
@@ -870,44 +889,97 @@ class IVFCinv:
         return self.cinv_t.get_fmask() if self.cinv_t is not None \
             else self.cinv_p.get_fmask()
 
-    def get_sim_tlm(self, idx):
-        key = ('t', idx)
-        if key not in self._cache:
-            fn = 'ivf_tlm_%05d' % idx
-            if self.cacher is not None and self.cacher.is_cached(fn):
-                self._cache[key] = self._load(self.cacher, fn)
-            else:
-                with trace.span('filt.ivf', kind='cinv_t', sims=trace.sims(idx)):
-                    tmap = self.sim_lib.get_sim_tmap(idx)
-                    out, x = self.cinv_t.apply_ivf(tmap, x0=self._soltn('wf_t_%05d' % idx),
-                                                   ret_wf=True)
-                    self._store_soltn('wf_t_%05d' % idx, x)
-                    self._cache[key] = out[0]
-                    if self.cacher is not None:
-                        self.cacher.cache(fn, trace.to_host(out[0], 'ivf'))
-        return self._cache[key]
+    def _x0(self, names, shape):
+        """Warm starts of a batch from `soltn_cacher`: None when it holds none of `names`,
+        else the stacked solutions, zeros for a sim it lacks (each row of `shape`)."""
+        x0 = [self._soltn(n) for n in names]
+        if all(x is None for x in x0):
+            return None
+        like = next(x for x in x0 if x is not None)
+        return torch.stack([torch.zeros(shape, dtype=like.dtype, device=like.device)
+                            if x is None else x.reshape(shape) for x in x0])
 
-    def _eb(self, idx):
-        key = ('eb', idx)
-        if key not in self._cache:
+    def _filter_t(self, idxs):
+        """Fill the cache of the T alms of sims idxs: loaded from `cacher`, else one T
+        solve over the rest, each sim frozen at its own convergence."""
+        todo = []
+        for idx in idxs:
+            fn = 'ivf_tlm_%05d' % idx
+            if ('t', idx) in self._cache:
+                continue
+            if self.cacher is not None and self.cacher.is_cached(fn):
+                self._cache[('t', idx)] = self._load(self.cacher, fn)
+            else:
+                todo.append(idx)
+        if not todo:
+            return
+        cinv = self.cinv_t
+        with trace.span('filt.ivf', kind='cinv_t', sims=trace.sims(todo)):
+            tmaps = [_maps_in(self.sim_lib.get_sim_tmap(i), cinv.device, cinv.dtype)
+                     for i in todo]
+            x0 = self._x0(['wf_t_%05d' % i for i in todo], (ualm.getsize(cinv.lmax),))
+            out, x = cinv.apply_ivf(torch.stack([m.reshape(m.shape[-2:]) for m in tmaps]),
+                                    x0=x0, ret_wf=True, freeze_rows=True)
+            for j, idx in enumerate(todo):
+                self._store_soltn('wf_t_%05d' % idx, x[j:j + 1])
+                self._cache[('t', idx)] = out[j]
+                if self.cacher is not None:
+                    self.cacher.cache('ivf_tlm_%05d' % idx, trace.to_host(out[j], 'ivf'))
+
+    def _filter_eb(self, idxs):
+        """Fill the cache of the (E, B) alms of sims idxs as _filter_t does the T alms."""
+        todo = []
+        for idx in idxs:
             fn_e, fn_b = 'ivf_elm_%05d' % idx, 'ivf_blm_%05d' % idx
+            if ('eb', idx) in self._cache:
+                continue
             # gate the cached branch on *both* files so a crash between the two writes
             # falls back to recomputation instead of failing on the missing half
             if self.cacher is not None and self.cacher.is_cached(fn_e) \
                     and self.cacher.is_cached(fn_b):
-                self._cache[key] = (self._load(self.cacher, fn_e),
-                                    self._load(self.cacher, fn_b))
+                self._cache[('eb', idx)] = (self._load(self.cacher, fn_e),
+                                            self._load(self.cacher, fn_b))
             else:
-                with trace.span('filt.ivf', kind='cinv_p', sims=trace.sims(idx)):
-                    q, u = self.sim_lib.get_sim_pmap(idx)
-                    (e, b), x = self.cinv_p.apply_ivf(
-                        q, u, x0=self._soltn('wf_p_%05d' % idx), ret_wf=True)
-                    self._store_soltn('wf_p_%05d' % idx, x)
-                    self._cache[key] = (e[0], b[0])
-                    if self.cacher is not None:
-                        self.cacher.cache(fn_b, trace.to_host(b[0], 'ivf'))
-                        self.cacher.cache(fn_e, trace.to_host(e[0], 'ivf'))
-        return self._cache[key]
+                todo.append(idx)
+        if not todo:
+            return
+        cinv = self.cinv_p
+        with trace.span('filt.ivf', kind='cinv_p', sims=trace.sims(todo)):
+            qu = [[_maps_in(m, cinv.device, cinv.dtype) for m in self.sim_lib.get_sim_pmap(i)]
+                  for i in todo]
+            q, u = (torch.stack([m[k].reshape(m[k].shape[-2:]) for m in qu]) for k in (0, 1))
+            x0 = self._x0(['wf_p_%05d' % i for i in todo], (2, ualm.getsize(cinv.lmax)))
+            (e, b), x = cinv.apply_ivf(q, u, x0=x0, ret_wf=True, freeze_rows=True)
+            for j, idx in enumerate(todo):
+                self._store_soltn('wf_p_%05d' % idx, x[j:j + 1])
+                self._cache[('eb', idx)] = (e[j], b[j])
+                if self.cacher is not None:
+                    self.cacher.cache('ivf_blm_%05d' % idx, trace.to_host(b[j], 'ivf'))
+                    self.cacher.cache('ivf_elm_%05d' % idx, trace.to_host(e[j], 'ivf'))
+
+    def get_sim_teblm_batch(self, idxs):
+        """Filtered (t, e, b) alms of sims idxs, each (len(idxs), nalm), in the order of
+        idxs (repeats allowed): each uncached sim is solved once, the uncached sims of the
+        batch together (see the class docstring)."""
+        idxs = [int(i) for i in np.atleast_1d(idxs)]
+        uniq = list(dict.fromkeys(idxs))
+        t = e = b = None
+        if self.cinv_t is not None:
+            self._filter_t(uniq)
+            t = torch.stack([self._cache[('t', i)] for i in idxs])
+        if self.cinv_p is not None:
+            self._filter_eb(uniq)
+            e = torch.stack([self._cache[('eb', i)][0] for i in idxs])
+            b = torch.stack([self._cache[('eb', i)][1] for i in idxs])
+        return t, e, b
+
+    def get_sim_tlm(self, idx):
+        self._filter_t([idx])
+        return self._cache[('t', idx)]
+
+    def _eb(self, idx):
+        self._filter_eb([idx])
+        return self._cache[('eb', idx)]
 
     def get_sim_elm(self, idx):
         return self._eb(idx)[0]

@@ -305,6 +305,17 @@ class IVFFtl:
     def get_tal(self, a):
         return self.ivfs.get_tal(a)
 
+    def __getattr__(self, name):
+        if name == 'get_sim_teblm_batch':
+            # present only where the wrapped library has one (an AttributeError from the
+            # inner lookup propagates), so hasattr() picks the batch path honestly, as in
+            # IVFShuffle; a field the wrapped library gives as None stays None
+            inner = getattr(self.ivfs, name)
+            return lambda idxs: tuple(None if alm is None else self._apply(alm, fl)
+                                      for alm, fl in zip(inner(idxs),
+                                                         (self.lt, self.le, self.lb)))
+        raise AttributeError(name)
+
     def _apply(self, alm, fl):
         lmax = ualm.getlmax(alm.shape[-1])
         return ualm.almxfl(alm, lmax, np.pad(fl, (0, max(0, lmax + 1 - len(fl)))))

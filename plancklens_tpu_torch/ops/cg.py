@@ -8,9 +8,12 @@ two SHTs of each forward op), so the iteration count and the iterates are the
 reference's.
 
 Vectors are (batch, n) complex tensors, a batch of right-hand sides (sims) on the leading
-axis. The batch runs in lockstep (reference cg.py:6-9): the loop runs until every row
-meets the criterion, and rows that converged early keep refining; no row is masked.
-`ms` is the m of each entry (numpy or a tensor), turned into the dot weights once a solve.
+axis. :func:`pcg` runs the batch in lockstep (reference cg.py:6-9): the loop runs until
+every row meets the criterion, and rows that converged early keep refining; no row is
+masked. :func:`pcg_frozen` is for rows that are independent systems, each to be solved as
+if alone (sims the reference filters one at a time): each row stops at its own
+convergence. `ms` is the m of each entry (numpy or a tensor), turned into the dot weights
+once a solve.
 """
 import time
 
@@ -118,6 +121,55 @@ def pcg(fwd_op, pre_op, b, x0, iter_max, eps_min, ms, roundoff=25):
     """
     return _pcg_loop(fwd_op, pre_op, b, x0, iter_max, eps_min,
                      _weights(ms, torch.as_tensor(b).device), roundoff)
+
+
+def pcg_frozen(fwd_op, pre_op, b, x0, iter_max, eps_min, ms, roundoff=25):
+    """Solve fwd_op(x) = b by PCG with each row frozen at its own convergence: the rows are
+    independent systems, and each follows the iterates of its own one-row :func:`pcg`.
+    Returns (x, n_iter, rel_residual) as pcg does; n_iter is the loop's iteration count,
+    the most any row took.
+
+    A row whose sqrt(<r,r>/<b,b>) <= eps_min keeps its x, r, p and rz, and so its rel, from
+    that iteration on; the loop ends when no row is active, or at `iter_max`. Frozen rows
+    still go through fwd_op and pre_op with the batch, and a select drops their update, so
+    a row is active only while the loop has run exactly its own iterations: residual
+    replacement (every `roundoff` iterations, as in pcg) falls where it falls in the row's
+    own solve. With every row active nothing is selected, so at batch 1 this is pcg,
+    bitwise.
+
+    Traced as pcg is (spans cg.solve, cg.iter, cg.stop; counter cg.iters the loop's
+    iterations), the cg.solve span with attr row_iters (each row's iterations); counters
+    cg.row_iters (their sum) and cg.frozen_row_iters (the row-iterations computed for rows
+    already frozen: the loop's iterations times the batch, less cg.row_iters)."""
+    w = _weights(ms, torch.as_tensor(b).device)
+    with trace.span('cg.solve') as s:
+        b, x, r, p, rz = _init(fwd_op, pre_op, b, x0, w)
+        b0 = _posguard(_dot(b, b, w))
+        active = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
+        row_iters = [0] * b.shape[0]
+        it = 0
+        while it < iter_max:
+            active = active & (torch.sqrt(_dot(r, r, w) / b0) > eps_min)
+            with trace.span('cg.stop'):
+                act = active.tolist()
+            if not any(act):
+                break
+            with trace.span('cg.iter'):
+                new = _step(fwd_op, pre_op, b, x, r, p, rz, w,
+                            roundoff > 0 and (it + 1) % roundoff == 0)
+                if not all(act):
+                    new = tuple(torch.where(active.view((-1,) + (1,) * (v.ndim - 1)), v, v0)
+                                for v, v0 in zip(new, (x, r, p, rz)))
+                x, r, p, rz = new
+            row_iters = [n + a for n, a in zip(row_iters, act)]
+            it += 1
+        rel = torch.sqrt(_dot(r, r, w) / b0)
+        trace.count('cg.iters', it)
+        trace.count('cg.row_iters', sum(row_iters))
+        trace.count('cg.frozen_row_iters', it * len(row_iters) - sum(row_iters))
+        s.set(batch=len(row_iters), iters=it, row_iters=row_iters)
+        s.set_max('rel_max', rel)
+    return x, it, rel
 
 
 def pcg_ir(fwd_op, pre_op, b, x0, iter_max, eps_min, ms, inner_dec=3e-2, inner_cap=80):
