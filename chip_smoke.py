@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Builds the hand-written Hopper Legendre kernels from this checkout, holds each against its
-plain torch version, and drives the port's paths, counting kernel launches on the way:
+plain torch version, and drives the port's paths, counting kernel calls on the way (the
+tracer's sht.legendre spans, core.kernel_calls; the tracer is on only around the sections
+that count):
 the main path — the idealized full-sky parameter file through the staged driver's
 functions (filtering, batched ptt and p_p QEs, split-half mean fields, dd/ds/ss spectra)
 at LMAX_IVF = LMAX_QLM = 2048 with 8 simulations, float32 QEs on cuda:0 —, the HEALPix
@@ -235,6 +237,16 @@ def rel_max(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+def ran(calls, kernel):
+    """Calls of `kernel` ('K1'..'K4') in a kernel_calls Counter."""
+    return sum(n for k, n in calls.items() if k[0] == kernel)
+
+
+def by_shape(calls, kernel):
+    """{(mode, batch, type): calls} of `kernel` in a kernel_calls Counter."""
+    return {k[1:]: n for k, n in sorted(calls.items()) if k[0] == kernel}
+
+
 def rel_rms(a, b):
     return ((a - b).abs().pow(2).sum() / b.abs().pow(2).sum()).sqrt().item()
 
@@ -264,7 +276,7 @@ def phase8(dev, dense_blocks=None):
     """Phase 8 (module docstring): N1 and the band-powers of the masked chain at lmax 2048;
     `dense_blocks` is phase 6's dense-block cacher (None: the parfile builds its own)."""
     import torch
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core
     import bandpowers_demo_torch as bpd
     log8 = lambda s: phase(8, s)
     t8 = time.perf_counter()
@@ -282,11 +294,11 @@ def phase8(dev, dense_blocks=None):
         low = r8b['low_bins']
         check(bool(np.all(ratio[low] < 1.)), 'binned |N1| / fid of %s at L <= %d: %s'
               % (k, bpd.AMPL_LMAX, ratio[low]))
-    lk.reset_launches()
-    r8c = bpd.bandpower_chain(par8, keys=KEYS, setup_s=setup8, log=log8)
-    bp_launches = dict(lk.launches)
-    check(bp_launches['synth_pair'] > 0 and bp_launches['anal_pair'] > 0,
-          'the band-power chain did not launch K1 and K2: %s' % bp_launches)
+    with core.counting() as c:
+        r8c = bpd.bandpower_chain(par8, keys=KEYS, setup_s=setup8, log=log8)
+    bp = c.calls
+    check(ran(bp, 'K1') > 0 and ran(bp, 'K2') > 0,
+          'the band-power chain did not launch K1 and K2: %s' % dict(bp))
     check(r8c['finite'], 'the band-power chain gave non-finite outputs')
     check(r8c['peak_gib'] < 40., 'band-power chain peak memory %.2f GiB' % r8c['peak_gib'])
     for k, r in r8c['res'].items():
@@ -299,7 +311,8 @@ def phase8(dev, dense_blocks=None):
         a = r['ampl'][r['low']]
         check(bool(np.all((a >= lo) & (a <= hi))), '%s: <q x phi_in> amplitude %s outside '
               '[%g, %g] at L <= %d' % (k, a, lo, hi, bpd.AMPL_LMAX))
-    phase(8, '(8c) K1/K2 launches of the band-power chain: %s' % bp_launches)
+    phase(8, '(8c) K1/K2 launches of the band-power chain by (mode, batch, type): K1 %s, K2 %s'
+          % (by_shape(bp, 'K1'), by_shape(bp, 'K2')))
     del par8
     torch.cuda.empty_cache()
     r8d = bpd.forecasts(dev, log=log8)
@@ -337,8 +350,8 @@ def phase9(dev, dense_blocks=None):
     check(max(r['ops'], r['probe_err'], r['fal_err'], r['ivfjtp_err'], r['qlm_err']) <= 1e-12,
           'CinvTP / IVFJTP card vs CPU: ops %.2e, probe %.2e, fal %.2e, IVFJTP %.2e, qlm %.2e'
           % (r['ops'], r['probe_err'], r['fal_err'], r['ivfjtp_err'], r['qlm_err']))
-    check(r['launches']['synth_pair'] > 0 and r['launches']['anal_pair'] > 0,
-          'CinvTP at lmax 64 did not launch K1/K2: %s' % r['launches'])
+    check(ran(r['calls'], 'K1') > 0 and ran(r['calls'], 'K2') > 0,
+          'CinvTP at lmax 64 did not launch K1/K2: %s' % dict(r['calls']))
     rb = gj.stage_b_card_vs_cpu(dev, log=log9)
     for name in gj.STAGE_B_LIMITS:
         limit = gj.stage_b_limit(name, rb)
@@ -355,10 +368,10 @@ def phase9(dev, dense_blocks=None):
           'GiB' % (r9b['probe_peak_gib'], r9b['peak_gib']))
     batch = len(HP_SIMS)
     for mode in (0, 1):
-        check(r9b['k1'].get((mode, batch, 'f64'), 0) > 0
-              and r9b['k2'].get((mode, batch, 'f64'), 0) > 0,
-              'CinvTP did not run K1/K2 mode %d at batch %d: %s %s'
-              % (mode, batch, r9b['k1'], r9b['k2']))
+        check(r9b['calls']['K1', mode, batch, 'f64'] > 0
+              and r9b['calls']['K2', mode, batch, 'f64'] > 0,
+              'CinvTP did not run K1/K2 mode %d at batch %d: %s'
+              % (mode, batch, dict(r9b['calls'])))
     check(r9b['finite'] and 0.7 <= r9b['ampl'] <= 1.3, 'GMV <q x phi_in> / (R C^pp fsky) '
           '%.4f outside [0.7, 1.3] (finite: %s)' % (r9b['ampl'], r9b['finite']))
     torch.cuda.empty_cache()
@@ -390,8 +403,8 @@ def phase10(dev):
     r = ss.smica_chain(dev, LMAX, NSIDE, nsims=2, log=lambda s: phase(10, s))
     check(r['finite'] and r['lcut_ok'], 'the smica chain: finite %s, l-cut kept %s'
           % (r['finite'], r['lcut_ok']))
-    check(r['launches']['synth_pair'] > 0 and r['launches']['anal_pair'] > 0,
-          'the smica chain did not launch K1 and K2: %s' % r['launches'])
+    check(ran(r['calls'], 'K1') > 0 and ran(r['calls'], 'K2') > 0,
+          'the smica chain did not launch K1 and K2: %s' % dict(r['calls']))
     check(r['peak_gib'] < 40., 'the smica chain peak memory %.2f GiB' % r['peak_gib'])
     check(all(np.isfinite(a) and a > 0. for a in r['ampl'].values()),
           'the smica chain <q x phi_in> amplitude %s' % r['ampl'])
@@ -419,10 +432,9 @@ def phase11(dev):
     check(max(ra['monopole'], ra['halving'], ra['swap']) <= 1e-10,
           'freq_weighting identities: monopole %.2e, halving %.2e, swap %.2e'
           % (ra['monopole'], ra['halving'], ra['swap']))
-    k1 = ra['launches']['synth_pair'].get((0, 1, 'f64'), 0)
-    k2 = ra['launches']['anal_pair'].get((0, 4, 'f64'), 0)
+    k1, k2 = ra['calls']['K1', 0, 1, 'f64'], ra['calls']['K2', 0, 4, 'f64']
     check(k1 > 0 and k2 > 0, 'freq_weighting did not launch K1 (mode 0, batch 1) and K2 (mode '
-          '0, batch 4): %s' % ra['launches'])
+          '0, batch 4): %s' % dict(ra['calls']))
     ec = pn.freq_weighting_card_vs_cpu(dev, log=log11)
     check(max(ec.values()) <= 1e-12, 'freq_weighting card vs CPU: %s' % ec)
     core.TABLES.clear()
@@ -476,10 +488,10 @@ def phase11(dev):
               'process: %s' % (r['rank'], r['errs']))
     for name, row in mrows.items():
         b, mode = int(name.split('mblock')[1][0]), row['mode']
-        kind = 'synth_pair' if name.startswith('synth') else 'anal_pair'
-        row['launches'] = rd[b]['launches'][kind].get(str((mode, 4, 'f64')), 0)
+        kind = 'K1' if name.startswith('synth') else 'K2'
+        row['launches'] = sum(c[4] for c in rd[b]['calls'] if c[:4] == [kind, mode, 4, 'f64'])
         check(row['launches'] > 0, 'rank %d did not launch %s mode %d at batch 4: %s'
-              % (b, kind, mode, rd[b]['launches']))
+              % (b, kind, mode, rd[b]['calls']))
     rows.update(mrows)
     phase(11, 'phase 11 wall %.1fs; the whole run so far %.1fs'
           % (time.perf_counter() - t11, time.perf_counter() - T_START))
@@ -523,7 +535,7 @@ def phase12(dev):
     import io
     import torch
     from plancklens_tpu_torch import DATAPATH
-    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core
     from plancklens_tpu_torch.models import n0s
     from plancklens_tpu_torch.models.qest import eval_qe
     from plancklens_tpu_torch.ops import wigner
@@ -545,12 +557,12 @@ def phase12(dev):
     torch.cuda.empty_cache()
 
     # 12a the quickstart at full width, then the card against the CPU
-    lk.reset_launches()
     t0 = time.perf_counter()
-    r = qs.reconstruct(LMAX, 4, device=dev, log=log)
+    with core.counting() as c:
+        r = qs.reconstruct(LMAX, 4, device=dev, log=log)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    k1, k2 = dict(lk.synth_pair_shapes), dict(lk.anal_pair_shapes)
+    k1, k2 = by_shape(c.calls, 'K1'), by_shape(c.calls, 'K2')
     qs.report(r)
     cross, auto, n0_40 = qs.band_averages(r)
     log('(12a) quickstart at lmax %d, 4 sims, f64, cold: <phihat x phi_in>/<phi_in^2> %.4f '
@@ -688,12 +700,12 @@ def phase12(dev):
     for name, d in (('card', dev), ('cpu', cpu)):
         t0 = time.perf_counter()
         on_d = {f: torch.as_tensor(a, device=d) for f, a in alms.items()}
-        lk.reset_launches()
-        out[name] = {k: eval_qe(k, lq, cls, lambda f: on_d[f], lq, transf=transf, device=d)
-                     for k in keys}
+        with core.counting() as c:
+            out[name] = {k: eval_qe(k, lq, cls, lambda f: on_d[f], lq, transf=transf,
+                                    device=d) for k in keys}
         if name == 'card':
             torch.cuda.synchronize()
-            k1, k2 = dict(lk.synth_pair_shapes), dict(lk.anal_pair_shapes)
+            k1, k2 = by_shape(c.calls, 'K1'), by_shape(c.calls, 'K2')
         secs[name] = time.perf_counter() - t0
     # a key whose output is zero to rounding on the CPU (the rotation keys: their product
     # map is imaginary and a spin-0 QE keeps its real part, in the JAX package as in the
@@ -774,10 +786,10 @@ def main():
     def crandn(shape, cdt):
         return torch.randn(shape, generator=gen, device=dev, dtype=cdt)
 
-    def split(kind):
-        """The last call's ring split, for the phase lines: K2's cluster, K4's segments."""
-        pl = lk.last_plan[kind]
-        if kind == 'anal_pair':
+    def split(pl):
+        """A call's ring split, for the phase lines: K2's cluster plan (`plan_pair`), K4's
+        segments (`anal_plan`)."""
+        if isinstance(pl, lk.PairPlan):
             return ('clusters of %d blocks x %d rings, %d warps, batch tile %d, %d blocks'
                     % (pl.cluster, pl.rings_per_block, pl.warps, pl.batch_tile, pl.blocks))
         return 'NS %d, %d blocks, workspace %.0f MiB' % (pl.nseg, pl.blocks,
@@ -831,7 +843,7 @@ def main():
                             (Q[:, :, 64:].contiguous(),
                              None if qm is None else qm[:, :, 64:].contiguous(), b_m, b_p)):
                         ka = lk.anal_pair(Qx, qmx, spin, lmax, tm_, tp_)
-                        clusters.add(lk.last_plan['anal_pair'].cluster)
+                        clusters.add(lk.anal_pair_plan(Qx, qmx, spin).cluster)
                         pa = core.legendre_anal_pair_plain(Qx, qmx, spin, lmax, tm_, tp_)
                         again = lk.anal_pair(Qx, qmx, spin, lmax, tm_, tp_)
                         check(all(torch.equal(a, b) for a, b in zip(again, ka) if b is not None),
@@ -905,8 +917,8 @@ def main():
         phase(2, 'lmax 2048, %d x %d grid, spin 1, f32, batch %d: synth %.3f ms (block shape '
               '%s; plain %.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e of '
               'max), both bitwise equal on a second run'
-              % (nr, geom.nphi, B, ms_s, shape('pair', B), pms_s, es, ms_a, split('anal_pair'),
-                 pms_a, ea))
+              % (nr, geom.nphi, B, ms_s, shape('pair', B), pms_s, es, ms_a,
+                 split(lk.anal_pair_plan(Qp, Qm, 1)), pms_a, ea))
         del C, Cm, Fp, Fm, Qp, Qm, A, Bc, Pp, Pm, PA, PB
     torch.cuda.empty_cache()
     phase(2, 'batch 4 / batch 8 time ratio: K1 synth_pair %.4f, K2 anal_pair %.4f'
@@ -945,9 +957,10 @@ def main():
                     ea = 0.
                     for nseg in (None, 1):     # the planner's segments (4), and one
                         ea = max(ea, rel_max(lk.anal(Q, lp, t, nseg=nseg), pa))
-                        check((lk.last_plan['anal'].nseg == 1) == (nseg == 1),
-                              'K4 segments on %s rings: %s' % (label, split('anal')))
-                        nsegs.add(lk.last_plan['anal'].nseg)
+                        pl = lk.anal_plan(*Q.shape, lp + 1, Q.dtype, dev, nseg)
+                        check((pl.nseg == 1) == (nseg == 1),
+                              'K4 segments on %s rings: %s' % (label, split(pl)))
+                        nsegs.add(pl.nseg)
                     check(es <= tol and ea <= tol, 'K3/K4 vs plain at lmax %d, %s rings, %s, '
                           'n %d, mmax %d: synth %.2e anal %.2e > %.0e'
                           % (lp, label, cdt, n, M - 1, es, ea, tol))
@@ -979,8 +992,8 @@ def main():
         phase(2, '(2b) lmax 2048, %d north-cap rings of nside %d, n -2, f32, batch %d: synth '
                  '%.3f ms (block shape %s; plain %.1f ms, %.2e of max), anal %.3f ms (%s; '
                  'plain %.1f ms, %.2e of max), both bitwise equal on a second run'
-              % (ncap, NSIDE, B, ms_s, shape('plain', B), pms_s, es, ms_a, split('anal'), pms_a,
-                 ea))
+              % (ncap, NSIDE, B, ms_s, shape('plain', B), pms_s, es, ms_a,
+                 split(lk.anal_plan(*G.shape, LMAX + 1, G.dtype, dev)), pms_a, ea))
         del C, G, A0, A, PG, PA
     del t
     # all 8191 rings, batch 4, n = -2: phase 5b's shape (uncached, as phase 5b builds its own)
@@ -1001,7 +1014,8 @@ def main():
         phase(2, '(2b) lmax 2048, all %d rings of nside %d, n -2, %s, batch %d: synth %.3f ms '
                  '(block shape %s), anal %.3f ms (%s), both bitwise equal on a second run'
               % (R, NSIDE, cdt, B, ms_s, shape('plain', B, 'f32' if cdt == torch.complex64
-                                               else 'f64'), ms_a, split('anal')))
+                                               else 'f64'), ms_a,
+                 split(lk.anal_plan(*G.shape, LMAX + 1, G.dtype, dev))))
     # phase 5b's shape (f64): the kernels against their plain versions, timed
     pms_s, PG = cuda_ms(lambda: core.legendre_synth_plain(C, t), 1)
     pms_a, PA = cuda_ms(lambda: core.legendre_anal_plain(G, LMAX, t), 1)
@@ -1021,7 +1035,8 @@ def main():
     lk.anal(Gm, 512, t)
     ms_pw, _ = cuda_ms(lambda: lk.anal(Gm, 512, t), 5)
     phase(2, '(2b) pixel-window shape, %d node rings x %d shapes, lmax 512, f64: anal %.3f ms '
-             '(%s)' % (len(th_pw), Gm.shape[0], ms_pw, split('anal')))
+             '(%s)' % (len(th_pw), Gm.shape[0], ms_pw,
+                       split(lk.anal_plan(*Gm.shape, 513, Gm.dtype, dev))))
     del Gm, t
     torch.cuda.empty_cache()
 
@@ -1059,26 +1074,29 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    lk.reset_launches()
     t_main = time.perf_counter()
-    teb, s_filt = drv.stage_filt(par, idxs)
-    qlms, s_qe = drv.stage_qe(par, KEYS, idxs)
-    mfs, s_mf = drv.stage_mf(par, KEYS)
-    qcls, s_qcl = drv.stage_qcl(par, KEYS, par.mc_sims_var)
+    with core.counting() as c:
+        teb, s_filt = drv.stage_filt(par, idxs)
+        qlms, s_qe = drv.stage_qe(par, KEYS, idxs)
+        mfs, s_mf = drv.stage_mf(par, KEYS)
+        qcls, s_qcl = drv.stage_qcl(par, KEYS, par.mc_sims_var)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t_main
-    launches = dict(lk.launches)
-    k1_shapes = dict(lk.synth_pair_shapes)
+    n_legendre = sum(r['name'] == 'sht.legendre' for r in c.records)
+    main_calls = c.calls
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     phase(4, 'stages at lmax %d, %d sims, keys %s: filt %.3fs, qe %.3fs, mf %.3fs, '
           'qcl(sims %s) %.3fs; %.1fs wall; peak memory %.2f GiB; launches %s'
           % (LMAX, NSIMS, '/'.join(KEYS), s_filt, s_qe, s_mf,
-             ','.join(map(str, par.mc_sims_var)), s_qcl, t_main, peak, launches))
+             ','.join(map(str, par.mc_sims_var)), s_qcl, t_main, peak,
+             {k: ran(main_calls, k) for k in ('K1', 'K2', 'K3', 'K4')}))
     phase(4, 'K1 synth_pair launches by (mode, batch, data type): %s'
-          % ', '.join('%s x %d' % kv for kv in sorted(k1_shapes.items())))
-    check(sum(k1_shapes.values()) == launches['synth_pair'], 'K1 launches by shape')
-    for name in ('synth_pair', 'anal_pair'):
-        check(launches[name] > 0, 'kernel %s was not launched by the main path' % name)
+          % ', '.join('%s x %d' % kv for kv in by_shape(main_calls, 'K1').items()))
+    check(sum(main_calls.values()) == n_legendre,
+          'Legendre calls of the main path that ran no kernel: %d of %d'
+          % (n_legendre - sum(main_calls.values()), n_legendre))
+    for name in ('K1', 'K2'):
+        check(ran(main_calls, name) > 0, 'kernel %s was not launched by the main path' % name)
     nalm = ualm.getsize(LMAX)
     for x in teb:
         check(tuple(x.shape) == (NSIMS, nalm) and bool(torch.isfinite(x).all()), 'filt output')
@@ -1126,16 +1144,17 @@ def main():
 
     # ---------------------------------------------------------------- 5a pixwin
     torch.cuda.synchronize()
-    n0 = lk.launches['anal']
     t0 = time.perf_counter()
-    wt, wp = pixwin_exact(128, pol=True, device=dev)
+    with core.counting() as c:
+        wt, wp = pixwin_exact(128, pol=True, device=dev)
     s_pw = time.perf_counter() - t0
+    n_k4 = ran(c.calls, 'K4')
     shipped = np.load(os.path.join(DATAPATH, 'pixwin', 'pixwin_n0128_pol.npy'))
     e_pw = max(np.abs(wt - shipped[0]).max() / np.abs(shipped[0]).max(),
                np.abs(wp - shipped[1]).max() / np.abs(shipped[1]).max())
     check(e_pw <= 1e-10, 'exact pixel window of nside 128 vs shipped table: %.2e' % e_pw)
     phase(5, '(5a) pixwin_exact(128, pol=True), f64: %.2fs, %d K4 calls, %.2e of max from '
-             'the shipped tables' % (s_pw, lk.launches['anal'] - n0, e_pw))
+             'the shipped tables' % (s_pw, n_k4, e_pw))
 
     # ---------------------------------------------------------------- 5b healpix path
     import tempfile
@@ -1145,21 +1164,20 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lk.reset_launches()
     t_hp = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tdir:
+    with tempfile.TemporaryDirectory() as tdir, core.counting() as c:
         (tmap, qmap, umap), (tlm, elm, blm), hq, secs = healpix_path(
             par, obs, HP_SIMS, KEYS, tdir, NSIDE, LMAX, dev)
     torch.cuda.synchronize()
     t_hp = time.perf_counter() - t_hp
-    hp_launches = dict(lk.launches)
+    hp_calls = c.calls
     peak_hp = torch.cuda.max_memory_allocated() / 2 ** 30
     phase(5, '(5b) HEALPix path, nside %d, lmax %d, sims %s, f64 transforms, cold: %s; %.1fs '
              'wall; peak memory %.2f GiB; launches %s'
           % (NSIDE, LMAX, HP_SIMS, ', '.join('%s %.3fs' % kv for kv in secs.items()), t_hp,
-             peak_hp, hp_launches))
-    for name in ('synth', 'anal'):
-        check(hp_launches[name] > 0, 'kernel %s was not launched by the HEALPix path' % name)
+             peak_hp, {k: ran(hp_calls, k) for k in ('K1', 'K2', 'K3', 'K4')}))
+    for name in ('K3', 'K4'):
+        check(ran(hp_calls, name) > 0, 'kernel %s was not launched by the HEALPix path' % name)
     npix = 12 * NSIDE ** 2
     for x in (tmap, qmap, umap):
         check(tuple(x.shape) == (len(HP_SIMS), npix) and bool(torch.isfinite(x).all()),
@@ -1312,19 +1330,19 @@ def main():
               'Cinv%s at lmax %d did not converge below 1e-5: %d iterations, %s'
               % (step.upper(), LMAX, st['it'], rels))
         mode = 0 if step == 't' else 1
-        check(st['k1'].get((mode, batch, 'f64'), 0) > 0
-              and st['k2'].get((mode, batch, 'f64'), 0) > 0,
-              'Cinv%s did not run K1/K2 mode %d at batch %d: %s %s'
-              % (step.upper(), mode, batch, st['k1'], st['k2']))
+        check(st['calls']['K1', mode, batch, 'f64'] > 0
+              and st['calls']['K2', mode, batch, 'f64'] > 0,
+              'Cinv%s did not run K1/K2 mode %d at batch %d: %s'
+              % (step.upper(), mode, batch, dict(st['calls'])))
         check(st['peak_gib'] < 40., 'Cinv%s peak memory %.2f GiB' % (step.upper(), st['peak_gib']))
     pr = m6['p_probe']
     check(pr['peak_gib'] < 40. and pr['k2_plan'] is not None
-          and pr['launches']['synth_pair'] > 0 and pr['launches']['anal_pair'] > 0,
+          and ran(pr['calls'], 'K1') > 0 and ran(pr['calls'], 'K2') > 0,
           'CinvP probe: peak %.2f GiB, K2 plan %s, launches %s'
-          % (pr['peak_gib'], pr['k2_plan'], pr['launches']))
+          % (pr['peak_gib'], pr['k2_plan'], dict(pr['calls'])))
     ro = m6['route']
-    check(ro['launches']['synth_pair'] > 0 and ro['launches']['anal_pair'] > 0,
-          'the masked route launched %s' % ro['launches'])
+    check(ran(ro['calls'], 'K1') > 0 and ran(ro['calls'], 'K2') > 0,
+          'the masked route launched %s' % dict(ro['calls']))
     gaps6 = {}
     for k, q in m6['route_qlms'].items():
         check(tuple(q.shape) == (len(ro['sims']), nalm) and bool(torch.isfinite(q).all()),
@@ -1332,7 +1350,7 @@ def main():
         gaps6[k] = rel_rms(q.to(torch.complex128), qlms[k][ro['sims']].to(torch.complex128))
     phase(6, '(6d) masked-route qlm against the full-sky qlm of phase 4, same sims (relative '
              'rms, not checked): %s' % ', '.join('%s %.3e' % kv for kv in gaps6.items()))
-    cg_launches = (m6['t']['k1'][0, 8, 'f64'], m6['t']['k2'][0, 8, 'f64'])
+    cg_calls = (m6['t']['calls']['K1', 0, 8, 'f64'], m6['t']['calls']['K2', 0, 8, 'f64'])
     del m6
     torch.cuda.empty_cache()
     # K1/K2 at the CG shape of 6b (spin 0, one input, f64, batch 8, 2049 rings) against
@@ -1360,8 +1378,8 @@ def main():
     phase(6, 'K1/K2 at the CG shape (spin 0, one input, f64, batch 8, %d rings): synth %.3f ms '
              '(plain %.1f ms, %.2e of max), anal %.3f ms (%s; plain %.1f ms, %.2e of max), '
              'bound %.3f ms (%s), both bitwise equal on a second run'
-          % (nr6, ms_s, pms_s, rel_max(F, PF), ms_a, split('anal_pair'), pms_a, rel_max(A, PA),
-             b6[0], b6[1]))
+          % (nr6, ms_s, pms_s, rel_max(F, PF), ms_a, split(lk.anal_pair_plan(Q6, None, 0)),
+             pms_a, rel_max(A, PA), b6[0], b6[1]))
     del C, F0, F, Q6, A0, A, PF, PA, t_0
     del par
     core.TABLES.clear()
@@ -1375,15 +1393,12 @@ def main():
     check(r7a['maps_err'] <= 1e-10 and r7a['alms_err'] <= 1e-10,
           'lensing on the card vs the CPU plain path: maps %.2e, alms %.2e > 1e-10'
           % (r7a['maps_err'], r7a['alms_err']))
-    check(r7a['launches']['synth_pair'] > 0 and r7a['launches']['anal_pair'] > 0
+    check(ran(r7a['calls'], 'K1') > 0 and ran(r7a['calls'], 'K2') > 0
           and r7a['curl_moves'] > 1e-6, '7a: launches %s, the curl moves T by %.2e'
-          % (r7a['launches'], r7a['curl_moves']))
+          % (dict(r7a['calls']), r7a['curl_moves']))
     r7b = lensed_sims(dev, LMAX, sims=HP_SIMS, log=log7)
-    path7 = Counter()
-    for v in r7b['launches'].values():
-        path7.update(v)
-    check(sum(v for k, v in path7.items() if k[0] == 'synth_pair') > 0
-          and sum(v for k, v in path7.items() if k[0] == 'anal_pair') > 0,
+    path7 = sum(r7b['calls'].values(), Counter())
+    check(ran(path7, 'K1') > 0 and ran(path7, 'K2') > 0,
           'the lensed sims did not launch K1 and K2: %s' % dict(path7))
     check(r7b['peak_gib'] < 40., 'lensed sims peak memory %.2f GiB' % r7b['peak_gib'])
     check(r7b['split_vs_library'] <= 1e-10, 'step-by-step lensed sim vs the libraries: %.2e'
@@ -1422,10 +1437,10 @@ def main():
     phase12(dev)
 
     # launches of the 4 sims' steps, at each new row's shape
-    lens_launches = {'synth_pair_ecp_t': ('ecp_t', ('synth_pair', 0, 1, 'f64')),
-                     'synth_pair_ecp_qu': ('ecp_qu', ('synth_pair', 1, 1, 'f64')),
-                     'synth_pair_deflection': ('deflection', ('synth_pair', 1, 1, 'f64')),
-                     'anal_pair_lensed_eb': ('map2alm', ('anal_pair', 1, 1, 'f64'))}
+    lens_rows = {'synth_pair_ecp_t': ('ecp_t', ('K1', 0, 1, 'f64')),
+                 'synth_pair_ecp_qu': ('ecp_qu', ('K1', 1, 1, 'f64')),
+                 'synth_pair_deflection': ('deflection', ('K1', 1, 1, 'f64')),
+                 'anal_pair_lensed_eb': ('map2alm', ('K2', 1, 1, 'f64'))}
 
     # library_ms is null on every row: no one PyTorch call computes a Legendre transform
     # from the kernel's inputs. The nearest library path, torch.bmm over a lambda table
@@ -1433,12 +1448,12 @@ def main():
     # an operand the kernel does not; examples/bench_legendre_torch.py times it beside
     # these rows, so that this run does not grow by the tables' builds.
     kernels = []
-    for name, st, n in (('synth_pair', stats[8]['synth'], launches['synth_pair']),
-                        ('anal_pair', stats[8]['anal'], launches['anal_pair']),
-                        ('synth', stats_p['synth'], hp_launches['synth']),
-                        ('anal', stats_p['anal'], hp_launches['anal']),
-                        ('synth_pair_cg', stats_cg['synth'], cg_launches[0]),
-                        ('anal_pair_cg', stats_cg['anal'], cg_launches[1])):
+    for name, st, n in (('synth_pair', stats[8]['synth'], ran(main_calls, 'K1')),
+                        ('anal_pair', stats[8]['anal'], ran(main_calls, 'K2')),
+                        ('synth', stats_p['synth'], ran(hp_calls, 'K3')),
+                        ('anal', stats_p['anal'], ran(hp_calls, 'K4')),
+                        ('synth_pair_cg', stats_cg['synth'], cg_calls[0]),
+                        ('anal_pair_cg', stats_cg['anal'], cg_calls[1])):
         ms_k, ms_p, err_abs = st[:3]
         bound_ms, bound_by = st[-2:]
         kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
@@ -1446,19 +1461,19 @@ def main():
                         'max_abs_err': err_abs, 'ms': ms_k, 'plain_ms': ms_p,
                         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None})
     for name, row in r7b['kernels'].items():
-        step, shape_key = lens_launches[name]
+        step, shape_key = lens_rows[name]
         kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
-                        'replaces': REPLACES[shape_key[0]],
-                        'launches': r7b['launches'].get(step, {}).get(shape_key, 0),
+                        'replaces': REPLACES[name.split('_pair')[0] + '_pair'],
+                        'launches': r7b['calls'].get(step, Counter())[shape_key],
                         'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
                         'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
                         'bound_by': row['bound_by'], 'library_ms': None})
     # launches of 9b's lockstep solve at each joint-operator shape
     for name, row in rows9.items():
-        shapes = r9b['k1'] if name.startswith('synth') else r9b['k2']
+        kind = 'K1' if name.startswith('synth') else 'K2'
         kernels.append({'name': name, 'route': 'cuda', 'source': SRC,
                         'replaces': REPLACES[name.split('_tp')[0]],
-                        'launches': shapes.get((row['mode'], row['batch'], 'f64'), 0),
+                        'launches': r9b['calls'][kind, row['mode'], row['batch'], 'f64'],
                         'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
                         'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
                         'bound_by': row['bound_by'], 'library_ms': None})

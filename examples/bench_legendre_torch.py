@@ -568,9 +568,8 @@ def main():
     def crandn(shape, cdt):
         return torch.randn(shape, generator=gen, device=dev, dtype=cdt)
 
-    def plan_of(kind):
-        pl = lk.last_plan[kind]
-        if kind == 'anal_pair':                    # K2's cluster plan
+    def plan_of(pl):
+        if isinstance(pl, lk.PairPlan):            # K2's cluster plan
             return dict(pl._asdict())
         return {'nseg': pl.nseg, 'blocks': pl.blocks, 'workspace_mib': pl.workspace_bytes / 2 ** 20}
 
@@ -595,7 +594,7 @@ def main():
                     rel_max(a, b) for a, b in zip(ks, ps) if b is not None])
                 pa = core.legendre_anal_pair_plain(Q, qm, spin, lmax, t_m, t_p)
                 ka = lk.anal_pair(Q, qm, spin, lmax, t_m, t_p)
-                clusters.add(lk.last_plan['anal_pair'].cluster)
+                clusters.add(lk.anal_pair_plan(Q, qm, spin).cluster)
                 worst['anal_pair'] = max([worst['anal_pair']] + [
                     rel_max(a, b) for a, b in zip(ka, pa) if b is not None])
         for n in range(-3, 4):
@@ -606,7 +605,7 @@ def main():
             pa = core.legendre_anal_plain(Q, lmax, t)
             for nseg in (None, 1):
                 worst['anal'] = max(worst['anal'], rel_max(lk.anal(Q, lmax, t, nseg=nseg), pa))
-                segs.add(lk.last_plan['anal'].nseg)
+                segs.add(lk.anal_plan(*Q.shape, lmax + 1, cdt, dev, nseg).nseg)
         torch.cuda.synchronize()
         for k, v in worst.items():
             if not v <= tol:
@@ -620,11 +619,11 @@ def main():
     # ------------------------------------------------------------------ the timed shapes
     results = []
 
-    def timed(label, kind, call, tol, sweep, reps=args.reps, shape=None):
+    def timed(label, kind, call, tol, sweep, reps=args.reps, shape=None, plan=None):
         """Warm up, time, check run-to-run equality and, for K4's split ring sum, agreement
         with one segment. `call(nseg)` returns a tuple of outputs; the other kernels ignore
-        `nseg`, the synthesis calls name their block shape (`legendre_kernels.synth_shape`)
-        and K2 its cluster plan."""
+        `nseg`, the synthesis calls name their block shape (`legendre_kernels.synth_shape`),
+        and K2 and K4 their plan (`plan(nseg)`: `anal_pair_plan`'s, `anal_plan`'s)."""
         first = call(None)
         mean, best, out = event_ms(lambda: call(None), reps)
         for a, b in zip(first, out):
@@ -636,12 +635,12 @@ def main():
             row['block_shape'] = shape
             note = ' | %d maps x %d rings x %d warps, %d block(s) an SM' % shape
         if kind == 'anal_pair':
-            row['plan'] = plan_of(kind)
+            row['plan'] = plan_of(plan(None))
             note = (' | clusters of %(cluster)d blocks x %(rings_per_block)d rings, %(warps)d '
                     'warps, batch tile %(batch_tile)d, %(blocks)d blocks, %(smem_bytes)d bytes '
                     'of shared memory a block' % row['plan'])
         if kind == 'anal':
-            row.update(plan_of(kind))
+            row.update(plan_of(plan(None)))
             note = ' | NS %d, %d blocks, workspace %.0f MiB' % (
                 row['nseg'], row['blocks'], row['workspace_mib'])
         if row.get('nseg', 1) > 1:
@@ -656,8 +655,8 @@ def main():
             row['sweep'] = {}
             n = 1
             while n <= 16:
-                call(n)
-                got = plan_of(kind)
+                call(n)                            # warm-up: the workspace's allocation
+                got = plan_of(plan(n))
                 row['sweep']['%d' % got['nseg']] = (event_ms(lambda: call(n), args.reps)[0],
                                                     got['blocks'], got['workspace_mib'])
                 n *= 2
@@ -678,7 +677,8 @@ def main():
         del C, Cm
         Qp, Qm = (crandn((B, nr, LMAX + 1), torch.complex64) for _ in range(2))
         timed('K2 anal_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d' % (LMAX, nr, B),
-              'anal_pair', lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p), 1e-5, False)
+              'anal_pair', lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p), 1e-5, False,
+              plan=lambda nseg: lk.anal_pair_plan(Qp, Qm, 1))
         del Qp, Qm
     del t_m, t_p
     t_0, _ = core.pair_tables(LMAX, LMAX, 0, geom.theta, None, dev)
@@ -709,7 +709,8 @@ def main():
         with_bound(timed('K2 anal_pair, spin 0, one input, f64, lmax %d, %d rings, batch %d '
                          '(CinvT)' % (LMAX, ncg, B), 'anal_pair',
                          lambda nseg: lk.anal_pair(Q, None, 0, LMAX, t_0, t_0)[:1],
-                         1e-12, False), [t_0], 0, B)
+                         1e-12, False, plan=lambda nseg: lk.anal_pair_plan(Q, None, 0)),
+                   [t_0], 0, B)
         del C, Q
     del t_0
     t_m, t_p = core.pair_tables(LMAX, LMAX, 2, cg_geom.theta, None, dev)
@@ -723,7 +724,7 @@ def main():
     with_bound(timed('K2 anal_pair, spin-2 pair, f64, lmax %d, %d rings, batch 4 (CinvP)'
                      % (LMAX, ncg), 'anal_pair',
                      lambda nseg: lk.anal_pair(Qp, Qm, 2, LMAX, t_m, t_p), 1e-12,
-                     False), [t_m, t_p], 1, 4)
+                     False, plan=lambda nseg: lk.anal_pair_plan(Qp, Qm, 2)), [t_m, t_p], 1, 4)
     del Qp, Qm, t_m, t_p
     torch.cuda.empty_cache()
 
@@ -737,7 +738,8 @@ def main():
     torch.cuda.empty_cache()
     Q = crandn((4, hgeom.nrings, LMAX + 1), torch.complex128)
     timed('K4 anal, n -2, f64, lmax %d, %d rings, batch 4' % (LMAX, hgeom.nrings), 'anal',
-          lambda nseg: (lk.anal(Q, LMAX, t, nseg=nseg),), 1e-12, args.sweep)
+          lambda nseg: (lk.anal(Q, LMAX, t, nseg=nseg),), 1e-12, args.sweep,
+          plan=lambda nseg: lk.anal_plan(*Q.shape, LMAX + 1, Q.dtype, dev, nseg))
     del Q, t
     torch.cuda.empty_cache()
 
@@ -747,7 +749,8 @@ def main():
     timed('K4 anal, pixel-window shape, n 2, f64, lmax 512, %d node rings, batch %d'
           % (len(th_pw), Gm.shape[0]), 'anal',
           lambda nseg: (lk.anal(Gm, 512, t, nseg=nseg),), 1e-12, False,
-          reps=10 * args.reps)              # a short kernel: more launches for a steady mean
+          reps=10 * args.reps,              # a short kernel: more launches for a steady mean
+          plan=lambda nseg: lk.anal_plan(*Gm.shape, 513, Gm.dtype, dev, nseg))
 
     del Gm, t
     torch.cuda.empty_cache()

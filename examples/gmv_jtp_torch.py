@@ -17,7 +17,7 @@ steps that chip_smoke.py phase 9 calls (9a-9d):
                 0..nsims-1 filtered by CinvTP.apply_ivf in one lockstep batch (dense block to
                 l LMAX_DENSE, probed on the device at band limit LMAX_DENSE), every row's
                 residual recurred and recomputed, iterations, seconds, the probe's setup
-                seconds, K1/K2 launches by (mode, batch, type), peak memory; the bar alms
+                seconds, kernel calls by (kernel, mode, batch, type), peak memory; the bar alms
                 stored in an IVFCinvJTP cacher under the reference's names, read back through
                 IVFCinvJTP -> IVFFtl (l >= lmax/20) -> QELib 'p', crossed with the input phi:
                 <q x phi_in> / (R_L^GMV C_L^pp fsky) over 30 <= L <= 1000, R from
@@ -161,7 +161,7 @@ def card_vs_cpu(device, lmax=SMALL, log=print):
     from plancklens_tpu_torch.models import cinv as pcinv
     from plancklens_tpu_torch.models.filt import IVFJTP
     from plancklens_tpu_torch.models.qest import QELib
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core
     from plancklens_tpu_torch.utils import alm as ualm
     from plancklens_tpu_torch.utils.cachers import cacher_mem
     device, cpu = torch.device(device), torch.device('cpu')
@@ -178,16 +178,16 @@ def card_vs_cpu(device, lmax=SMALL, log=print):
                             device=d)
     held = cacher_mem()
     f_cpu = filt(cpu, held)
-    lk.reset_launches()
-    f_dev = filt(device, held)              # the CPU path's dense block: one system
-    (key, minv), = held._cache.items()
-    pert = cacher_mem()
-    pert.cache(key, 0.5 * (_perturbed(minv, rng) + _perturbed(minv, rng).T))
-    f_n = filt(cpu, pert)
-    x_d, it_d, rel_d = f_dev.solve_wf(*maps)
-    x_c, it_c, rel_c = f_cpu.solve_wf(*maps)
-    x_n, it_n, _ = f_n.solve_wf(*[_perturbed(m, rng) for m in maps])
-    out['launches'] = dict(lk.launches)
+    with core.counting() as c:
+        f_dev = filt(device, held)              # the CPU path's dense block: one system
+        (key, minv), = held._cache.items()
+        pert = cacher_mem()
+        pert.cache(key, 0.5 * (_perturbed(minv, rng) + _perturbed(minv, rng).T))
+        f_n = filt(cpu, pert)
+        x_d, it_d, rel_d = f_dev.solve_wf(*maps)
+        x_c, it_c, rel_c = f_cpu.solve_wf(*maps)
+        x_n, it_n, _ = f_n.solve_wf(*[_perturbed(m, rng) for m in maps])
+    out['calls'] = c.calls
     out['it'] = (it_d, it_c, it_n)
     out['err'], out['floor'] = _rel_max(x_d.cpu(), x_c), _rel_max(x_n, x_c)
     b_c = f_cpu.calc_prep(*maps)
@@ -211,10 +211,10 @@ def card_vs_cpu(device, lmax=SMALL, log=print):
         'the device\'s solution has a residual of %s in the CPU system and is %.2e of max from '
         'the CPU solution (limit %.2e = 10x the CPU solution\'s change under a 1e-15 change '
         'of its maps and inverted dense block); the dense block probed on the device %.2e of '
-        'max from the CPU\'s; get_fal %.2e; launches %s'
+        'max from the CPU\'s; get_fal %.2e; kernel calls %s'
         % (lmax, ld, NLEV_T, NLEV_P, it_d, it_c, it_n, out['ops'],
            np.array2string(out['res'], precision=3), out['err'], 10. * out['floor'],
-           out['probe_err'], out['fal_err'], out['launches']))
+           out['probe_err'], out['fal_err'], dict(sorted(out['calls'].items()))))
     del f_dev, f_cpu, f_n
     # IVFJTP and the GMV QE on it, injected phases
     cl_len, cls_dat, fal, _ = gmv_fal(lmax, NLEV_T, NLEV_T * np.sqrt(2.), np.ones(lmax + 1))
@@ -352,7 +352,7 @@ def masked_gmv(device, lmax=2048, nsims=4, dense_cacher=None, lmax_dense=LMAX_DE
     from plancklens_tpu_torch.models.filt import IVFFtl
     from plancklens_tpu_torch.models.qest import QELib
     from plancklens_tpu_torch.models.qecl import QeClLib, InputPlmLib
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core
     from plancklens_tpu_torch.utils.cachers import cacher_mem
     device = torch.device(device)
     os.environ.update(PLK_ANISO_LMAX=str(lmax), PLK_ANISO_NSIMS=str(max(nsims, 5)))
@@ -370,37 +370,32 @@ def masked_gmv(device, lmax=2048, nsims=4, dense_cacher=None, lmax_dense=LMAX_DE
     out['sims_s'] = st.seconds
     del QU
     _fresh(device)
-    lk.reset_launches()
-    lk.synth_pair_shapes.clear()
-    lk.anal_pair_shapes.clear()
     t0 = time.perf_counter()
-    tp = pcinv.CinvTP(lmax, par.geom, par.cl_len, par.transf, par.ninv_t, par.ninv_p,
-                      lmax_dense=lmax_dense, marge_monopole=True, marge_dipole=True,
-                      dense_cacher=dense_cacher, device=device)
-    _sync(device)
+    with core.counting() as c:
+        tp = pcinv.CinvTP(lmax, par.geom, par.cl_len, par.transf, par.ninv_t, par.ninv_p,
+                          lmax_dense=lmax_dense, marge_monopole=True, marge_dipole=True,
+                          dense_cacher=dense_cacher, device=device)
+        _sync(device)
     out['setup_s'] = time.perf_counter() - t0
-    out['probe_k1'] = dict(lk.synth_pair_shapes)
+    out['probe_calls'] = c.calls
     out['probe_peak_gib'] = _peak(device)
     _fresh(device)
-    lk.reset_launches()
-    lk.synth_pair_shapes.clear()
-    lk.anal_pair_shapes.clear()
-    with drv.StageTimer(device) as st:
+    with core.counting() as c, drv.StageTimer(device) as st:
         (t, e, b), it, rel, x = tp.apply_ivf(T, Q, U, ret_it=True, ret_wf=True)
-    out.update(solve_s=st.seconds, it=int(it), rel=rel.cpu().numpy(),
-               k1=dict(lk.synth_pair_shapes), k2=dict(lk.anal_pair_shapes),
-               launches=dict(lk.launches), peak_gib=_peak(device))
+    out.update(solve_s=st.seconds, it=int(it), rel=rel.cpu().numpy(), calls=c.calls,
+               peak_gib=_peak(device))
     out['s_per_it'] = out['solve_s'] / max(1, out['it'])
     out['true_rel'] = true_rel(tp, tp.calc_prep(T, Q, U), x, tp._ms3).cpu().numpy()
     del T, Q, U, x
     log('(9b) CinvTP at lmax %d, f64, lensed masked sims %s in one lockstep batch, dense '
         'T/E/B block to l %d: parfile %.2fs, sims %.2fs, setup (probe and inverse) %.2fs '
         '(peak %.2f GiB); %d iterations in %.3fs (%.1f ms an iteration), relative residual '
-        'recurred %s, recomputed %s; K1 by (mode, batch, type) %s, K2 %s; peak %.2f GiB'
+        'recurred %s, recomputed %s; kernel calls by (kernel, mode, batch, type) %s; peak '
+        '%.2f GiB'
         % (lmax, idxs, lmax_dense, out['parfile_s'], out['sims_s'], out['setup_s'],
            out['probe_peak_gib'], out['it'], out['solve_s'], 1e3 * out['s_per_it'],
            np.array2string(out['rel'], precision=3),
-           np.array2string(out['true_rel'], precision=3), out['k1'], out['k2'],
+           np.array2string(out['true_rel'], precision=3), dict(sorted(out['calls'].items())),
            out['peak_gib']))
     # the route: the bar alms under the reference's cacher names, read by IVFCinvJTP
     cacher = cacher_mem()

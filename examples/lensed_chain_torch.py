@@ -7,13 +7,13 @@ calls (7a, 7b, 7c):
   card_vs_cpu    Lensing.alm2lenmap / alm2lenmap_spin on 2 sims (the second deflected by
                  a curl potential too) and CMBLenLib.get_sim_tlm / get_sim_eblm, on the
                  device against the CPU plain path on the same unit phases (lmax 64,
-                 dlmax 16, f64), with K1's launches by (mode, batch, data type);
+                 dlmax 16, f64), with its kernel calls (`core.kernel_calls`);
   lensed_sims    params/anisofilt_example.py's sims (sims.CMBLenLib + MapsLenNlevLib: 5'
                  beam, 35 / 55 uK-arcmin) at lmax with dlmax 128, oversample 4, order 9,
                  f64: the cold host recursion-table builds of their grids, each sim's time
                  split by step with CUDA events (deflection synthesis, positions, ECP
                  synthesis of T and of Q/U, interpolation, map2alm, beam and noise) and its
-                 kernel launches by step, the binned lensed TT / EE / BB of the sims against
+                 kernel calls by step, the binned lensed TT / EE / BB of the sims against
                  FFP10_wdipole_lensedCls.dat, and on a CUDA device K1 at the ECP and
                  deflection shapes and K2 at the lensed map2alm shape against their plain
                  versions, with their bounds (ops/sht/roofline.pair_bound);
@@ -68,7 +68,7 @@ def _sync(device):
 def card_vs_cpu(device, lmax=64, dlmax=16, log=print):
     """The lensing and CMBLenLib on `device` against the CPU plain path (module docstring)."""
     from plancklens_tpu_torch import compat
-    from plancklens_tpu_torch.ops.sht import gl_geometry, legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core, gl_geometry
     from plancklens_tpu_torch.models.sims import CMBLenLib
     from plancklens_tpu_torch.utils import alm as ualm
     cls = _cls('lenspotentialCls')
@@ -90,59 +90,55 @@ def card_vs_cpu(device, lmax=64, dlmax=16, log=print):
         alms = torch.stack([lib.unl_lib.get_sim_alms(i) for i in (0, 1)])
         olm = alms[:, 4].clone()
         olm[0] = 0.                                  # sim 0: gradient deflection only
-        lk.reset_launches()
-        t = lib.lensing.alm2lenmap(alms[:, 0], alms[:, 3], olm=olm)
-        q, u = lib.lensing.alm2lenmap_spin((alms[:, 1], alms[:, 2]), alms[:, 3], 2, olm=olm)
-        eb = [lib.get_sim_eblm(i) for i in (0, 1)]
-        alm = [lib.get_sim_tlm(i) for i in (0, 1)] + [x for p in eb for x in p]
-        _sync(d)
+        with core.counting() as c:
+            t = lib.lensing.alm2lenmap(alms[:, 0], alms[:, 3], olm=olm)
+            q, u = lib.lensing.alm2lenmap_spin((alms[:, 1], alms[:, 2]), alms[:, 3], 2,
+                                               olm=olm)
+            eb = [lib.get_sim_eblm(i) for i in (0, 1)]
+            alm = [lib.get_sim_tlm(i) for i in (0, 1)] + [x for p in eb for x in p]
+            _sync(d)
         out[which] = dict(maps=[x.cpu() for x in (t, q, u)], alms=[x.cpu() for x in alm],
-                          k1=dict(lk.synth_pair_shapes), launches=dict(lk.launches))
+                          calls=c.calls)
         if which == 'dev':      # sim 1 without its curl potential: the curl moves the map
             t_grad = lib.lensing.alm2lenmap(alms[1, 0], alms[1, 3])[0]
             curl_moves = _rel_max(t[1], t_grad)
     dev, ref = out['dev'], out['cpu']
     res = {'maps_err': max(_rel_max(a, b) for a, b in zip(dev['maps'], ref['maps'])),
            'alms_err': max(_rel_max(a, b) for a, b in zip(dev['alms'], ref['alms'])),
-           'k1': dev['k1'], 'launches': dev['launches'], 'curl_moves': curl_moves}
+           'calls': dev['calls'], 'curl_moves': curl_moves}
     log('(7a) lmax %d (dlmax %d), f64, 2 sims (the second with a curl potential, which moves '
         'its lensed T by %.2e of max): lensed T/Q/U on %s vs the CPU plain path %.2e of max, '
-        'CMBLenLib tlm/elm/blm %.2e; K1 launches by (mode, batch, type) %s; launches %s'
+        'CMBLenLib tlm/elm/blm %.2e; kernel calls by (kernel, mode, batch, type) %s'
         % (lmax, dlmax, res['curl_moves'], device, res['maps_err'], res['alms_err'],
-           ', '.join('%s x %d' % kv for kv in sorted(res['k1'].items())), res['launches']))
+           dict(sorted(res['calls'].items()))))
     return res
 
 
-def _shape_counts():
-    """K1/K2 launches so far by (kernel, mode, batch, data type)."""
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
-    c = Counter({('synth_pair',) + k: v for k, v in lk.synth_pair_shapes.items()})
-    c.update({('anal_pair',) + k: v for k, v in lk.anal_pair_shapes.items()})
-    return c
-
-
 class _Steps:
-    """Device seconds (CUDA events; host clock on the CPU) and K1/K2 launches by (kernel,
-    mode, batch, data type) of named steps, summed over the calls of each step."""
+    """Device seconds (CUDA events; host clock on the CPU) and kernel calls by (kernel,
+    mode, batch, data type) of named steps, summed over the calls of each step: the tracer
+    is on during a step, and its calls are those of the step's records."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == 'cuda'
         self.pending = []
-        self.launches = {}
+        self.calls = {}
 
     def __call__(self, name, fn):
-        n0 = _shape_counts()
-        if self.cuda:
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            r = fn()
-            e1.record()
-            self.pending.append((name, e0, e1))
-        else:
-            t0 = time.perf_counter()
-            r = fn()
-            self.pending.append((name, time.perf_counter() - t0, None))
-        self.launches.setdefault(name, Counter()).update(_shape_counts() - n0)
+        from plancklens_tpu_torch.ops.sht import core
+        with core.counting() as c:
+            if self.cuda:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                r = fn()
+                e1.record()
+                self.pending.append((name, e0, e1))
+            else:
+                t0 = time.perf_counter()
+                r = fn()
+                self.pending.append((name, time.perf_counter() - t0, None))
+        self.calls.setdefault(name, Counter()).update(c.calls)
         return r
 
     def seconds(self):
@@ -316,7 +312,7 @@ def lensed_sims(device, lmax=2048, dlmax=DLMAX, sims=(0, 1, 2, 3), log=print):
             % (i, ', '.join('%s %.4fs' % kv for kv in secs.items()), sum(secs.values())))
         del tlm, elm, blm, obs
     out['per_sim_s'] = per_sim
-    out['launches'] = {k: dict(v) for k, v in steps.launches.items()}
+    out['calls'] = steps.calls
     out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float('nan')
     cl_len = _cls('lensedCls')
     out['spectra'] = {}
@@ -328,10 +324,10 @@ def lensed_sims(device, lmax=2048, dlmax=DLMAX, sims=(0, 1, 2, 3), log=print):
             % (k.upper(), len(sims), '%d-%d by 100' % (BINS[0][0], BINS[-1][1]),
                np.array2string(r, precision=4), np.array2string(nsig * s + floor, precision=4)))
     log('(7b) step by step vs MapsLenNlevLib.get_sim_tmap/pmap on sim %d: %.2e of max; peak '
-        '%.2f GiB; K1/K2 launches of the %d sims by step and (kernel, mode, batch, type): %s'
+        '%.2f GiB; kernel calls of the %d sims by step and (kernel, mode, batch, type): %s'
         % (sims[0], out['split_vs_library'], out['peak_gib'], len(sims),
-           '; '.join('%s %s' % (k, ', '.join('%s x %d' % kv for kv in sorted(v.items())))
-                     for k, v in out['launches'].items() if v)))
+           '; '.join('%s %s' % (k, dict(sorted(v.items())))
+                     for k, v in out['calls'].items() if v)))
     if cuda:
         rows = {'synth_pair_ecp_t': ('synth', 0, 0, lu, lens.src),
                 'synth_pair_ecp_qu': ('synth', 2, 1, lu, lens.src),

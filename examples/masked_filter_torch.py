@@ -18,11 +18,12 @@ on the Gauss-Legendre grid of lmax:
 The configuration is params/anisofilt_example.py's (lines 40-63, copied: that file imports
 JAX): the galactic cut |cos theta| > 0.15 with three holes, a 5' Gaussian beam, 35 / 55
 uK-arcmin white noise as inverse pixel variances, FFP10 lensed spectra, eps 1e-5. Seconds
-come from CUDA events on the card (run_qlms_torch.StageTimer), K1/K2 launches from
-`legendre_kernels` (by mode, batch and data type). `--f32` adds the f32 CinvT solve of the
-same maps (not checked: see PERF.md, open questions). On the card, the device time of 10
-warm CinvT iterations is split by kernel group (`trace_iterations`). Prints one line per
-step; the last line is one JSON object with the numbers.
+come from CUDA events on the card (run_qlms_torch.StageTimer), kernel calls from the
+tracer's sht.legendre spans (`core.kernel_calls`: by kernel, mode, batch and data type).
+`--f32` adds the f32 CinvT solve of the same maps (not checked: see PERF.md, open
+questions). On the card, the device time of 10 warm CinvT iterations is split by kernel
+group (`trace_iterations`). Prints one line per step; the last line is one JSON object
+with the numbers.
 """
 import argparse
 import json
@@ -65,12 +66,6 @@ def aniso_inputs(lmax):
     return geom, transf, ninv
 
 
-def _launches():
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
-    return {'launches': dict(lk.launches), 'k1': dict(lk.synth_pair_shapes),
-            'k2': dict(lk.anal_pair_shapes)}
-
-
 def true_rel(cinv, b, x, ms):
     """Relative residual |b - A x| / |b| of each row, recomputed (not the recurred one)."""
     from plancklens_tpu_torch.ops import cg
@@ -106,15 +101,16 @@ def trace_iterations(cinv, maps, n):
 def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cacher=None,
                 log=print):
     """Run the masked filters at lmax on `device` (see the module docstring) and return a
-    dict of their outputs and numbers. The launch counts of each step are reset just
-    before it and read just after. On a CUDA device, 10 warm T iterations are also traced
-    (`trace_iterations`). The T and E/B dense blocks go to `dense_cacher` (a fresh
-    cacher_mem by default), whose keys params/anisofilt_example_torch.py's filters share."""
+    dict of their outputs and numbers. The tracer is on during each counted step, and its
+    kernel calls (`calls`) are those of the step's records. On a CUDA device, 10 warm T
+    iterations are also traced (`trace_iterations`). The T and E/B dense blocks go to
+    `dense_cacher` (a fresh cacher_mem by default), whose keys
+    params/anisofilt_example_torch.py's filters share."""
     import run_qlms_torch as drv
     from plancklens_tpu_torch import DATAPATH
     from plancklens_tpu_torch.utils import camb_clfile
     from plancklens_tpu_torch.utils.cachers import cacher_mem
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
     from plancklens_tpu_torch.models import cinv as pcinv
     from plancklens_tpu_torch.models.sims import AlmMapLib
     from plancklens_tpu_torch.models.filt import IVFFtl
@@ -130,7 +126,6 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        lk.reset_launches()
 
     cl_len = camb_clfile(os.path.join(DATAPATH, 'cls', 'FFP10_wdipole_lensedCls.dat'))
     geom, transf, ninv = aniso_inputs(lmax)
@@ -145,19 +140,19 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     out['t_setup_s'] = time.perf_counter() - t0
     tmaps = torch.stack([maps.get_sim_tmap(i) for i in range(BATCH_T)])
     fresh()
-    with drv.StageTimer(device) as tm:
+    with core.counting() as c, drv.StageTimer(device) as tm:
         x, it, rel = cinv_t.solve_wf(tmaps)
     out['t'] = dict(it=it, s=tm.seconds, s_it=tm.seconds / max(it, 1),
-                    rel=rel.cpu().numpy(), peak_gib=peak(), **_launches())
+                    rel=rel.cpu().numpy(), peak_gib=peak(), calls=c.calls)
     out['t']['true_rel'] = true_rel(cinv_t, cinv_t.calc_prep(tmaps), x,
                                     cinv_t._ms).cpu().numpy()
     out['t_x'] = x
     log('T: setup (host dense block to l %d) %.2fs; batch %d f64: %d iterations, %.3fs, '
-        '%.4f s/iteration, peak %.2f GiB; rel resid %s (recomputed %s); launches %s, K1 %s, '
-        'K2 %s' % (dense_t, out['t_setup_s'], BATCH_T, it, tm.seconds, out['t']['s_it'],
-                   out['t']['peak_gib'], np.array2string(out['t']['rel'], precision=3),
-                   np.array2string(out['t']['true_rel'], precision=3), out['t']['launches'],
-                   out['t']['k1'], out['t']['k2']))
+        '%.4f s/iteration, peak %.2f GiB; rel resid %s (recomputed %s); kernel calls %s'
+        % (dense_t, out['t_setup_s'], BATCH_T, it, tm.seconds, out['t']['s_it'],
+           out['t']['peak_gib'], np.array2string(out['t']['rel'], precision=3),
+           np.array2string(out['t']['true_rel'], precision=3),
+           dict(sorted(out['t']['calls'].items()))))
     if cuda:
         tr = out['t_trace'] = trace_iterations(cinv_t, tmaps, 10)
         log('T, 10 warm iterations traced: window %.3fs, device busy %.3fs (idle share %.4f); '
@@ -183,32 +178,38 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     # ---- P: the coupled E/B dense block probed on the device, then a BATCH_P solve
     fresh()
     t0 = time.perf_counter()
-    cinv_p = pcinv.CinvP(lmax, geom, cl_len, transf, ninv['p'], eps_min=1e-5,
-                         lmax_dense=dense_p, dense_cacher=dense_cache, device=device)
+    with core.counting() as c:
+        cinv_p = pcinv.CinvP(lmax, geom, cl_len, transf, ninv['p'], eps_min=1e-5,
+                             lmax_dense=dense_p, dense_cacher=dense_cache, device=device)
     if cuda:
         torch.cuda.synchronize()
     chunk = pcinv.probe_chunk(geom, lmax, 2, torch.float64)
-    plan = lk.last_plan.get('anal_pair')
+    probe = c.calls
+    # K2's plan of the probe's last call, from the shape its span recorded
+    a = next((r['attrs'] for r in reversed(c.records) if r['attrs'].get('kernel') == 'K2'),
+             None)
+    plan = None if a is None else lk.plan_pair(a['nrings'], a['M'], a['B'],
+                                               lk.pair_mode(a['spin'], a['two']))
     out['p_probe'] = dict(s=time.perf_counter() - t0, chunk=chunk, peak_gib=peak(),
-                          k2_plan=None if plan is None else plan._asdict(), **_launches())
+                          k2_plan=None if plan is None else plan._asdict(), calls=probe)
     log('P: probe of the E/B block to l %d (%d basis vectors) %.2fs in chunks of %d, peak '
-        '%.2f GiB, K2 in clusters of %s blocks (no workspace); launches %s, K1 %s, K2 %s'
+        '%.2f GiB, K2 in clusters of %s blocks (no workspace); kernel calls %s'
         % (dense_p, 2 * (dense_p + 1) ** 2, out['p_probe']['s'], chunk,
            out['p_probe']['peak_gib'], None if plan is None else plan.cluster,
-           out['p_probe']['launches'], out['p_probe']['k1'], out['p_probe']['k2']))
+           dict(sorted(probe.items()))))
     qu = [maps.get_sim_pmap(i) for i in range(BATCH_P)]
     qmaps, umaps = torch.stack([a for a, _ in qu]), torch.stack([b for _, b in qu])
     del qu
     fresh()
-    with drv.StageTimer(device) as tm:
+    with core.counting() as c, drv.StageTimer(device) as tm:
         x, it, rel = cinv_p.solve_wf(qmaps, umaps)
     out['p'] = dict(it=it, s=tm.seconds, s_it=tm.seconds / max(it, 1),
-                    rel=rel.cpu().numpy(), peak_gib=peak(), **_launches())
+                    rel=rel.cpu().numpy(), peak_gib=peak(), calls=c.calls)
     log('P: batch %d f64: %d iterations, %.3fs, %.4f s/iteration, peak %.2f GiB; rel resid '
-        '%s; launches %s, K1 %s, K2 %s'
+        '%s; kernel calls %s'
         % (BATCH_P, it, tm.seconds, out['p']['s_it'], out['p']['peak_gib'],
-           np.array2string(out['p']['rel'], precision=3), out['p']['launches'],
-           out['p']['k1'], out['p']['k2']))
+           np.array2string(out['p']['rel'], precision=3),
+           dict(sorted(out['p']['calls'].items()))))
     out['p_x'] = x
     del qmaps, umaps, x
 
@@ -217,15 +218,15 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     ivfs = IVFFtl(pcinv.IVFCinv(cinv_t, cinv_p, maps, cl_len), fl, fl, fl)
     qlib = QELib(ivfs, ivfs, par.cl_len, lmax, lmax, dtype=par.QE_DTYPE, device=device)
     fresh()
-    with drv.StageTimer(device) as tm:
+    with core.counting() as c, drv.StageTimer(device) as tm:
         qlms = {k: torch.stack([qlib.get_sim_qlm(k, i) for i in ROUTE_SIMS])
                 for k in ('ptt', 'p_p')}
-    out['route'] = dict(s=tm.seconds, sims=list(ROUTE_SIMS), peak_gib=peak(), **_launches())
+    out['route'] = dict(s=tm.seconds, sims=list(ROUTE_SIMS), peak_gib=peak(), calls=c.calls)
     out['route_qlms'] = qlms
     log('route IVFCinv -> IVFFtl(l >= %d) -> QELib ptt, p_p (%s) on sims %s: %.3fs, peak '
-        '%.2f GiB; launches %s, K1 %s, K2 %s'
+        '%.2f GiB; kernel calls %s'
         % (lmax // 20, par.QE_DTYPE, list(ROUTE_SIMS), tm.seconds, out['route']['peak_gib'],
-           out['route']['launches'], out['route']['k1'], out['route']['k2']))
+           dict(sorted(out['route']['calls'].items()))))
     return out
 
 

@@ -134,9 +134,9 @@ def w2wsq_monopole(weights, lmax_out, device):
 
 def freq_weighting_full(device, nside=NSIDE_FW, lmax_w=LMAX_W, log=print):
     """11a (module docstring): the full-width run and its identities. Returns a dict of
-    seconds, checks, launches and peak memory."""
+    seconds, checks, kernel calls (of the two full-width runs) and peak memory."""
     from plancklens_tpu_torch.models import freq_weighting as fw
-    from plancklens_tpu_torch.ops.sht import gl_geometry, legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core, gl_geometry
     device = torch.device(device)
     cuda = device.type == 'cuda'
     geom = gl_geometry(nside)
@@ -148,16 +148,15 @@ def freq_weighting_full(device, nside=NSIDE_FW, lmax_w=LMAX_W, log=print):
         torch.cuda.reset_peak_memory_stats(device)
     res = {'lmax_out': min(2 * lmax_w, (geom.nphi - 1) // 2, geom.nrings - 1),
            'grid': (geom.nrings, geom.nphi)}
-    lk.reset_launches()
-    t0 = time.perf_counter()
-    vI = fw.vmaps2vmap_I(vT, wT, geom, device=device)
-    _sync(device)
-    t1 = time.perf_counter()
-    vPP = fw.vmaps2vmap_P(vP, wE, wB, geom, device=device)
-    _sync(device)
-    t2 = time.perf_counter()
-    res['launches'] = {'synth_pair': dict(lk.synth_pair_shapes),
-                       'anal_pair': dict(lk.anal_pair_shapes)}
+    with core.counting() as c:
+        t0 = time.perf_counter()
+        vI = fw.vmaps2vmap_I(vT, wT, geom, device=device)
+        _sync(device)
+        t1 = time.perf_counter()
+        vPP = fw.vmaps2vmap_P(vP, wE, wB, geom, device=device)
+        _sync(device)
+        t2 = time.perf_counter()
+    res['calls'] = c.calls
     res['seconds'] = {'I': t1 - t0, 'P': t2 - t1}
     res['finite_positive'] = bool(torch.isfinite(vI).all() and (vI > 0).all()
                                   and torch.isfinite(vPP).all() and (vPP > 0).all())
@@ -191,10 +190,10 @@ def freq_weighting_full(device, nside=NSIDE_FW, lmax_w=LMAX_W, log=print):
         res['peak_gib'] = torch.cuda.max_memory_allocated(device) / 2. ** 30
     log('(11a) freq_weighting, %d channels (%s GHz), weights l <= %d, '
         'gl_geometry(%d) %d x %d, lmax_out %d, f64: vmaps2vmap_I %.2fs, vmaps2vmap_P %.2fs, '
-        'peak %.2f GiB; K1 %s, K2 %s'
+        'peak %.2f GiB; kernel calls %s'
         % (len(FREQS), '/'.join(map(str, FREQS)), lmax_w, nside, geom.nrings, geom.nphi,
            res['lmax_out'], res['seconds']['I'], res['seconds']['P'], res.get('peak_gib', 0.),
-           res['launches']['synth_pair'], res['launches']['anal_pair']))
+           dict(sorted(res['calls'].items()))))
     log('(11a) identities at full width (%.2fs): uniform monopole %.2e relative, P halving '
         '%.2e, E/B swap %.2e of max; the maps finite and positive: %s'
         % (res['seconds']['identities'], res['monopole'], res['halving'], res['swap'],
@@ -472,7 +471,7 @@ def _rank_worker(device, lmax, nsims, batch):
     leaves the card and the backend to the resolver (parallel.distributed.card_for,
     backend_for_cards); 'cpu' runs the rehearsal on the CPU."""
     from plancklens_tpu_torch.parallel import distributed as pdist, mesh as pmesh
-    from plancklens_tpu_torch.ops.sht import SHT, gl_geometry, legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import SHT, core, gl_geometry
     from plancklens_tpu_torch.utils import alm as ualm
     t_start = time.perf_counter()
     device = torch.device(device)
@@ -498,15 +497,15 @@ def _rank_worker(device, lmax, nsims, batch):
             for _ in range(3)]
     rings = ssht.rings
     _sync(device)
-    lk.reset_launches()
-    t0 = time.perf_counter()
-    out = {'alm2map_0': ssht.alm2map(t), 'map2alm_0': ssht.map2alm(maps[0][:, rings]),
-           'alm2map_2': ssht.alm2map_spin((g, c), 2),
-           'map2alm_2': ssht.map2alm_spin((maps[1][:, rings], maps[2][:, rings]), 2)}
-    _sync(device)
-    secs = time.perf_counter() - t0
-    launches = {'synth_pair': {str(k): v for k, v in lk.synth_pair_shapes.items()},
-                'anal_pair': {str(k): v for k, v in lk.anal_pair_shapes.items()}}
+    with core.counting() as counted:
+        t0 = time.perf_counter()
+        out = {'alm2map_0': ssht.alm2map(t), 'map2alm_0': ssht.map2alm(maps[0][:, rings]),
+               'alm2map_2': ssht.alm2map_spin((g, c), 2),
+               'map2alm_2': ssht.map2alm_spin((maps[1][:, rings], maps[2][:, rings]), 2)}
+        _sync(device)
+        secs = time.perf_counter() - t0
+    # [kernel, mode, batch, type, calls] lists: JSON keeps no tuple keys
+    calls = [list(k) + [n] for k, n in sorted(counted.calls.items())]
     group = pmesh.axis_group(mesh_m, 'm')
     width = max(b - a for a, b in ssht.ring_split)
 
@@ -530,7 +529,7 @@ def _rank_worker(device, lmax, nsims, batch):
     res = {'rank': rank, 'size': size, 'backend': torch.distributed.get_backend(),
            'device': str(device),
            'split': lines, 'm': [ssht.m0, ssht.m1], 'rings': [rings.start, rings.stop],
-           'seconds': secs, 'seconds_ivfs': secs_ivfs, 'launches': launches}
+           'seconds': secs, 'seconds_ivfs': secs_ivfs, 'calls': calls}
     # every rank holds what it gathered to the single-process result, after the counts
     errs = {'alm2map_0': _rel(full['alm2map_0'], sht.alm2map(t)),
             'map2alm_0': _rel(full['map2alm_0'], sht.map2alm(maps[0]))}
@@ -587,10 +586,9 @@ def two_ranks_one_card(device, lmax=2048, nsims=4, batch=4, timeout=400, log=pri
     for r in res:
         log('(11d) rank %d/%d (the resolver chose %s, %s): %s; sharded SHT (alm2map, map2alm, '
             'spins 0 and 2, f64, batch %d) %.2fs; ShardedIVFS %d sims %.2fs; the rank\'s '
-            'process %.1fs; K1 %s, K2 %s'
+            'process %.1fs; kernel calls [kernel, mode, batch, type, calls] %s'
             % (r['rank'], r['size'], r['device'], r['backend'], r['split'][0], batch,
-               r['seconds'], nsims, r['seconds_ivfs'], r['wall'], r['launches']['synth_pair'],
-               r['launches']['anal_pair']))
+               r['seconds'], nsims, r['seconds_ivfs'], r['wall'], r['calls']))
     for r in res:
         log('(11d) rank %d: what it gathered against the single-process result (relative to '
             'max): %s' % (r['rank'], ', '.join('%s %.2e' % kv for kv in r['errs'].items())))

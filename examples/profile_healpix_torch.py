@@ -149,7 +149,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('profile_healpix_torch: needs a CUDA device')
 
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
     import run_qlms_torch as drv
     smi = subprocess.run(['nvidia-smi', '-i', '0', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
@@ -166,12 +166,12 @@ def main():
     idxs = list(range(args.nsims))
     obs = par.sims.get_sim_teblm_batch(idxs)
     torch.cuda.synchronize()
-    lk.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory() as tdir, torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, _, _, secs = healpix_path(par, obs, idxs, ('ptt', 'p_p'), tdir, args.nside,
-                                     args.lmax, dev)
+        with core.counting() as c:
+            _, _, _, secs = healpix_path(par, obs, idxs, ('ptt', 'p_p'), tdir, args.nside,
+                                         args.lmax, dev)
         torch.cuda.synchronize()
         host_wall = time.perf_counter() - t0
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
@@ -180,7 +180,8 @@ def main():
         trace = json.load(f)
     out = summarize_path(trace['traceEvents'] if isinstance(trace, dict) else trace)
     out.update(card=smi, nside=args.nside, lmax=args.lmax, nsims=args.nsims,
-               host_wall_s=host_wall, step_event_s=secs, launches=dict(lk.launches))
+               host_wall_s=host_wall, step_event_s=secs,
+               calls={str(k): n for k, n in c.calls.items()})
     print(smi)
     print('profiled window %.3f s (host clock %.3f s); device busy %.3f s (union), idle '
           'share %.4f; %d table builds, %.3f s host; longitude phase %.3f s host, %.3f s '

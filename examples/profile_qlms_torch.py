@@ -122,7 +122,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('profile_qlms_torch: needs a CUDA device')
 
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core, legendre_kernels as lk
     import run_qlms_torch as drv
     smi = subprocess.run(['nvidia-smi', '-i', '0', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
@@ -142,7 +142,7 @@ def main():
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        with torch.profiler.record_function('main_path'):
+        with torch.profiler.record_function('main_path'), core.counting() as c:
             _, s_filt = drv.stage_filt(par, idxs)
             _, s_qe = drv.stage_qe(par, keys, idxs)
             _, s_mf = drv.stage_mf(par, keys)
@@ -156,7 +156,7 @@ def main():
     out = summarize(trace['traceEvents'] if isinstance(trace, dict) else trace)
     out.update(card=smi, lmax=args.lmax, nsims=args.nsims, host_wall_s=host_wall,
                stages_s={'filt': s_filt, 'qe': s_qe, 'mf': s_mf, 'qcl': s_qcl},
-               launches=dict(lk.launches))
+               calls={str(k): n for k, n in c.calls.items()})
     print(smi)
     print('profiled window %.3f s (host clock %.3f s); device busy %.3f s (union), idle '
           'share %.4f; device activity summed %.3f s; %d table builds, %.3f s host'

@@ -112,7 +112,7 @@ def smica_chain(device, lmax=2048, nside=2048, nsims=2, log=print):
     """Products written to a temporary directory, then the parameter file's chain on
     sims 0..nsims-1 (module docstring)."""
     import run_qlms_torch as drv
-    from plancklens_tpu_torch.ops.sht import legendre_kernels as lk
+    from plancklens_tpu_torch.ops.sht import core
     from plancklens_tpu_torch.utils import alm as ualm
     device = torch.device(device)
     cuda = device.type == 'cuda'
@@ -135,10 +135,10 @@ def smica_chain(device, lmax=2048, nside=2048, nsims=2, log=print):
         par.cinv_t.lmax, par.cinv_p.lmax
         out['filters_s'] = time.perf_counter() - t0
         out['fsky_ring'] = float(np.mean(par.cinv_t.filt.ninv > 0))
-        lk.reset_launches()
-        (t, e, b), out['filt_s'] = drv.stage_filt(par, idxs)
-        qlms, out['qe_s'] = drv.stage_qe(par, KEYS, idxs)
-        out['launches'] = dict(lk.launches)
+        with core.counting() as c:
+            (t, e, b), out['filt_s'] = drv.stage_filt(par, idxs)
+            qlms, out['qe_s'] = drv.stage_qe(par, KEYS, idxs)
+        out['calls'] = c.calls
         with drv.StageTimer(device) as st:
             resp = {k: par.qresp_dd.get_response(k, 'p') for k in KEYS}
         out['resp_s'] = st.seconds
@@ -163,11 +163,12 @@ def smica_chain(device, lmax=2048, nside=2048, nsims=2, log=print):
         'synthetic products (%.0f MB: alm FITS of sims %s and dat, input phi, a RING mask): '
         'products %.2fs, import %.2fs, filters (mask resampled onto the %d x %d grid, fsky '
         '%.4f; CinvT dense block to l 64) %.2fs, filt %.3fs, qe %s %.3fs, responses %.3fs, '
-        'xin %.3fs; peak %.2f GiB; K1/K2 launches %s; l-cut kept %s; all finite %s'
+        'xin %.3fs; peak %.2f GiB; kernel calls %s; l-cut kept %s; all finite %s'
         % (lmax, out['lmax_qlm'], nside, out['products_mb'], idxs, out['products_s'],
            out['import_s'], out['geom'][0], out['geom'][1], out['fsky_ring'],
            out['filters_s'], out['filt_s'], '/'.join(KEYS), out['qe_s'], out['resp_s'],
-           out['xin_s'], out['peak_gib'], out['launches'], out['lcut_ok'], out['finite']))
+           out['xin_s'], out['peak_gib'], dict(sorted(out['calls'].items())), out['lcut_ok'],
+           out['finite']))
     log('(10) <q x phi_in> / (R_L C_L^pp fsky), fsky %.4f, mean over %d <= L <= %d, %d sims: '
         '%s' % (out['fsky'], lo, ls[-1], nsims,
                 ', '.join('%s %.4f' % kv for kv in out['ampl'].items())))
@@ -182,8 +183,9 @@ def main():
     p.add_argument('--nsims', type=int, default=2)
     p.add_argument('--device', default='cuda')
     args = p.parse_args()
-    print(json.dumps(smica_chain(args.device, args.lmax, args.nside, args.nsims),
-                     default=str))
+    out = smica_chain(args.device, args.lmax, args.nside, args.nsims)
+    out['calls'] = {str(k): n for k, n in out['calls'].items()}     # JSON keeps no tuple keys
+    print(json.dumps(out, default=str))
 
 
 if __name__ == '__main__':

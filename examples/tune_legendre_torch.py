@@ -158,6 +158,12 @@ def main():
                                     core.legendre_synth_pair_plain(S, Sm, 2, 257, tm_, tp_),
                                     core.legendre_synth_plain(S, tpl)))
 
+    def cluster(Qa, Qb):        # K2's plan of a spin-1 call
+        return 'cluster %d' % lk.anal_pair_plan(Qa, Qb, 1).cluster
+
+    def segments(Qa, L):        # K4's plan
+        return 'NS %d' % lk.anal_plan(*Qa.shape, L, Qa.dtype, dev).nseg
+
     os.makedirs(lk.BUILD_DIR, exist_ok=True)
     for n, spec in enumerate(sys.argv[1:] or ['default']):
         text, shapes = variant_source(text0, spec)
@@ -188,7 +194,7 @@ def main():
             if not err <= tol:
                 raise RuntimeError('synthesis, %s, batch %d, mmax %d: %.2e of max from the twins'
                                    % (S.dtype, S.shape[0], S.shape[2] - 1, err))
-        for label, kind, fn, reps in (
+        for label, plan, fn, reps in (
                 ('K1 f32 b8', None, lambda: lk.synth_pair(Cp, Cm, 1, nr, t_m, t_p), 3),
                 ('K1 f32 b4', None, lambda: lk.synth_pair(Cp4, Cm4, 1, nr, t_m, t_p), 3),
                 ('K1 f32 b4 spin 0 one input', None,
@@ -197,19 +203,20 @@ def main():
                 ('K3 f64 b4', None, lambda: lk.synth(C4, hgeom.nrings, tf), 3),
                 ('K3 f64 b8', None, lambda: lk.synth(C8, hgeom.nrings, tf), 3),
                 ('K3 f32 b8', None, lambda: lk.synth(C8f, hgeom.nrings, tf), 3),
-                ('K2 f32 b8', 'anal_pair', lambda: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p), 3),
-                ('K2 f32 b4', 'anal_pair', lambda: lk.anal_pair(Qp4, Qm4, 1, LMAX, t_m, t_p), 3),
-                ('K2 f32 b8 one input', 'anal_pair',
+                ('K2 f32 b8', cluster(Qp, Qm), lambda: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p),
+                 3),
+                ('K2 f32 b4', cluster(Qp4, Qm4),
+                 lambda: lk.anal_pair(Qp4, Qm4, 1, LMAX, t_m, t_p), 3),
+                ('K2 f32 b8 one input', cluster(Qp, None),
                  lambda: lk.anal_pair(Qp, None, 1, LMAX, t_m, t_p), 3),
-                ('K2 f64 b4', 'anal_pair', lambda: lk.anal_pair(Qpd, Qmd, 1, LMAX, t_m, t_p), 3),
-                ('K4 f64 b4', 'anal', lambda: lk.anal(Q4, LMAX, tf), 3),
-                ('K4 f32 b4', 'anal', lambda: lk.anal(Q4f, LMAX, tf), 3),
-                ('K4 pixel window', 'anal', lambda: lk.anal(Gm, 512, tpw), 20)):
+                ('K2 f64 b4', cluster(Qpd, Qmd),
+                 lambda: lk.anal_pair(Qpd, Qmd, 1, LMAX, t_m, t_p), 3),
+                ('K4 f64 b4', segments(Q4, LMAX + 1), lambda: lk.anal(Q4, LMAX, tf), 3),
+                ('K4 f32 b4', segments(Q4f, LMAX + 1), lambda: lk.anal(Q4f, LMAX, tf), 3),
+                ('K4 pixel window', segments(Gm, 513), lambda: lk.anal(Gm, 512, tpw), 20)):
             ms = least_ms(fn, reps)
-            out.append('%s %.3f ms' % (label, ms) if kind is None else
-                       '%s %.3f ms (cluster %d)' % (label, ms, lk.last_plan[kind].cluster)
-                       if kind == 'anal_pair' else
-                       '%s %.3f ms (NS %d)' % (label, ms, lk.last_plan[kind].nseg))
+            out.append('%s %.3f ms' % (label, ms) if plan is None else
+                       '%s %.3f ms (%s)' % (label, ms, plan))
         print(' | '.join(out), flush=True)
         print('    registers/spill store bytes: ' + ', '.join(
             '%s<%s> %d/%d' % (k['kernel'][:5], ','.join(map(str, k['args'])), k['registers'],

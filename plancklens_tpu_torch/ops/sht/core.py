@@ -36,7 +36,7 @@ spin-1 synthesis is off by 5.4e-4 rms and 9.6e-3 of max against f64 (H100), and 
 4e-2 on single polar rings.
 """
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
@@ -347,7 +347,9 @@ def _check_m0(m0):
 
 
 def _span(kind, pair, x, second, spin, theta, lmax, m0):
-    """The span sht.legendre of one entry call, with its shape (NOOP when not live)."""
+    """The span sht.legendre of one entry call, with its shape (NOOP when not live). A call
+    whose hand-written kernel launched adds its name, `kernel` 'K1'..'K4'; a call on the
+    plain engine, or one that its kernel's wrapper refused, adds none."""
     if not trace.live():
         return trace.NOOP
     return trace.span('sht.legendre', kind=kind, pair=pair, lmax=int(lmax), m0=int(m0),
@@ -361,10 +363,12 @@ def legendre_synth(C, n, theta, grid_token=None, m0=0):
     or complex128, columns m0..m0+M-1. CUDA tensors run kernel K3, CPU tensors the plain
     engine."""
     lmax, M = C.shape[-2] - 1, C.shape[-1]
-    with _span('synth', False, C, None, n, theta, lmax, m0):
+    with _span('synth', False, C, None, n, theta, lmax, m0) as s:
         t = full_tables(lmax, m0 + M - 1, n, theta, grid_token, C.device, m0)
         if C.is_cuda:
-            return legendre_kernels.synth(C, len(theta), t)
+            out = legendre_kernels.synth(C, len(theta), t)
+            s.set(kernel='K3')
+            return out
         return legendre_synth_plain(C, t)
 
 
@@ -372,10 +376,12 @@ def legendre_anal(Q, n, theta, lmax, grid_token=None, m0=0):
     """A_lm = sum_j Q_jm d^l_{m,n}(theta_j); Q (B, nrings, M) complex, quadrature-
     weighted, columns m0..m0+M-1. CUDA tensors run kernel K4, CPU tensors the plain
     engine."""
-    with _span('anal', False, Q, None, n, theta, lmax, m0):
+    with _span('anal', False, Q, None, n, theta, lmax, m0) as s:
         t = full_tables(lmax, m0 + Q.shape[-1] - 1, n, theta, grid_token, Q.device, m0)
         if Q.is_cuda:
-            return legendre_kernels.anal(Q, lmax, t)
+            out = legendre_kernels.anal(Q, lmax, t)
+            s.set(kernel='K4')
+            return out
         return legendre_anal_plain(Q, lmax, t)
 
 
@@ -386,7 +392,7 @@ def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None, m0=0):
     plain pair engine; on any other grid it makes two plain calls (reference:
     core.py:704-710)."""
     lmax, M = Cp.shape[-2] - 1, Cp.shape[-1]
-    with _span('synth', True, Cp, Cm, spin, theta, lmax, m0):
+    with _span('synth', True, Cp, Cm, spin, theta, lmax, m0) as s:
         if not is_symmetric(theta):
             Fp = legendre_synth(Cp, -spin, theta, grid_token, m0)
             return Fp, (None if Cm is None
@@ -394,7 +400,9 @@ def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None, m0=0):
         _check_m0(m0)
         t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Cp.device, m0)
         if Cp.is_cuda:
-            return legendre_kernels.synth_pair(Cp, Cm, spin, len(theta), t_m, t_p)
+            out = legendre_kernels.synth_pair(Cp, Cm, spin, len(theta), t_m, t_p)
+            s.set(kernel='K1')
+            return out
         return legendre_synth_pair_plain(Cp, Cm, spin, len(theta), t_m, t_p)
 
 
@@ -403,7 +411,7 @@ def legendre_anal_pair(Qp, Qm, spin, theta, lmax, grid_token=None, m0=0):
     (B, nrings, M) complex, quadrature-weighted, columns m0..m0+M-1 (m0 even). On a
     symmetric grid CUDA tensors run kernel K2, CPU tensors the plain pair engine; on any
     other grid two plain calls."""
-    with _span('anal', True, Qp, Qm, spin, theta, lmax, m0):
+    with _span('anal', True, Qp, Qm, spin, theta, lmax, m0) as s:
         if not is_symmetric(theta):
             A = legendre_anal(Qp, -spin, theta, lmax, grid_token, m0)
             return A, (None if Qm is None
@@ -412,5 +420,48 @@ def legendre_anal_pair(Qp, Qm, spin, theta, lmax, grid_token=None, m0=0):
         M = Qp.shape[-1]
         t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Qp.device, m0)
         if Qp.is_cuda:
-            return legendre_kernels.anal_pair(Qp, Qm, spin, lmax, t_m, t_p)
+            out = legendre_kernels.anal_pair(Qp, Qm, spin, lmax, t_m, t_p)
+            s.set(kernel='K2')
+            return out
         return legendre_anal_pair_plain(Qp, Qm, spin, lmax, t_m, t_p)
+
+
+def kernel_calls(records):
+    """Kernel calls among tracer records (trace.records(), or its slice after a mark): a
+    Counter of the sht.legendre records that carry `kernel`, keyed by (kernel, mode, batch,
+    'f32' or 'f64'). The mode is csrc/legendre_pair.cu's: `legendre_kernels.pair_mode` for
+    K1/K2, 3 for K3/K4."""
+    out = Counter()
+    for r in records:
+        a = r['attrs']
+        if r['name'] != 'sht.legendre' or 'kernel' not in a:
+            continue
+        mode = (3 if a['kernel'] in ('K3', 'K4')
+                else legendre_kernels.pair_mode(a['spin'], a['two']))
+        out[a['kernel'], mode, a['B'], 'f64' if a['f64'] else 'f32'] += 1
+    return out
+
+
+class counting:
+    """The kernel calls of a section of code:
+
+        with core.counting() as c:
+            ...
+        c.calls      # kernel_calls of the records the section added
+        c.records    # those records
+
+    The tracer is on inside the section and back as it was after it. No record is dropped,
+    so the other readers of the records (the copy spans, a profiler's join) keep theirs."""
+
+    def __enter__(self):
+        self._was_on = trace.enabled()
+        self._n0 = len(trace.records())
+        trace.enable()
+        return self
+
+    def __exit__(self, *exc):
+        if not self._was_on:
+            trace.disable()
+        self.records = trace.records()[self._n0:]
+        self.calls = kernel_calls(self.records)
+        return False

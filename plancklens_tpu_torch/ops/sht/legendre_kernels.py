@@ -10,16 +10,18 @@ Their plain torch twins are `core.legendre_synth_pair_plain`/`legendre_anal_pair
 and `core.legendre_synth_plain`/`legendre_anal_plain`; the public `core.legendre_*`
 functions run these wrappers for CUDA tensors and the twins for CPU tensors. The
 wrappers here take CUDA tensors only: anything else raises, and so does a failed build
-or launch.
+or launch. They keep no record of their calls: the span sht.legendre of the `core` entry
+call names the kernel it ran (`core.kernel_calls` counts them).
 
 K2 runs one thread-block cluster for each (m, batch tile): `plan_pair` (plain Python, no
 CUDA call) chooses the cluster size, the rings of each block, the warps and the batch tile
 from the call's shape; the blocks' partial sums meet in distributed shared memory, each
 output element is written once, and there is no workspace and no second kernel. K4 splits
 its ring sum over the card: `plan_segments` chooses the number of ring segments NS from the
-call's shape and the card's SM count, the wrapper allocates the workspace of NS - 1 partial
-sums, and a second hand-written kernel adds the partials to the output in a fixed order.
-With NS = 1 the output is written directly and no second kernel runs.
+call's shape and the card's SM count (`anal_plan` gives a call's plan), the wrapper
+allocates the workspace of NS - 1 partial sums, and a second hand-written kernel adds the
+partials to the output in a fixed order. With NS = 1 the output is written directly and no
+second kernel runs.
 
 The shared library is compiled by nvcc from the checkout's sources at first use into
 `plancklens_tpu_torch/_build/`, named by a hash of the source and flags (both dtypes are
@@ -44,18 +46,6 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
               '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 DTYPES = ('f32', 'f64')
-
-# kernel launches since the last reset, one count per kernel (chip_smoke.py reads them to
-# show that the main path went through the kernels). A call of `anal` counts once, whether
-# or not its ring sum takes a second pass.
-launches = {'synth_pair': 0, 'anal_pair': 0, 'synth': 0, 'anal': 0}
-# K1's and K2's launches by (mode, batch, 'f32' or 'f64'), reset with `launches`: the
-# shapes a path really runs them at
-synth_pair_shapes = {}
-anal_pair_shapes = {}
-# the plan of the last `anal_pair` call (a PairPlan) and of the last `anal` call (a
-# SegmentPlan)
-last_plan = {}
 
 # (batch tile, rows of one ring pass) of K4 by data type; rows are rings, warps x rings per
 # thread of a block. They are csrc/legendre_pair.cu's PLK_A_* block shapes, checked against
@@ -90,13 +80,6 @@ PAIR_MAX_REGS = 128
 SMEM_BYTES = 232448                     # a block's shared memory on the H100 (227 KB)
 
 _lib = None
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-    synth_pair_shapes.clear()
-    anal_pair_shapes.clear()
 
 
 SegmentPlan = collections.namedtuple(
@@ -408,7 +391,9 @@ def _tab_args(t):
     return [_ptr(t[k]) for k in ('alpha', 'beta', 'gamma', 'l0', 'seed_v', 'seed_k')]
 
 
-def _mode(spin, has_second):
+def pair_mode(spin, has_second):
+    """The mode of a K1/K2 call (csrc/legendre_pair.cu's): 0 spin 0 on one input, 1 two
+    inputs, 2 one input of nonzero spin."""
     return 1 if has_second else (0 if spin == 0 else 2)
 
 
@@ -422,7 +407,6 @@ def _launch(kind, dtype, dev, *args):
     rc = fn(*args, dev.index, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError('%s kernel launch failed: CUDA error %d' % (kind, rc))
-    launches[kind] += 1
 
 
 def _launch_pair(kind, a_p, a_m, o_p, o_m, t_m, t_p, B, L, M, R, mode, dev, *extra):
@@ -430,18 +414,21 @@ def _launch_pair(kind, a_p, a_m, o_p, o_m, t_m, t_p, B, L, M, R, mode, dev, *ext
             *_tab_args(t_m), *_tab_args(t_p), _ptr(t_m['x']), B, L, M, R, mode, *extra)
 
 
-def _plan_anal(Q, L, nseg):
-    """The segment plan of a K4 call on Q (B, nrings, M) and its workspace of nseg - 1
-    partial sums (B, L, M), None for one segment."""
-    B, R, M = Q.shape
-    bt, rpp = ANAL_TILE['plain', _suffix(Q.dtype)]
-    sms = torch.cuda.get_device_properties(Q.device).multi_processor_count
-    plan = plan_segments(R, L, M, B, bt, rpp, 1, Q.element_size(), sms, nseg=nseg)
-    last_plan['anal'] = plan
-    ws = None
-    if plan.nseg > 1:
-        ws = torch.empty((plan.nseg - 1, B, L, M), dtype=Q.dtype, device=Q.device)
-    return plan, ws
+def anal_pair_plan(Qp, Qm, spin):
+    """The PairPlan that `anal_pair` launches on the inputs Qp (B, nrings, M), Qm (or None)
+    of `spin`."""
+    B, R, M = Qp.shape
+    return plan_pair(R, M, B, pair_mode(spin, Qm is not None))
+
+
+def anal_plan(B, R, M, L, dtype, device, nseg=None):
+    """The SegmentPlan of a K4 call on B maps of `dtype` (complex64/128) on R rings with M
+    columns and L = lmax + 1 degrees, on the CUDA `device` (its SM count); `nseg` forces a
+    count (`plan_segments`)."""
+    bt, rpp = ANAL_TILE['plain', _suffix(dtype)]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    esize = torch.empty((), dtype=dtype).element_size()
+    return plan_segments(R, L, M, B, bt, rpp, 1, esize, sms, nseg=nseg)
 
 
 def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
@@ -460,10 +447,8 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
         _check_tables(t, dev, L, M, nh)
     Fp = torch.empty((B, nrings, M), dtype=Cp.dtype, device=dev)
     Fm = None if Cm is None else torch.empty_like(Fp)
-    mode = _mode(spin, Cm is not None)
+    mode = pair_mode(spin, Cm is not None)
     _launch_pair('synth_pair', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings, mode, dev)
-    shape = (mode, B, _suffix(Cp.dtype))
-    synth_pair_shapes[shape] = synth_pair_shapes.get(shape, 0) + 1
     return Fp, Fm
 
 
@@ -472,8 +457,8 @@ def anal_pair(Qp, Qm, spin, lmax, t_m, t_p):
 
     Qp, Qm: (B, nrings, M) complex64/128 contiguous CUDA tensors, quadrature-weighted
     (Qm may be None). Returns (B, lmax+1, M) complex outputs, Bc None when Qm is None.
-    One launch of `plan_pair`'s clusters, left in `last_plan['anal_pair']`. Deterministic:
-    the ring sums are reduced in a fixed order at every level."""
+    One launch of `anal_pair_plan`'s clusters. Deterministic: the ring sums are reduced in a
+    fixed order at every level."""
     B, R, M = Qp.shape
     L = lmax + 1
     _check_data('Qp', Qp, None, (B, R, M))
@@ -484,13 +469,10 @@ def anal_pair(Qp, Qm, spin, lmax, t_m, t_p):
         _check_tables(t, dev, L, M, (R + 1) // 2)
     A = torch.empty((B, L, M), dtype=Qp.dtype, device=dev)
     Bc = None if Qm is None else torch.empty_like(A)
-    mode = _mode(spin, Qm is not None)
-    plan = plan_pair(R, M, B, mode)
-    last_plan['anal_pair'] = plan
-    _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R, mode, dev, plan.warps,
+    plan = anal_pair_plan(Qp, Qm, spin)
+    _launch_pair('anal_pair', Qp, Qm, A, Bc, t_m, t_p, B, L, M, R,
+                 pair_mode(spin, Qm is not None), dev, plan.warps,
                  plan.batch_tile, plan.cluster, plan.rings_per_block)
-    shape = (mode, B, _suffix(Qp.dtype))
-    anal_pair_shapes[shape] = anal_pair_shapes.get(shape, 0) + 1
     return A, Bc
 
 
@@ -522,7 +504,10 @@ def anal(Q, lmax, t, nseg=None):
     dev = Q.device
     _check_tables(t, dev, L, M, R)
     A = torch.empty((B, L, M), dtype=Q.dtype, device=dev)
-    plan, ws = _plan_anal(Q, L, nseg)
+    plan = anal_plan(B, R, M, L, Q.dtype, dev, nseg)
+    ws = None           # the nseg - 1 partial sums
+    if plan.nseg > 1:
+        ws = torch.empty((plan.nseg - 1, B, L, M), dtype=Q.dtype, device=dev)
     _launch('anal', Q.dtype, dev, _ptr(Q), _ptr(A), *_tab_args(t), _ptr(t['x']),
             B, L, M, R, _ptr(ws), plan.nseg)
     return A

@@ -177,6 +177,11 @@ def sims(idxs):
     return [idxs[0] if idxs else None, len(idxs)]
 
 
+def enabled():
+    """True while the tracer is on (`enable`), whether or not a profiler records."""
+    return _on
+
+
 def enable():
     global _on
     _on = True

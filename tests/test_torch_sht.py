@@ -20,6 +20,7 @@ the plain engine on a CUDA device by the `cuda`-marked test (and by chip_smoke.p
   of max.
 """
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -168,12 +169,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     theta = pgl(16).theta
     t_m, t_p = pcore.pair_tables(16, 16, 2, theta, None, 'cpu')
     C = torch.zeros((1, 17, 17), dtype=torch.complex64)
-    before = dict(lk.launches)
     with pytest.raises(ValueError, match='CUDA'):
         lk.synth_pair(C, C, 2, 17, t_m, t_p)
     with pytest.raises(ValueError, match='CUDA'):
         lk.anal_pair(torch.zeros((1, 17, 17), dtype=torch.complex64), None, 2, 16, t_m, t_p)
-    assert lk.launches == before
 
 
 def test_sht_refuses_tensors_on_another_device():
@@ -406,13 +405,6 @@ def test_ring_segments_add_up_plain(nrings, n):
     assert _err(total, whole) <= 1e-12
 
 
-def test_launch_counts_reset_together():
-    lk.synth_pair_shapes[(1, 8, 'f32')] = 3
-    lk.launches['synth_pair'] += 3
-    lk.reset_launches()
-    assert lk.synth_pair_shapes == {} and set(lk.launches.values()) == {0}
-
-
 # ------------------------------------------------ the synthesis kernels K1/K3, on the CPU
 _PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
@@ -630,3 +622,53 @@ def test_sht_refuses_card_tensors_off_its_device(cuda_device):
     with pytest.raises(ValueError, match='transform on cuda'):
         PSHT(pgl(8), 8, device=cuda_device).alm2map(torch.zeros((1, nalm),
                                                                 dtype=torch.complex128))
+
+
+@pytest.mark.cuda
+def test_entry_points_record_their_kernel_on_card(cuda_device):
+    """Each `core.legendre_*` entry call on card tensors records the kernel it ran in its
+    sht.legendre span (K1-K4), and `core.counting` counts the calls made, by mode, batch
+    and data type."""
+    lmax = 16
+    g = pgl(lmax).theta
+    rng = np.random.RandomState(16)
+    th = np.sort(rng.uniform(0.1, 3., 11))
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+
+    def x(B, R, cdt=torch.complex128):
+        return torch.randn((B, R, lmax + 1), generator=gen, device=cuda_device, dtype=cdt)
+    calls = [(lambda: pcore.legendre_synth_pair(x(2, lmax + 1), x(2, lmax + 1), 2, g),
+              ('K1', 1, 2, 'f64')),
+             (lambda: pcore.legendre_synth_pair(x(3, lmax + 1, torch.complex64), None, 0, g),
+              ('K1', 0, 3, 'f32')),
+             (lambda: pcore.legendre_anal_pair(x(1, len(g)), None, 1, g, lmax),
+              ('K2', 2, 1, 'f64')),
+             (lambda: pcore.legendre_synth(x(4, lmax + 1), -1, th), ('K3', 3, 4, 'f64')),
+             (lambda: pcore.legendre_anal(x(2, len(th), torch.complex64), 2, th, lmax),
+              ('K4', 3, 2, 'f32'))]
+    with pcore.counting() as c:
+        for run, _ in calls:
+            run()
+        # an asymmetric-grid pair call: two plain calls, each on K3
+        pcore.legendre_synth_pair(x(1, lmax + 1), x(1, lmax + 1), 2, th)
+        torch.cuda.synchronize()
+    recs = [r for r in c.records if r['name'] == 'sht.legendre']
+    assert [r['attrs'].get('kernel') for r in recs] == ['K1', 'K1', 'K2', 'K3', 'K4', None,
+                                                        'K3', 'K3']
+    want = Counter(key for _, key in calls)
+    want['K3', 3, 1, 'f64'] += 2
+    assert c.calls == want
+
+
+@pytest.mark.cuda
+def test_card_calls_the_wrappers_refuse_name_no_kernel(cuda_device):
+    """A card call that its kernel's wrapper refuses (a non-contiguous input) leaves its
+    sht.legendre record without `kernel`, and counting counts nothing."""
+    lmax = 16
+    g = pgl(lmax).theta
+    C = torch.zeros((2, lmax + 1, lmax + 1), dtype=torch.complex128,
+                    device=cuda_device).transpose(1, 2)
+    with pcore.counting() as c, pytest.raises(ValueError, match='contiguous'):
+        pcore.legendre_synth_pair(C, None, 0, g)
+    recs = [r for r in c.records if r['name'] == 'sht.legendre']
+    assert len(recs) == 1 and 'kernel' not in recs[0]['attrs'] and c.calls == {}

@@ -4,8 +4,9 @@ torch.profiler, every span is a range of the chrome trace joined exactly to its 
 and on tiny chains, the spans and counters the port's layers emit: CG iterations against
 the n_iter the solvers return, cacher copy bytes against what the QE libraries' cachers
 received and loaded (a memory cacher keeps the qlms on the device, a file cacher copies
-them), the table cache's hits and misses, and the Legendre calls' shapes against what the
-benchmark's wrapper (portbench/harness/trace.py) records for the same calls."""
+them), the table cache's hits and misses, the Legendre calls' shapes against what the
+benchmark's wrapper (portbench/harness/trace.py) records for the same calls, no kernel named
+by a call on CPU tensors, and core.kernel_calls on hand-built records."""
 import importlib.util
 import json
 import os
@@ -350,6 +351,137 @@ def legendre_wrapper():
     for mod, attr, val in saved:
         setattr(mod, attr, val)
     sys.path.remove(ROOT)
+
+
+def _entry_calls(lmax=12):
+    """One CPU call of each entry point, and a pair call on an asymmetric ring set."""
+    g = gl_geometry(lmax).theta
+    asym = np.linspace(0.2, 2.6, 9)
+    z = lambda *shape: torch.zeros(shape, dtype=torch.complex128)
+    return {
+        'synth_pair': lambda: core.legendre_synth_pair(z(2, 13, 13), z(2, 13, 13), 2, g),
+        'anal_pair': lambda: core.legendre_anal_pair(z(1, len(g), 13), None, 1, g, lmax),
+        'synth': lambda: core.legendre_synth(z(3, 13, 13), -1, asym),
+        'anal': lambda: core.legendre_anal(z(1, len(asym), 13), 0, asym, lmax),
+        'asymmetric_pair': lambda: core.legendre_synth_pair(z(1, 13, 13), None, 2, asym),
+    }
+
+
+@pytest.mark.parametrize('entry', sorted(_entry_calls()))
+def test_plain_legendre_calls_name_no_kernel(entry):
+    """On CPU tensors every entry point runs the plain engine: its span carries no `kernel`
+    attr, and kernel_calls counts nothing."""
+    trace.enable()
+    _entry_calls()[entry]()
+    recs = [r for r in trace.records() if r['name'] == 'sht.legendre']
+    assert len(recs) == (2 if entry == 'asymmetric_pair' else 1)
+    assert not any('kernel' in r['attrs'] for r in recs)
+    assert core.kernel_calls(trace.records()) == {}
+
+
+class _CardLike(torch.Tensor):
+    """A CPU tensor that the entry points take for a card tensor (is_cuda True): they run
+    their kernel branch, whose wrapper then checks and launches."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _kernel_branch_calls(contiguous, lmax=12):
+    """One call of each entry point on _CardLike inputs (contiguous, or transposed views),
+    with the key kernel_calls gives it."""
+    g = gl_geometry(lmax).theta
+
+    def z(B, R, M):
+        x = torch.zeros((B, R, M), dtype=torch.complex128)
+        if not contiguous:
+            x = torch.zeros((B, M, R), dtype=torch.complex128).transpose(1, 2)
+        return x.as_subclass(_CardLike)
+    return {
+        'synth_pair': (lambda: core.legendre_synth_pair(z(2, 13, 13), z(2, 13, 13), 2, g),
+                       ('K1', 1, 2, 'f64')),
+        'anal_pair': (lambda: core.legendre_anal_pair(z(1, len(g), 13), None, 1, g, lmax),
+                      ('K2', 2, 1, 'f64')),
+        'synth': (lambda: core.legendre_synth(z(3, 13, 13), -1, g), ('K3', 3, 3, 'f64')),
+        'anal': (lambda: core.legendre_anal(z(1, len(g), 13), 0, g, lmax),
+                 ('K4', 3, 1, 'f64')),
+    }
+
+
+@pytest.mark.parametrize('entry', sorted(_kernel_branch_calls(True)))
+def test_a_launched_kernel_is_named_after_its_wrapper_returns(entry, monkeypatch):
+    """The kernel branch names its kernel once the wrapper has returned (the wrapper is
+    replaced by one that returns at once): the record carries `kernel`, and counting
+    counts the call under its mode, batch and type."""
+    call, key = _kernel_branch_calls(True)[entry]
+    monkeypatch.setattr(core.legendre_kernels, entry, lambda *a, **k: 'launched')
+    with core.counting() as c:
+        assert call() == 'launched'
+    legendre = [r for r in c.records if r['name'] == 'sht.legendre']
+    assert [r['attrs']['kernel'] for r in legendre] == [key[0]]
+    assert c.calls == {key: 1}
+
+
+@pytest.mark.parametrize('entry', sorted(_kernel_branch_calls(False)))
+def test_a_call_its_wrapper_refuses_names_no_kernel(entry):
+    """A kernel-branch call that its wrapper refuses (a non-contiguous input) leaves its
+    sht.legendre record without `kernel`, and counting counts nothing."""
+    call, _ = _kernel_branch_calls(False)[entry]
+    with core.counting() as c, pytest.raises(ValueError, match='contiguous'):
+        call()
+    legendre = [r for r in c.records if r['name'] == 'sht.legendre']
+    assert len(legendre) == 1 and 'kernel' not in legendre[0]['attrs']
+    assert c.calls == {} and not trace.enabled()
+
+
+@pytest.mark.parametrize('was_on', [False, True])
+def test_counting_leaves_the_tracer_as_it_was_and_every_record(was_on):
+    """counting turns the tracer on for its section only, keeps the records from before it
+    and those of the section, and hands out the section's records and kernel calls."""
+    if was_on:
+        trace.enable()
+    with trace.span('before'):
+        pass
+    n0 = len(trace.records())
+    with core.counting() as c:
+        assert trace.enabled()
+        _entry_calls()['synth_pair']()
+    assert trace.enabled() == was_on
+    assert c.records == trace.records()[n0:] and 'sht.legendre' in _names(c.records)
+    assert _names()[:n0] == (['before'] if was_on else [])
+    assert c.calls == {}
+
+
+def _legendre_record(kernel=None, pair=True, spin=0, two=False, B=1, f64=True):
+    attrs = dict(kind='synth', pair=pair, lmax=8, m0=0, M=9, spin=spin, two=two, nrings=9,
+                 B=B, f64=f64)
+    if kernel is not None:
+        attrs['kernel'] = kernel
+    return {'id': None, 'name': 'sht.legendre', 'parent': None, 'root': None, 't0': 0,
+            't1': 1, 'attrs': attrs, 'profiled': False}
+
+
+def test_kernel_calls_by_kernel_mode_batch_and_type():
+    """kernel_calls keys K1/K2 by the pair mode (0: spin 0 alone, 1: two inputs, 2: one
+    input of nonzero spin), K3/K4 under mode 3, by batch and data type; records without a
+    kernel and of other names count nothing, and a slice after a mark leaves out what came
+    before it."""
+    recs = [_legendre_record('K1', spin=0, B=8),                       # before the mark
+            _legendre_record('K1', spin=0, B=8),
+            _legendre_record('K1', spin=0, B=8),
+            _legendre_record('K1', spin=2, two=True, B=4, f64=False),
+            _legendre_record('K2', spin=1, B=4),
+            _legendre_record('K2', spin=0, two=True, B=4),
+            _legendre_record('K3', pair=False, spin=-2, B=4),
+            _legendre_record('K4', pair=False, spin=2, B=2, f64=False),
+            _legendre_record(None, spin=2, two=True, B=1),               # a plain-engine call
+            dict(_legendre_record('K1'), name='sht.recursion_tables')]
+    assert core.kernel_calls(recs[1:]) == {('K1', 0, 8, 'f64'): 2, ('K1', 1, 4, 'f32'): 1,
+                                           ('K2', 2, 4, 'f64'): 1, ('K2', 1, 4, 'f64'): 1,
+                                           ('K3', 3, 4, 'f64'): 1, ('K4', 3, 2, 'f32'): 1}
+    assert core.kernel_calls(recs)['K1', 0, 8, 'f64'] == 3
+    assert core.kernel_calls([]) == {}
 
 
 def test_legendre_spans_match_the_benchmark_wrapper(legendre_wrapper):
