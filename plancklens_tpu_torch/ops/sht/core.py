@@ -348,8 +348,9 @@ def _check_m0(m0):
 
 def _span(kind, pair, x, second, spin, theta, lmax, m0):
     """The span sht.legendre of one entry call, with its shape (NOOP when not live). A call
-    whose hand-written kernel launched adds its name, `kernel` 'K1'..'K4'; a call on the
-    plain engine, or one that its kernel's wrapper refused, adds none."""
+    whose hand-written kernel launched adds its name, `kernel` 'K1'..'K4' (K1 also `mma`,
+    True where it ran on the FP64 tensor cores: `legendre_kernels.synth_plan`); a call on
+    the plain engine, or one that its kernel's wrapper refused, adds none."""
     if not trace.live():
         return trace.NOOP
     return trace.span('sht.legendre', kind=kind, pair=pair, lmax=int(lmax), m0=int(m0),
@@ -401,7 +402,8 @@ def legendre_synth_pair(Cp, Cm, spin, theta, grid_token=None, m0=0):
         t_m, t_p = pair_tables(lmax, m0 + M - 1, spin, theta, grid_token, Cp.device, m0)
         if Cp.is_cuda:
             out = legendre_kernels.synth_pair(Cp, Cm, spin, len(theta), t_m, t_p)
-            s.set(kernel='K1')
+            s.set(kernel='K1', mma=legendre_kernels.synth_pair_plan(Cp, Cm, spin,
+                                                                    len(theta)).mma)
             return out
         return legendre_synth_pair_plain(Cp, Cm, spin, len(theta), t_m, t_p)
 

@@ -954,6 +954,269 @@ anal_pair_mma_kernel(const typename C2t<T>::type* __restrict__ Qp,
   cluster_wait();
 }
 
+// ------------------------------------------------- K1 at f64 on the FP64 MMA (pair modes)
+// For one column m the pair synthesis is a matrix product over l:
+//   F[j, map] = sum_l lambda_l(j) C[l, map],
+// with lambda the recursion's effective values on the northern ring j. A block of SNW warps
+// holds one m, one batch tile and SNW RPW consecutive northern rings; a warp owns its RPW
+// rings for the whole l loop, so nothing is summed across warps or blocks and each output
+// element is written once. A thread runs NCH recursion chains: mode 0 on one ring each (two
+// rings on the tile of 4 maps, one on the tile of 8), modes 1/2 both recursions of one ring.
+// Per chunk of PLC l steps:
+//   * the block's threads stage the chunk's coefficient rows of the batch tile (rows in the
+//     order of the parity of l, as the lambda tile's) and table rows into shared memory by
+//     cp.async, two buffers in turn, one barrier a chunk;
+//   * every thread writes its chains' PLC values into its warp's lambda tile (row p < 8
+//     holds l = lc + 2p, row 8 + p holds l = lc + 2p + 1; rows past lmax are zero);
+//   * the warp contracts the tile with the staged rows on the FP64 tensor cores into
+//     accumulators that stay in registers across the chunks:
+//       mode 0 (m8n8k4): rows = rings, the even and odd rows of l into separate sums E and
+//         O; north E + O, south (-1)^m (E - O);
+//       modes 1/2 (m16n8k16): rows = lambda of d_{m,-s} and (-1)^l lambda of d_{m,+s} on
+//         each ring, columns = Cp and (-1)^l Cm (the sign on the odd rows of the B
+//         operand): Fp north = d_{m,-s} x Cp, Fp south = (-1)^m (-1)^l d_{m,+s} x Cp, Fm
+//         north = (-1)^l d_{m,+s} x (-1)^l Cm, Fm south = (-1)^m d_{m,-s} x (-1)^l Cm.
+// The recursion runs step for step as rec_step rounds (never contracted into FMAs), the
+// effective value by deff_mul, as in K2; the accumulate is f64 throughout (no TF32).
+constexpr int SNW = 4;         // warps of a K1 MMA block
+
+template <int MODE> __host__ __device__ constexpr int smma_nin() { return MODE == 1 ? 2 : 1; }
+template <int MODE, int BT> __host__ __device__ constexpr int smma_nch() {
+  return MODE == 0 ? (BT == 4 ? 2 : 1) : 2;
+}
+// rings of a warp
+template <int MODE, int BT> __host__ __device__ constexpr int smma_rpw() {
+  return MODE == 0 ? 32 * smma_nch<MODE, BT>() : 32;
+}
+// row strides (doubles) of the lambda tile and of the staged coefficient rows, padded so
+// that the fragment loads of a half-warp hit distinct banks
+template <int MODE, int BT> __host__ __device__ constexpr int smma_ls() {
+  return 32 * smma_nch<MODE, BT>() + 4;
+}
+template <int MODE, int BT> __host__ __device__ constexpr int smma_cs() {
+  return 2 * smma_nin<MODE>() * BT + 4;
+}
+// accumulator doubles of a thread: mode 0 two parity classes of RPW / 8 ring tiles, modes
+// 1/2 four 16-row tiles; n-tiles of 8 columns (re, im of 4 maps) over the inputs
+template <int MODE, int BT> __host__ __device__ constexpr int smma_acc() {
+  return MODE == 0 ? 2 * (smma_rpw<MODE, BT>() / 8) * (BT / 4) * 2
+                   : 4 * (smma_nin<MODE>() * BT / 4) * 4;
+}
+// blocks meant for an SM: 16 warps at <= 128 registers a thread, 8 where the accumulators
+// alone take 128
+template <int MODE, int BT> __host__ __device__ constexpr int smma_minb() {
+  return smma_acc<MODE, BT>() <= 32 ? 4 : 2;
+}
+// dynamic shared memory of a block: the warps' lambda tiles, two buffers of staged
+// coefficient rows and of table rows
+template <int MODE, int BT> __host__ __device__ constexpr int smma_smem() {
+  return SNW * PLC * smma_ls<MODE, BT>() * 8 + 2 * PLC * smma_cs<MODE, BT>() * 8 +
+         2 * pair_recs<MODE>() * 3 * PLC * 8;
+}
+
+template <int BT, int MODE, int MINB = smma_minb<MODE, BT>()>
+__global__ void __launch_bounds__(SNW * 32, MINB)
+synth_pair_mma_kernel(const double2* __restrict__ Cp, const double2* __restrict__ Cm,
+                      double2* __restrict__ Fp, double2* __restrict__ Fm, Tables tm,
+                      Tables tp, const double* __restrict__ x, int B, int L, int M, int R) {
+  constexpr int NREC = pair_recs<MODE>(), NIN = smma_nin<MODE>();
+  constexpr int NCH = smma_nch<MODE, BT>(), RPW = smma_rpw<MODE, BT>();
+  constexpr int LS = smma_ls<MODE, BT>(), CS = smma_cs<MODE, BT>();
+  constexpr int NTH = SNW * 32;
+  constexpr int NT = NIN * BT / 4;            // n-tiles of 8 columns
+  constexpr int NTI = BT / 4;                 // n-tiles of one input
+  constexpr int NRT0 = MODE == 0 ? RPW / 8 : 1;   // mode 0: 8-ring tiles
+  constexpr int NRT1 = MODE == 0 ? 1 : 4;         // modes 1/2: 16-row tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  double (*const lam)[PLC][LS] = reinterpret_cast<double (*)[PLC][LS]>(smem);
+  double (*const cst)[PLC][CS] =
+      reinterpret_cast<double (*)[PLC][CS]>(smem + SNW * PLC * LS * 8);
+  double (*const tab)[NREC * 3][PLC] = reinterpret_cast<double (*)[NREC * 3][PLC]>(
+      smem + SNW * PLC * LS * 8 + 2 * PLC * CS * 8);
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  // grid (ring slice, batch tile, m): m slowest, so the blocks in flight share one
+  // column's coefficient and table rows through L2, and the low m, whose l loop is
+  // longest, start first
+  const int mi = blockIdx.z;                  // column: m - m0
+  const int b0 = blockIdx.y * BT;
+  const int nh = (R + 1) / 2, n_s = R - nh;
+  const int j0 = (blockIdx.x * SNW + w) * RPW;    // the warp's first ring
+  const bool live = j0 < nh;
+  const int lc0 = loop_start(tm.l0, NREC == 2 ? tp.l0 : tm.l0, mi) & ~1;
+  const int nch = lc0 < L ? (L - lc0 + PLC - 1) / PLC : 0;
+
+  Rec st[NCH];
+  double xr[NCH];
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    const int j = j0 + (MODE == 0 ? 32 * ch + lane : lane);
+    const bool valid = j < nh;
+    if (MODE != 0 && ch == 1)
+      rec_init(st[ch], tp, valid ? j : 0, mi, M, valid);
+    else
+      rec_init(st[ch], tm, valid ? j : 0, mi, M, valid);
+    xr[ch] = x[valid ? j : 0];
+  }
+  double ae[NRT0][NT][2], ao[NRT0][NT][2];    // mode 0: even and odd sums
+  double acc[NRT1][NT][4];                    // modes 1/2
+#pragma unroll
+  for (int rt = 0; rt < NRT0; ++rt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) ae[rt][nt][0] = ae[rt][nt][1] = ao[rt][nt][0] = ao[rt][nt][1] = 0.;
+#pragma unroll
+  for (int rt = 0; rt < NRT1; ++rt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[rt][nt][0] = acc[rt][nt][1] = acc[rt][nt][2] = acc[rt][nt][3] = 0.;
+
+  // rows lc .. lc + PLC - 1 of the batch tile's coefficients and of the tables into buffer
+  // cb (rows past lmax and maps past B repeat the last: they meet zero lambda rows or feed
+  // outputs that are not written)
+  auto stage = [&](int c, int cb) {
+    const int lc = lc0 + c * PLC;
+    for (int e = tid; e < PLC * NIN * BT; e += NTH) {
+      const int s = e / (NIN * BT), v = e % (NIN * BT), in = v / BT, b = v % BT;
+      const int l = lc + s < L ? lc + s : L - 1;
+      const int bb = b0 + b < B ? b0 + b : B - 1;
+      __pipeline_memcpy_async(&cst[cb][(s & 1) * 8 + (s >> 1)][2 * v],
+                              (in == 0 ? Cp : Cm) + ((size_t)bb * L + l) * M + mi, 16);
+    }
+    for (int e = tid; e < NREC * 3 * PLC; e += NTH) {
+      const int k = e / PLC, s = e % PLC;
+      const double* row = k == 0 ? tm.alpha : k == 1 ? tm.beta : k == 2 ? tm.gamma
+                        : k == 3 ? tp.alpha : k == 4 ? tp.beta : tp.gamma;
+      const int l = lc + s < L ? lc + s : L - 1;
+      __pipeline_memcpy_async(&tab[cb][k][s], row + (size_t)l * M + mi, 8);
+    }
+    __pipeline_commit();
+  };
+  // the warp's lambda tile of chunk c. A column's recursions seed at l0 - 1, in chunk 0
+  // (lc0 >= l0 - 2), so the later chunks step without the seed test
+  auto put = [&](int ch, int lc, int s) {
+    double v = deff_mul<double>(st[ch]);
+    if (MODE != 0 && ch == 1 && (s & 1)) v = -v;          // (-1)^l d_{m,+s}
+    lam[w][(s & 1) * 8 + (s >> 1)][32 * ch + lane] = lc + s < L ? v : 0.;
+  };
+  auto recur = [&](int c, int cb) {
+    const int lc = lc0 + c * PLC;
+    if (c == 0) {
+#pragma unroll
+      for (int s = 0; s < PLC; ++s)
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int h = (MODE != 0 && ch == 1) ? 3 : 0;
+          put(ch, lc, s);
+          rec_step(st[ch], lc + s, tab[cb][h][s], tab[cb][h + 1][s], tab[cb][h + 2][s],
+                   xr[ch]);
+        }
+    } else {
+#pragma unroll
+      for (int s = 0; s < PLC; ++s)
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int h = (MODE != 0 && ch == 1) ? 3 : 0;
+          put(ch, lc, s);
+          rec_step_seeded(st[ch], tab[cb][h][s], tab[cb][h + 1][s], tab[cb][h + 2][s],
+                          xr[ch]);
+        }
+    }
+  };
+  // the warp's tile times the staged rows, added to its accumulators; tiles with no ring
+  // of the grid are skipped (the test is uniform over the warp)
+  auto contract = [&](int cb) {
+    if constexpr (MODE == 0) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const int row = 8 * q + 4 * ks + t4;
+          double bf[NT];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) bf[nt] = cst[cb][row][8 * nt + g];
+#pragma unroll
+          for (int rt = 0; rt < NRT0; ++rt) {
+            if (j0 + 8 * rt >= nh) continue;
+            const double a = lam[w][row][8 * rt + g];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              if (q == 0)
+                mma_f64(ae[rt][nt], a, bf[nt]);
+              else
+                mma_f64(ao[rt][nt], a, bf[nt]);
+            }
+          }
+        }
+    } else {
+      double bf[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const double v = cst[cb][t4 + 4 * i][8 * nt + g];
+          bf[nt][i] = (nt >= NTI && i >= 2) ? -v : v;     // (-1)^l Cm: odd rows negated
+        }
+#pragma unroll
+      for (int rt = 0; rt < NRT1; ++rt) {
+        if (j0 + 16 * (rt & 1) >= nh) continue;
+        double a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = lam[w][t4 + 4 * (i >> 1)][16 * rt + g + 8 * (i & 1)];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_f64_k16(acc[rt][nt], a, bf[nt]);
+      }
+    }
+  };
+
+  if (nch > 0) stage(0, 0);
+  for (int c = 0; c < nch; ++c) {
+    const int cb = c & 1;
+    // one barrier a chunk: it publishes buffer cb, and every warp is past its reads of
+    // the other buffer (the chunk before), which is refilled next
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (c + 1 < nch) stage(c + 1, cb ^ 1);
+    if (live) {
+      recur(c, cb);
+      __syncwarp();
+      contract(cb);
+    }
+  }
+  if (!live) return;
+
+  // each output element once: (re, im) of map 4 nt' + t4 on the fragment's ring
+  const double sgn_m = (mi & 1) ? -1. : 1.;
+  auto put_out = [&](double2* F, int b, int j, bool south, double re, double im) {
+    if (j >= nh || b >= B) return;
+    if (!south)
+      F[((size_t)b * R + j) * M + mi] = double2{re, im};
+    else if (j < n_s)
+      F[((size_t)b * R + (R - 1 - j)) * M + mi] = double2{sgn_m * re, sgn_m * im};
+  };
+  if constexpr (MODE == 0) {
+#pragma unroll
+    for (int rt = 0; rt < NRT0; ++rt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int j = j0 + 8 * rt + g, b = b0 + 4 * nt + t4;
+        put_out(Fp, b, j, false, ae[rt][nt][0] + ao[rt][nt][0], ae[rt][nt][1] + ao[rt][nt][1]);
+        put_out(Fp, b, j, true, ae[rt][nt][0] - ao[rt][nt][0], ae[rt][nt][1] - ao[rt][nt][1]);
+      }
+  } else {
+#pragma unroll
+    for (int rt = 0; rt < NRT1; ++rt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = j0 + 16 * (rt & 1) + g + 8 * hh, b = b0 + 4 * (nt % NTI) + t4;
+          const bool plus = rt >= 2, second = nt >= NTI;    // (-1)^l d_{m,+s} rows; Cm
+          put_out(second ? Fm : Fp, b, j, plus != second, acc[rt][nt][2 * hh],
+                  acc[rt][nt][2 * hh + 1]);
+        }
+  }
+}
+
 Tables make_tables(const void* a, const void* b, const void* g, const void* l0,
                    const void* sv, const void* sk) {
   return Tables{static_cast<const double*>(a), static_cast<const double*>(b),
@@ -1092,6 +1355,31 @@ int launch_anal_pair_mma_mode(const void* Qp, const void* Qm, void* A, void* Bo,
   return (int)cudaErrorInvalidValue;
 }
 
+// K1 at f64 on the FP64 MMA: nb blocks of SNW warps for each (batch tile of BT maps, m),
+// block x on the northern rings from x SNW RPW. The shape comes from the wrapper's planner
+// (legendre_kernels.synth_plan) and is checked here.
+template <int BT, int MODE>
+int launch_synth_pair_mma(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables tm,
+                          Tables tp, const void* x, int B, int L, int M, int R, int nb,
+                          int device, void* stream) {
+  constexpr int smem = smma_smem<MODE, BT>();
+  static_assert(smem <= 232448, "a K1 MMA block's shared memory exceeds 227 KB");
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int nh = (R + 1) / 2;
+  const int btiles = (B + BT - 1) / BT;
+  if (nb < 1 || (long long)nb * SNW * smma_rpw<MODE, BT>() < nh || btiles > 65535 || M > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kern = synth_pair_mma_kernel<BT, MODE>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(nb, btiles, M), SNW * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double2*>(Cp), static_cast<const double2*>(Cm),
+      static_cast<double2*>(Fp), static_cast<double2*>(Fm), tm, tp,
+      static_cast<const double*>(x), B, L, M, R);
+  return (int)cudaGetLastError();
+}
+
 // the pair modes 0-2 of one data type and block shape, chosen at run time
 template <typename T, int BT, int RPT, int NWS, int MINB>
 int launch_synth_pair(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables tm,
@@ -1178,6 +1466,39 @@ int plk_synth_pair_f64(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_T
                                                         device, stream);
   return launch_synth_pair<double, PLK_S_PAIR64>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P,
                                                  x, B, L, M, R, mode, device, stream);
+}
+
+// K1 on f64 data on the FP64 tensor cores: batch tiles of bt maps (4 or 8), nb blocks of
+// SNW warps for each (batch tile, m).
+int plk_synth_pair_mma_f64(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_TABLE_ARGS,
+                           const void* x, int B, int L, int M, int R, int mode, int bt, int nb,
+                           int device, void* stream) {
+#define PLK_K1M(BT, MODE)                                                                  \
+  if (bt == BT && mode == MODE)                                                            \
+    return launch_synth_pair_mma<BT, MODE>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P, x, B, \
+                                           L, M, R, nb, device, stream);
+  PLK_K1M(4, 0) PLK_K1M(8, 0) PLK_K1M(4, 1) PLK_K1M(8, 1) PLK_K1M(4, 2) PLK_K1M(8, 2)
+#undef PLK_K1M
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 MMA's shape for the wrapper's mirror: (rings a warp << 16) | (warps << 8) | (blocks
+// meant for an SM), and its bytes of dynamic shared memory a block
+int plk_synth_pair_mma_shape(int mode, int bt) {
+#define PLK_K1M(BT, MODE)                                                                   \
+  if (bt == BT && mode == MODE)                                                             \
+    return (smma_rpw<MODE, BT>() << 16) | (SNW << 8) | smma_minb<MODE, BT>();
+  PLK_K1M(4, 0) PLK_K1M(8, 0) PLK_K1M(4, 1) PLK_K1M(8, 1) PLK_K1M(4, 2) PLK_K1M(8, 2)
+#undef PLK_K1M
+  return -1;
+}
+
+int plk_synth_pair_mma_smem(int mode, int bt) {
+#define PLK_K1M(BT, MODE) \
+  if (bt == BT && mode == MODE) return smma_smem<MODE, BT>();
+  PLK_K1M(4, 0) PLK_K1M(8, 0) PLK_K1M(4, 1) PLK_K1M(8, 1) PLK_K1M(4, 2) PLK_K1M(8, 2)
+#undef PLK_K1M
+  return -1;
 }
 
 // K2 on the FP64 tensor cores: nw warps a block (8 or 16), batch tiles of bt maps (4 or

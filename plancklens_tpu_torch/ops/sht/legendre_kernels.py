@@ -13,6 +13,10 @@ wrappers here take CUDA tensors only: anything else raises, and so does a failed
 or launch. They keep no record of their calls: the span sht.legendre of the `core` entry
 call names the kernel it ran (`core.kernel_calls` counts them).
 
+K1 on f64 data contracts each chunk of l of the recursion's values with the coefficients on
+the FP64 tensor cores (`synth_plan`: the design and launch shape from the call's data type,
+mode and batch); on f32 data it accumulates on the FP32 pipe beside the f64 recursion.
+
 K2 runs one thread-block cluster for each (m, batch tile): `plan_pair` (plain Python, no
 CUDA call) chooses the cluster size, the rings of each block, the warps and the batch tile
 from the call's shape; the blocks' partial sums meet in distributed shared memory, each
@@ -59,6 +63,19 @@ SYNTH_SHAPES = {('pair', 'f32'): ((4, 3, 8, 1), (8, 2, 8, 1)),
                 ('pair', 'f64'): ((4, 1, 8, 1), (4, 1, 8, 1)),
                 ('plain', 'f32'): ((4, 6, 8, 1), (8, 4, 8, 1)),
                 ('plain', 'f64'): ((4, 6, 8, 1), (8, 3, 8, 1))}
+# K1 on f64 data in the pair modes (`synth_pair_mma_kernel`) runs its accumulate on the
+# FP64 tensor cores: blocks of SYNTH_MMA_WARPS warps, each warp on its own northern rings
+# for the whole l loop (`synth_mma_rings`), batch tiles of 4 maps up to batch 4, else 8.
+# Mirrors of csrc/legendre_pair.cu's SNW and smma_* functions, checked at load. PLC's 16
+# rows of a chunk make its two 8-row parity classes (PAIR_LC below).
+SYNTH_MMA_WARPS = 4
+SYNTH_MMA_TILES = (4, 8)
+SYNTH_MMA_MODES = (0,)
+# No crossover by batch: the MMA design beat synth_pair_kernel at every batch timed, batch 1
+# included (lmax 2048, 2049 rings, f64: spin 0 4.481 against 9.361 ms at batch 1, 4.346
+# against 9.445 at batch 2, 4.646 against 9.369 at batch 4; the spin-2 pair 8.368 against
+# 22.864 at batch 1; NVIDIA H100 80GB HBM3, 700 W).
+SYNTH_LCS = 16                          # l steps of a staged chunk of synth_pair_kernel
 # Blocks wanted for K4's split ring sum, in waves of one block an SM: the blocks differ in
 # length by the l range of their m-tile, and the short ones fill the tail of many waves.
 WAVES = 4
@@ -88,6 +105,10 @@ SegmentPlan = collections.namedtuple(
 
 PairPlan = collections.namedtuple(
     'PairPlan', 'cluster rings_per_block m_per_block batch_tile lc warps blocks smem_bytes')
+
+
+SynthPlan = collections.namedtuple(
+    'SynthPlan', 'mma batch_tile rings_per_warp warps blocks_per_m blocks smem_bytes shape')
 
 
 def pair_recs(mode):
@@ -167,6 +188,75 @@ def synth_shape(kind, dt, B):
     choice, mirrored."""
     narrow, wide = SYNTH_SHAPES[kind, dt]
     return wide if B > narrow[0] else narrow
+
+
+def synth_mma_chains(mode, bt):
+    """Recursion chains a thread of K1's MMA design runs: mode 0 one a ring (two rings on
+    the batch tile of 4 maps, one on the tile of 8), modes 1/2 both recursions of a ring."""
+    return (2 if bt == SYNTH_MMA_TILES[0] else 1) if mode == 0 else 2
+
+
+def synth_mma_rings(mode, bt):
+    """Northern rings a warp of K1's MMA design owns."""
+    return PAIR_CHAINS * synth_mma_chains(mode, bt) if mode == 0 else PAIR_CHAINS
+
+
+def synth_mma_acc(mode, bt):
+    """f64 accumulators a thread of K1's MMA design keeps: mode 0 an even and an odd sum of
+    8-ring tiles (m8n8k4), modes 1/2 four 16-row tiles (m16n8k16: the rings' d_{m,-s} and
+    (-1)^l d_{m,+s} rows), each over n-tiles of 8 columns (re, im of 4 maps) of every input."""
+    nin = 2 if mode == 1 else 1
+    if mode == 0:
+        return 2 * (synth_mma_rings(mode, bt) // 8) * (bt // 4) * 2
+    return 4 * (nin * bt // 4) * 4
+
+
+def synth_mma_blocks_an_sm(mode, bt):
+    """Blocks of K1's MMA design meant for an SM (__launch_bounds__): 16 warps at <= 128
+    registers a thread, or 8 where the accumulators alone take 128."""
+    return 4 if synth_mma_acc(mode, bt) <= 32 else 2
+
+
+def synth_mma_smem(mode, bt):
+    """Bytes of dynamic shared memory of a block of K1's MMA design (the source's
+    smma_smem): each warp's lambda tile (PAIR_LC rows of its chains + 4 doubles), two
+    buffers of the staged coefficient rows (PAIR_LC rows of inputs x maps complex + 4
+    doubles) and of the chunk's table rows."""
+    nin = 2 if mode == 1 else 1
+    ls = PAIR_CHAINS * synth_mma_chains(mode, bt) + 4
+    cs = 2 * nin * bt + 4
+    return (SYNTH_MMA_WARPS * PAIR_LC * ls * 8 + 2 * PAIR_LC * cs * 8
+            + 2 * pair_recs(mode) * 3 * PAIR_LC * 8)
+
+
+def synth_plan(dt, mode, nrings, M, B):
+    """The design and launch shape of a synthesis call of B maps ('f32' or 'f64') in `mode`
+    (pair modes 0-2, K1; 3 the plain mode, K3) on `nrings` rings with M columns: a
+    SynthPlan. f64 pair calls in SYNTH_MMA_MODES run K1 on the FP64 tensor cores (`mma` True): batch tiles of 4 maps up to batch 4, else 8, blocks
+    of SYNTH_MMA_WARPS warps of `synth_mma_rings` northern rings, `blocks_per_m` of them for
+    each (m, batch tile). Every other call runs `synth_pair_kernel` at `synth_shape`'s block
+    shape (`shape`; `rings_per_warp` then its rings per thread times 1)."""
+    kind = 'plain' if mode == 3 else 'pair'
+    if kind == 'pair' and dt == 'f64' and mode in SYNTH_MMA_MODES:
+        bt = SYNTH_MMA_TILES[0] if B <= SYNTH_MMA_TILES[0] else SYNTH_MMA_TILES[-1]
+        rpw = synth_mma_rings(mode, bt)
+        nb = -(-((nrings + 1) // 2) // (SYNTH_MMA_WARPS * rpw))
+        return SynthPlan(True, bt, rpw, SYNTH_MMA_WARPS, nb, nb * -(-B // bt) * M,
+                         synth_mma_smem(mode, bt), None)
+    bt, rpt, nws, minb = shape = synth_shape(kind, dt, B)
+    rows = nrings if kind == 'plain' else (nrings + 1) // 2
+    nin, nt = (2, 6) if mode == 1 else (1, 6) if mode == 2 else (1, 3)
+    esize = 8 if dt == 'f32' else 16
+    nb = -(-rows // (nws * rpt))
+    return SynthPlan(False, bt, rpt, nws, nb, nb * -(-B // bt) * -(-M // 32),
+                     2 * SYNTH_LCS * 32 * (nin * bt * esize + nt * 8), shape)
+
+
+def synth_pair_plan(Cp, Cm, spin, nrings):
+    """The SynthPlan that `synth_pair` launches on the inputs Cp (B, lmax + 1, M), Cm (or
+    None) of `spin` on `nrings` rings."""
+    B, _, M = Cp.shape
+    return synth_plan(_suffix(Cp.dtype), pair_mode(spin, Cm is not None), nrings, M, B)
 
 
 def _shape_code(shape):
@@ -326,6 +416,18 @@ def _load():
                                        % (kind, suffix, ('narrow', 'wide')[wide],
                                           tuple(got >> k & 0xff for k in (24, 16, 8, 0)),
                                           shape))
+        lib.plk_synth_pair_mma_f64.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 7 + [i, p]
+        lib.plk_synth_pair_mma_f64.restype = i
+        lib.plk_synth_pair_mma_shape.argtypes = lib.plk_synth_pair_mma_smem.argtypes = [i, i]
+        lib.plk_synth_pair_mma_shape.restype = lib.plk_synth_pair_mma_smem.restype = i
+        for mode, bt in itertools.product((0, 1, 2), SYNTH_MMA_TILES):
+            want = (synth_mma_rings(mode, bt) << 16 | SYNTH_MMA_WARPS << 8
+                    | synth_mma_blocks_an_sm(mode, bt), synth_mma_smem(mode, bt))
+            got = (lib.plk_synth_pair_mma_shape(mode, bt), lib.plk_synth_pair_mma_smem(mode, bt))
+            if got != want:
+                raise RuntimeError('K1 MMA mode %d, batch tile %d: shape code %#x and %d bytes '
+                                   'of shared memory, its mirror says %#x and %d'
+                                   % ((mode, bt) + got + want))
         lib.plk_anal_pair_shape.restype = i
         want = PAIR_LC << 16 | PAIR_MAX_CLUSTER << 8 | PAIR_CHAINS
         if lib.plk_anal_pair_shape() != want:
@@ -436,7 +538,9 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
 
     Cp, Cm: (B, lmax+1, M) complex64/128 contiguous CUDA tensors (Cm may be None);
     t_m/t_p: f64 device table sets on the northern ceil(nrings/2) rings.
-    Returns (B, nrings, M) complex outputs, Fm None when Cm is None."""
+    Returns (B, nrings, M) complex outputs, Fm None when Cm is None. One launch of
+    `synth_pair_plan`'s design: f64 data on the FP64 tensor cores, f32 data on
+    synth_pair_kernel. Bitwise reproducible: each output element is written once."""
     B, L, M = Cp.shape
     nh = (nrings + 1) // 2
     _check_data('Cp', Cp, None, (B, L, M))
@@ -448,7 +552,12 @@ def synth_pair(Cp, Cm, spin, nrings, t_m, t_p):
     Fp = torch.empty((B, nrings, M), dtype=Cp.dtype, device=dev)
     Fm = None if Cm is None else torch.empty_like(Fp)
     mode = pair_mode(spin, Cm is not None)
-    _launch_pair('synth_pair', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings, mode, dev)
+    plan = synth_pair_plan(Cp, Cm, spin, nrings)
+    if plan.mma:
+        _launch_pair('synth_pair_mma', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings, mode, dev,
+                     plan.batch_tile, plan.blocks_per_m)
+    else:
+        _launch_pair('synth_pair', Cp, Cm, Fp, Fm, t_m, t_p, B, L, M, nrings, mode, dev)
     return Fp, Fm
 
 
