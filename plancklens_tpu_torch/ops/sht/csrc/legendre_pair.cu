@@ -1005,7 +1005,7 @@ template <int MODE, int BT> __host__ __device__ constexpr int smma_acc() {
 // blocks meant for an SM: 16 warps at <= 128 registers a thread, 8 where the accumulators
 // alone take 128
 template <int MODE, int BT> __host__ __device__ constexpr int smma_minb() {
-  return smma_acc<MODE, BT>() <= 32 ? 4 : 2;
+  return (smma_acc<MODE, BT>() <= 32 ? 16 : 8) / SNW;
 }
 // dynamic shared memory of a block: the warps' lambda tiles, two buffers of staged
 // coefficient rows and of table rows

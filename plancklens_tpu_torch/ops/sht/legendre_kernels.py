@@ -70,7 +70,7 @@ SYNTH_SHAPES = {('pair', 'f32'): ((4, 3, 8, 1), (8, 2, 8, 1)),
 # rows of a chunk make its two 8-row parity classes (PAIR_LC below).
 SYNTH_MMA_WARPS = 4
 SYNTH_MMA_TILES = (4, 8)
-SYNTH_MMA_MODES = (0,)
+SYNTH_MMA_MODES = (0, 1, 2)
 # No crossover by batch: the MMA design beat synth_pair_kernel at every batch timed, batch 1
 # included (lmax 2048, 2049 rings, f64: spin 0 4.481 against 9.361 ms at batch 1, 4.346
 # against 9.445 at batch 2, 4.646 against 9.369 at batch 4; the spin-2 pair 8.368 against
@@ -214,7 +214,7 @@ def synth_mma_acc(mode, bt):
 def synth_mma_blocks_an_sm(mode, bt):
     """Blocks of K1's MMA design meant for an SM (__launch_bounds__): 16 warps at <= 128
     registers a thread, or 8 where the accumulators alone take 128."""
-    return 4 if synth_mma_acc(mode, bt) <= 32 else 2
+    return (16 if synth_mma_acc(mode, bt) <= 32 else 8) // SYNTH_MMA_WARPS
 
 
 def synth_mma_smem(mode, bt):

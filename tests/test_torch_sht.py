@@ -471,6 +471,50 @@ def test_synth_batch_tile_choice(B):
         assert -(-B // got[0]) == tiles[kind][dt], (kind, dt)
 
 
+# today's block shapes of synth_pair_kernel, which f32 pair data (K1) and the plain mode
+# (K3) keep: (narrow, wide) by kind of grid and data type
+FMA_SHAPES = {('pair', 'f32'): ((4, 3, 8, 1), (8, 2, 8, 1)),
+              ('plain', 'f32'): ((4, 6, 8, 1), (8, 4, 8, 1)),
+              ('plain', 'f64'): ((4, 6, 8, 1), (8, 3, 8, 1))}
+
+
+@pytest.mark.parametrize('B', [1, 2, 4, 5, 8, 9])
+@pytest.mark.parametrize('mode', [0, 1, 2, 3])
+@pytest.mark.parametrize('dt', ['f32', 'f64'])
+def test_synth_plan(dt, mode, B):
+    """`legendre_kernels.synth_plan` on the masked cell's grid (2049 rings, lmax 2048): f64
+    pair data (modes 0-2) run K1 on the FP64 tensor cores, one recursion for a batch tile of
+    4 maps up to batch 4 and of 8 above; the blocks cover every northern ring, none empty,
+    and fit a block's 227 KB of shared memory and the SM's registers and shared memory at
+    the blocks meant for it. f32 pair data and the plain mode (K3) keep today's
+    synth_pair_kernel shapes. The warps of a block are the source's SNW."""
+    nrings, M = 2049, 2049
+    nh = (nrings + 1) // 2
+    plan = lk.synth_plan(dt, mode, nrings, M, B)
+    assert plan.mma == (dt == 'f64' and mode != 3)
+    if not plan.mma:
+        kind = 'plain' if mode == 3 else 'pair'
+        narrow, wide = FMA_SHAPES[kind, dt]
+        assert lk.SYNTH_SHAPES[kind, dt] == (narrow, wide)
+        assert plan.shape == lk.synth_shape(kind, dt, B) == (narrow if B <= narrow[0] else wide)
+        assert plan.smem_bytes <= lk.SMEM_BYTES
+        return
+    with open(lk.SOURCE) as f:
+        snw = int(re.search(r'constexpr int SNW = (\d+);', f.read()).group(1))
+    assert plan.warps == lk.SYNTH_MMA_WARPS == snw
+    assert plan.batch_tile == (4 if B <= 4 else 8) and plan.shape is None
+    assert plan.rings_per_warp == lk.synth_mma_rings(mode, plan.batch_tile)
+    rpb = plan.warps * plan.rings_per_warp
+    assert plan.blocks_per_m * rpb >= nh > (plan.blocks_per_m - 1) * rpb
+    assert plan.blocks == plan.blocks_per_m * -(-B // plan.batch_tile) * M
+    assert plan.smem_bytes == lk.synth_mma_smem(mode, plan.batch_tile) <= lk.SMEM_BYTES
+    acc = lk.synth_mma_acc(mode, plan.batch_tile)
+    minb = lk.synth_mma_blocks_an_sm(mode, plan.batch_tile)
+    regs = min(255, 65536 // (minb * plan.warps * 32))   # what __launch_bounds__ allows
+    assert regs >= 2 * acc + 32                          # the accumulators and the chains
+    assert minb * (plan.smem_bytes + 1024) <= 233472  # the SM's shared memory holds them
+
+
 def _pow2_sk(k):
     """2^(256 k) as csrc/legendre_pair.cu's pow2_sk builds it from the exponent bits."""
     if k >= -3:
@@ -584,6 +628,89 @@ def test_kernels_match_plain_on_card(cuda_device, nrings):
                         again = lk.anal_pair(Q2, qm, spin, lmax, tm_, tp_)
                         assert all(torch.equal(a, b) for a, b in zip(again, ka)
                                    if b is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B', [1, 4, 5, 8])
+@pytest.mark.parametrize('nrings', [65, 66, 513])
+def test_k1_mma_matches_plain_on_card(cuda_device, nrings, B):
+    """K1 on f64 data (the FP64 tensor-core design) against the plain engine on the card,
+    modes 0-2 (spins 0-3, one input and two), batch 1, 4, 5 (a ragged batch tile of 8) and
+    8, on odd and even ring counts (513: 257 northern rings, a block and a ring more), mmax
+    40 < lmax and the columns m0 = 10..64 of an m-block: <= 1e-12 of max and bitwise
+    reproducible."""
+    lmax = 64
+    theta = pgl(nrings - 1).theta
+    gen = torch.Generator(device=cuda_device).manual_seed(1000 * B + nrings)
+    for spin in (0, 1, 2, 3):
+        for mmax, m0 in ((lmax, 0), (40, 0), (lmax, 10)):
+            t_m, t_p = pcore.pair_tables(lmax, mmax, spin, theta, None, cuda_device, m0)
+            C, C2 = (torch.randn((B, lmax + 1, mmax + 1 - m0), generator=gen, device=cuda_device,
+                                 dtype=torch.complex128) for _ in range(2))
+            for cm in (None, C2):
+                assert lk.synth_pair_plan(C, cm, spin, nrings).mma
+                ks = lk.synth_pair(C, cm, spin, nrings, t_m, t_p)
+                ps = pcore.legendre_synth_pair_plain(C, cm, spin, nrings, t_m, t_p)
+                again = lk.synth_pair(C, cm, spin, nrings, t_m, t_p)
+                for a, b, c in zip(ks, ps, again):
+                    if b is not None:
+                        assert _err(a.cpu(), b.cpu()) <= 1e-12, (spin, mmax, m0, cm is None)
+                        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nrings,spin,two', [(2049, 0, False), (2049, 2, True), (3073, 1, True),
+                                             (2049, 2, False)])
+def test_k1_mma_at_masked_shapes_on_card(cuda_device, nrings, spin, two):
+    """K1 on f64 data at the masked cell's shapes (lmax 2048, batch 4): the solves' spin 0
+    (mode 0) and spin-2 pair (mode 1) on 2049 rings, the QE grid's spin-1 pair on 3073 rings
+    and a spin-2 single input (mode 2), against the plain engine (<= 1e-12 of max) and as
+    K2's adjoint: <K1 C, Q> = <C, K2 Q> to 1e-13 of |K1 C| |Q|."""
+    lmax, B = 2048, 4
+    theta = pgl(nrings - 1).theta
+    gen = torch.Generator(device=cuda_device).manual_seed(nrings + spin)
+    t_m, t_p = pcore.pair_tables(lmax, lmax, spin, theta, None, cuda_device)
+
+    def x(R):
+        return torch.randn((B, R, lmax + 1), generator=gen, device=cuda_device,
+                           dtype=torch.complex128)
+    C, Cm = x(lmax + 1), (x(lmax + 1) if two else None)
+    Q, Qm = x(nrings), (x(nrings) if two else None)
+    F = [f for f in lk.synth_pair(C, Cm, spin, nrings, t_m, t_p) if f is not None]
+    P = [f for f in pcore.legendre_synth_pair_plain(C, Cm, spin, nrings, t_m, t_p)
+         if f is not None]
+    assert all(_err(a.cpu(), b.cpu()) <= 1e-12 for a, b in zip(F, P))
+    A = [a for a in lk.anal_pair(Q, Qm, spin, lmax, t_m, t_p) if a is not None]
+    lhs = sum((f * q).sum() for f, q in zip(F, (Q, Qm)))
+    rhs = sum((c * a).sum() for c, a in zip((C, Cm), A))
+    scale = (sum(f.abs().pow(2).sum() for f in F) * sum(q.abs().pow(2).sum()
+                                                        for q in (Q, Qm) if q is not None)).sqrt()
+    assert (lhs - rhs).abs().item() <= 1e-13 * scale.item()
+
+
+@pytest.mark.cuda
+def test_k1_records_its_design_on_card(cuda_device):
+    """Every f64 pair-mode K1 call records `mma` True in its sht.legendre span, at every
+    batch (there is no crossover); f32 K1 calls record False; the kernel count keeps its
+    key."""
+    lmax = 16
+    g = pgl(lmax).theta
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+
+    def x(B, cdt):
+        return torch.randn((B, lmax + 1, lmax + 1), generator=gen, device=cuda_device,
+                           dtype=cdt)
+    want = Counter()
+    with pcore.counting() as c:
+        for cdt, dt in ((torch.complex128, 'f64'), (torch.complex64, 'f32')):
+            for B in (1, 2, 4, 8):
+                for spin, two in ((0, False), (2, True), (1, False)):
+                    pcore.legendre_synth_pair(x(B, cdt), x(B, cdt) if two else None, spin, g)
+                    want['K1', lk.pair_mode(spin, two), B, dt] += 1
+        torch.cuda.synchronize()
+    recs = [r['attrs'] for r in c.records if r['name'] == 'sht.legendre']
+    assert len(recs) == 24 and c.calls == want
+    assert all(a['mma'] == a['f64'] for a in recs)
 
 
 @pytest.mark.cuda
