@@ -1343,6 +1343,9 @@ def main():
     ro = m6['route']
     check(ran(ro['calls'], 'K1') > 0 and ran(ro['calls'], 'K2') > 0,
           'the masked route launched %s' % dict(ro['calls']))
+    fma = {k: m6[k]['fma_k1'] for k in ('t', 'p_probe', 'p', 'route')}
+    check(not any(fma.values()), 'f64 K1 calls of the masked path off the FP64 tensor cores: '
+                                 '%s' % fma)
     gaps6 = {}
     for k, q in m6['route_qlms'].items():
         check(tuple(q.shape) == (len(ro['sims']), nalm) and bool(torch.isfinite(q).all()),

@@ -16,8 +16,9 @@ these sizes; ten times the launches at the pixel-window shape, which takes ~1 ms
       path's;
   K2  spin-1 pair, f32, lmax 2048 on the 3073-ring QE grid, batch 4 and batch 8;
   K1, K2  the masked filter's CG shapes (models/cinv.py), f64 on the 2049 rings of
-      gl_geometry(2048): spin 0 with one input (CinvT) at batch 1 and 8, the spin-2 pair
-      (CinvP) at batch 4, each with its bound (ops/sht/roofline.pair_bound);
+      gl_geometry(2048): spin 0 with one input (CinvT) at batch 1, 2, 4 and 8, the spin-2
+      pair (CinvP) at batch 1 and 4; and the masked cell's f64 QE shape, the spin-1 pair on
+      the 3073-ring QE grid at batch 4; each with its bound (ops/sht/roofline.pair_bound);
   K4  n = -2, f64, lmax 2048 on all 8191 rings of HEALPix nside 2048, batch 4;
   K4  n = 2, f64, lmax 512 on the 48 node rings of the exact pixel window of nside 128
       against its 64 pixel shapes.
@@ -559,7 +560,8 @@ def main():
     print('built in %.1f s | %s' % (time.perf_counter() - t0, smi), flush=True)
     if args.ptxas:
         for k in lk.build_report():
-            if k['kernel'] in ('synth_pair_kernel', 'anal_pair_kernel', 'anal_pair_mma_kernel'):
+            if k['kernel'] in ('synth_pair_kernel', 'synth_pair_mma_kernel', 'anal_pair_kernel',
+                               'anal_pair_mma_kernel'):
                 print('    %s<%s>: %d registers, %d bytes stack, %d/%d bytes spill stores/loads'
                       % (k['kernel'], ', '.join(map(str, k['args'])), k['registers'],
                          k['stack'], k['spill_stores'], k['spill_loads']))
@@ -622,8 +624,9 @@ def main():
     def timed(label, kind, call, tol, sweep, reps=args.reps, shape=None, plan=None):
         """Warm up, time, check run-to-run equality and, for K4's split ring sum, agreement
         with one segment. `call(nseg)` returns a tuple of outputs; the other kernels ignore
-        `nseg`, the synthesis calls name their block shape (`legendre_kernels.synth_shape`),
-        and K2 and K4 their plan (`plan(nseg)`: `anal_pair_plan`'s, `anal_plan`'s)."""
+        `nseg`, K3 names its block shape (`legendre_kernels.synth_shape`), and K1, K2 and
+        K4 their plan (`plan(nseg)`: `synth_pair_plan`'s, `anal_pair_plan`'s,
+        `anal_plan`'s)."""
         first = call(None)
         mean, best, out = event_ms(lambda: call(None), reps)
         for a, b in zip(first, out):
@@ -634,6 +637,12 @@ def main():
         if shape is not None:
             row['block_shape'] = shape
             note = ' | %d maps x %d rings x %d warps, %d block(s) an SM' % shape
+        if kind == 'synth_pair':
+            pl = plan(None)
+            row['plan'] = dict(pl._asdict())
+            note = (' | MMA, batch tile %d, %d blocks of %d warps x %d rings a column'
+                    % (pl.batch_tile, pl.blocks_per_m, pl.warps, pl.rings_per_warp) if pl.mma
+                    else ' | %d maps x %d rings x %d warps, %d block(s) an SM' % pl.shape)
         if kind == 'anal_pair':
             row['plan'] = plan_of(plan(None))
             note = (' | clusters of %(cluster)d blocks x %(rings_per_block)d rings, %(warps)d '
@@ -673,7 +682,7 @@ def main():
         C, Cm = (crandn((B, LMAX + 1, LMAX + 1), torch.complex64) for _ in range(2))
         timed('K1 synth_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d' % (LMAX, nr, B),
               'synth_pair', lambda nseg: lk.synth_pair(C, Cm, 1, nr, t_m, t_p), 1e-5, False,
-              shape=lk.synth_shape('pair', 'f32', B))
+              plan=lambda nseg: lk.synth_pair_plan(C, Cm, 1, nr))
         del C, Cm
         Qp, Qm = (crandn((B, nr, LMAX + 1), torch.complex64) for _ in range(2))
         timed('K2 anal_pair, spin-1 pair, f32, lmax %d, %d rings, batch %d' % (LMAX, nr, B),
@@ -685,26 +694,27 @@ def main():
     C = crandn((4, LMAX + 1, LMAX + 1), torch.complex64)
     timed('K1 synth_pair, spin 0, one input, f32, lmax %d, %d rings, batch 4' % (LMAX, nr),
           'synth_pair', lambda nseg: lk.synth_pair(C, None, 0, nr, t_0, t_0)[:1], 1e-5, False,
-          shape=lk.synth_shape('pair', 'f32', 4))
+          plan=lambda nseg: lk.synth_pair_plan(C, None, 0, nr))
     del C, t_0
     torch.cuda.empty_cache()
 
     cg_geom = gl_geometry(LMAX)                      # the cinv grid of lmax 2048: 2049 rings
     ncg, L = cg_geom.nrings, LMAX + 1
 
-    def with_bound(row, tabs, mode, B):
+    def with_bound(row, tabs, mode, B, nrings=ncg):
         """roofline.pair_bound of the f64 pair call timed in `row`."""
-        row['bound_ms'], row['bound_by'] = pair_bound(tabs, mode, B, ncg, True)
+        row['bound_ms'], row['bound_by'] = pair_bound(tabs, mode, B, nrings, True)
         print('    bound %.3f ms (%s): %.1f%% of it' % (row['bound_ms'], row['bound_by'],
                                                     100. * row['bound_ms'] / row['ms']))
 
     t_0, _ = core.pair_tables(LMAX, LMAX, 0, cg_geom.theta, None, dev)
-    for B in (1, 8):
+    for B in (1, 2, 4, 8):
         C = crandn((B, L, L), torch.complex128)
         with_bound(timed('K1 synth_pair, spin 0, one input, f64, lmax %d, %d rings, batch %d '
                          '(CinvT)' % (LMAX, ncg, B), 'synth_pair',
                          lambda nseg: lk.synth_pair(C, None, 0, ncg, t_0, t_0)[:1], 1e-12,
-                         False, shape=lk.synth_shape('pair', 'f64', B)), [t_0], 0, B)
+                         False, plan=lambda nseg: lk.synth_pair_plan(C, None, 0, ncg)),
+                   [t_0], 0, B)
         Q = crandn((B, ncg, L), torch.complex128)
         with_bound(timed('K2 anal_pair, spin 0, one input, f64, lmax %d, %d rings, batch %d '
                          '(CinvT)' % (LMAX, ncg, B), 'anal_pair',
@@ -714,17 +724,32 @@ def main():
         del C, Q
     del t_0
     t_m, t_p = core.pair_tables(LMAX, LMAX, 2, cg_geom.theta, None, dev)
-    C, Cm = (crandn((4, L, L), torch.complex128) for _ in range(2))
-    with_bound(timed('K1 synth_pair, spin-2 pair, f64, lmax %d, %d rings, batch 4 (CinvP)'
-                     % (LMAX, ncg), 'synth_pair',
-                     lambda nseg: lk.synth_pair(C, Cm, 2, ncg, t_m, t_p), 1e-12, False,
-                     shape=lk.synth_shape('pair', 'f64', 4)), [t_m, t_p], 1, 4)
-    del C, Cm
+    for B in (1, 4):
+        C, Cm = (crandn((B, L, L), torch.complex128) for _ in range(2))
+        with_bound(timed('K1 synth_pair, spin-2 pair, f64, lmax %d, %d rings, batch %d (CinvP)'
+                         % (LMAX, ncg, B), 'synth_pair',
+                         lambda nseg: lk.synth_pair(C, Cm, 2, ncg, t_m, t_p), 1e-12, False,
+                         plan=lambda nseg: lk.synth_pair_plan(C, Cm, 2, ncg)), [t_m, t_p], 1, B)
+        del C, Cm
     Qp, Qm = (crandn((4, ncg, L), torch.complex128) for _ in range(2))
     with_bound(timed('K2 anal_pair, spin-2 pair, f64, lmax %d, %d rings, batch 4 (CinvP)'
                      % (LMAX, ncg), 'anal_pair',
                      lambda nseg: lk.anal_pair(Qp, Qm, 2, LMAX, t_m, t_p), 1e-12,
                      False, plan=lambda nseg: lk.anal_pair_plan(Qp, Qm, 2)), [t_m, t_p], 1, 4)
+    del Qp, Qm, t_m, t_p
+    # the masked cell's QEs in f64: the spin-1 pair on the 3073-ring QE grid at batch 4
+    t_m, t_p = core.pair_tables(LMAX, LMAX, 1, geom.theta, None, dev)
+    C, Cm = (crandn((4, L, L), torch.complex128) for _ in range(2))
+    with_bound(timed('K1 synth_pair, spin-1 pair, f64, lmax %d, %d rings, batch 4 (masked QE)'
+                     % (LMAX, nr), 'synth_pair',
+                     lambda nseg: lk.synth_pair(C, Cm, 1, nr, t_m, t_p), 1e-12, False,
+                     plan=lambda nseg: lk.synth_pair_plan(C, Cm, 1, nr)), [t_m, t_p], 1, 4, nr)
+    del C, Cm
+    Qp, Qm = (crandn((4, nr, L), torch.complex128) for _ in range(2))
+    with_bound(timed('K2 anal_pair, spin-1 pair, f64, lmax %d, %d rings, batch 4 (masked QE)'
+                     % (LMAX, nr), 'anal_pair',
+                     lambda nseg: lk.anal_pair(Qp, Qm, 1, LMAX, t_m, t_p), 1e-12,
+                     False, plan=lambda nseg: lk.anal_pair_plan(Qp, Qm, 1)), [t_m, t_p], 1, 4, nr)
     del Qp, Qm, t_m, t_p
     torch.cuda.empty_cache()
 

@@ -19,7 +19,8 @@ The configuration is params/anisofilt_example.py's (lines 40-63, copied: that fi
 JAX): the galactic cut |cos theta| > 0.15 with three holes, a 5' Gaussian beam, 35 / 55
 uK-arcmin white noise as inverse pixel variances, FFP10 lensed spectra, eps 1e-5. Seconds
 come from CUDA events on the card (run_qlms_torch.StageTimer), kernel calls from the
-tracer's sht.legendre spans (`core.kernel_calls`: by kernel, mode, batch and data type).
+tracer's sht.legendre spans (`core.kernel_calls`: by kernel, mode, batch and data type;
+`fma_k1`: the f64 K1 calls that did not run on the FP64 tensor cores, which should be none).
 `--f32` adds the f32 CinvT solve of the same maps (not checked: see PERF.md, open
 questions). On the card, the device time of 10 warm CinvT iterations is split by kernel
 group (`trace_iterations`). Prints one line per step; the last line is one JSON object
@@ -98,6 +99,12 @@ def trace_iterations(cinv, maps, n):
     return summarize(events, window='cinv_iterations')
 
 
+def fma_k1(records):
+    """f64 K1 calls among tracer records whose span does not name the MMA design."""
+    return sum(1 for r in records if r['attrs'].get('kernel') == 'K1' and r['attrs']['f64']
+               and not r['attrs']['mma'])
+
+
 def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cacher=None,
                 log=print):
     """Run the masked filters at lmax on `device` (see the module docstring) and return a
@@ -143,7 +150,8 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     with core.counting() as c, drv.StageTimer(device) as tm:
         x, it, rel = cinv_t.solve_wf(tmaps)
     out['t'] = dict(it=it, s=tm.seconds, s_it=tm.seconds / max(it, 1),
-                    rel=rel.cpu().numpy(), peak_gib=peak(), calls=c.calls)
+                    rel=rel.cpu().numpy(), peak_gib=peak(), calls=c.calls,
+                    fma_k1=fma_k1(c.records))
     out['t']['true_rel'] = true_rel(cinv_t, cinv_t.calc_prep(tmaps), x,
                                     cinv_t._ms).cpu().numpy()
     out['t_x'] = x
@@ -191,7 +199,8 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     plan = None if a is None else lk.plan_pair(a['nrings'], a['M'], a['B'],
                                                lk.pair_mode(a['spin'], a['two']))
     out['p_probe'] = dict(s=time.perf_counter() - t0, chunk=chunk, peak_gib=peak(),
-                          k2_plan=None if plan is None else plan._asdict(), calls=probe)
+                          k2_plan=None if plan is None else plan._asdict(), calls=probe,
+                          fma_k1=fma_k1(c.records))
     log('P: probe of the E/B block to l %d (%d basis vectors) %.2fs in chunks of %d, peak '
         '%.2f GiB, K2 in clusters of %s blocks (no workspace); kernel calls %s'
         % (dense_p, 2 * (dense_p + 1) ** 2, out['p_probe']['s'], chunk,
@@ -204,7 +213,8 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     with core.counting() as c, drv.StageTimer(device) as tm:
         x, it, rel = cinv_p.solve_wf(qmaps, umaps)
     out['p'] = dict(it=it, s=tm.seconds, s_it=tm.seconds / max(it, 1),
-                    rel=rel.cpu().numpy(), peak_gib=peak(), calls=c.calls)
+                    rel=rel.cpu().numpy(), peak_gib=peak(), calls=c.calls,
+                    fma_k1=fma_k1(c.records))
     log('P: batch %d f64: %d iterations, %.3fs, %.4f s/iteration, peak %.2f GiB; rel resid '
         '%s; kernel calls %s'
         % (BATCH_P, it, tm.seconds, out['p']['s_it'], out['p']['peak_gib'],
@@ -221,7 +231,8 @@ def masked_path(par, device, lmax, dense_t=64, dense_p=32, f32=False, dense_cach
     with core.counting() as c, drv.StageTimer(device) as tm:
         qlms = {k: torch.stack([qlib.get_sim_qlm(k, i) for i in ROUTE_SIMS])
                 for k in ('ptt', 'p_p')}
-    out['route'] = dict(s=tm.seconds, sims=list(ROUTE_SIMS), peak_gib=peak(), calls=c.calls)
+    out['route'] = dict(s=tm.seconds, sims=list(ROUTE_SIMS), peak_gib=peak(), calls=c.calls,
+                        fma_k1=fma_k1(c.records))
     out['route_qlms'] = qlms
     log('route IVFCinv -> IVFFtl(l >= %d) -> QELib ptt, p_p (%s) on sims %s: %.3fs, peak '
         '%.2f GiB; kernel calls %s'

@@ -6,10 +6,11 @@ r"""Time other block shapes of the Legendre kernels K1-K4 on one CUDA device:
 Each argument is one variant of csrc/legendre_pair.cu, built into its own library from a
 copy of the source with some constants replaced, parts joined by ':':
 
-  S_PAIR32, S_PAIR32_WIDE, S_PAIR64, S_PAIR64_WIDE, S_PLAIN32, S_PLAIN32_WIDE, S_PLAIN64,
-  S_PLAIN64_WIDE = batch tile, rings per thread, warps per block, blocks meant for an SM of
-      the synthesis kernels K1/K3 (the PLK_S_* block shapes, by kind of grid and data type;
-      the wide shape runs the calls whose batch exceeds the narrow batch tile);
+  S_PAIR32, S_PAIR32_WIDE, S_PLAIN32, S_PLAIN32_WIDE, S_PLAIN64, S_PLAIN64_WIDE = batch
+      tile, rings per thread, warps per block, blocks meant for an SM of synth_pair_kernel,
+      K1 on f32 data and K3 (the PLK_S_* block shapes, by kind of grid and data type; the
+      wide shape runs the calls whose batch exceeds the narrow batch tile);
+  SNW = warps of a block of synth_pair_mma_kernel, K1 on f64 data;
   PLAIN32, PLAIN64 = the same four numbers of the plain analysis K4 (the PLK_A_* block
       shapes; K2's launch shape comes from `legendre_kernels.plan_pair`, and its fixed
       constants are not tunable: PLC = 16 rows make its two 8-row parity classes);
@@ -33,6 +34,7 @@ run: two runs may land on two cards. Raises without a card, and for a variant th
 not build, launch or agree with the twins.
 """
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,7 +47,7 @@ if _REPO not in sys.path:
 
 import torch
 
-KINDS = {'PAIR32': ('pair', 'f32'), 'PAIR64': ('pair', 'f64'),
+KINDS = {'PAIR32': ('pair', 'f32'),
          'PLAIN32': ('plain', 'f32'), 'PLAIN64': ('plain', 'f64')}
 ANAL_KINDS = ('PLAIN32', 'PLAIN64')         # K4's block shapes; K2 has none to tune
 SHAPES = ANAL_KINDS + tuple('S_' + k + w for k in KINDS for w in ('', '_WIDE'))
@@ -176,6 +178,7 @@ def main():
                         for k in ANAL_KINDS}
         lk.SYNTH_SHAPES = {KINDS[k]: (shapes['S_' + k], shapes['S_' + k + '_WIDE'])
                            for k in KINDS}
+        lk.SYNTH_MMA_WARPS = int(re.search(r'constexpr int SNW = (\d+);', text).group(1))
         t0 = time.perf_counter()
         lk._load()
         out = [spec, 'built in %.0f s' % (time.perf_counter() - t0)]
@@ -222,7 +225,8 @@ def main():
             '%s<%s> %d/%d' % (k['kernel'][:5], ','.join(map(str, k['args'])), k['registers'],
                               k['spill_stores'])
             for k in lk.build_report()
-            if k['kernel'] in ('synth_pair_kernel', 'anal_pair_kernel', 'anal_pair_mma_kernel')),
+            if k['kernel'] in ('synth_pair_kernel', 'synth_pair_mma_kernel', 'anal_pair_kernel',
+                               'anal_pair_mma_kernel')),
             flush=True)
 
 

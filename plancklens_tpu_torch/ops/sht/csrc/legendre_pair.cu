@@ -3,7 +3,9 @@
 //
 // Replaces the four TPU kernels of the JAX reference package
 // (plancklens_tpu/ops/sht/pallas_kernel.py):
-//   K1  _make_synth_pair_kernel + _synth_pair_pallas   -> synth_pair_kernel,    modes 0-2
+//   K1  _make_synth_pair_kernel + _synth_pair_pallas   -> synth_pair_kernel (f32 data) and
+//                                                         synth_pair_mma_kernel (f64 data),
+//                                                         modes 0-2
 //   K2  _make_anal_pair_kernel  + _anal_pair_pallas    -> anal_pair_mma_kernel, modes 0-2
 //   K3  _synth_kernel + _synth_pallas                  -> synth_pair_kernel,    mode 3
 //   K4  _anal_kernel  + _anal_pallas                   -> anal_pair_kernel,     mode 3
@@ -22,7 +24,8 @@
 // bound by FP32 throughput at ~6 ms, the plain mode at HEALPix shapes (8191 rings, 4 maps,
 // f64) by FP64 at ~11 ms; the kernels take a few times that (PERF.md has the times).
 //
-// What bounds the synthesis (K1/K3), and what its design does about it. Each thread owns
+// What bounds synth_pair_kernel (K1 on f32 data, K3), and what its design does about it.
+// Each thread owns
 // (ring, m) points and writes each output element once, so nothing is reduced across
 // threads; a step is the recursion of RPT rings and the multiply-adds of BT maps, and its
 // time is latency and instruction issue: one block of 8 warps fills an SM (150 to 250
@@ -46,6 +49,26 @@
 //     are issued while this one computes.
 // What is left is issue: counting its instructions, a step of the f32 pair mode 1 issues
 // in about half the time it takes (PERF.md).
+//
+// K1 on f64 data (synth_pair_mma_kernel, below). There the accumulate, 2 multiply-adds a map
+// and hemisphere per (l, ring, m), ran on the FP64 pipe beside the f64 recursion, and with
+// one ring a thread (two spilled) the recursion had almost no independent chains to hide
+// its latency: at the masked solves' shapes (batch 4, 2049 rings) 9.0 ms for spin 0 and
+// 22.5 ms for the spin-2 pair, 5.7% and 9.1% of bound, and the recursion ran twice at
+// batch 8. For one column m the synthesis is a matrix product over l, F[j, map] = sum_l
+// lambda_l(j) C[l, map]; the design follows K2's:
+//   * a thread runs two recursion chains (one on 8-map batch tiles in mode 0), step for
+//     step as rec_step rounds, the effective value by deff_mul, and writes each chunk of 16
+//     l into its warp's lambda tile, rows ordered by the parity of l;
+//   * the warp contracts the tile with the chunk's coefficient rows (staged by cp.async,
+//     two buffers in turn, the B operands) on the FP64 tensor cores, into accumulators
+//     that stay in registers across all chunks; the mirror comes from the parity classes;
+//   * one recursion serves a batch tile of 4 maps (8 above batch 4), whose re/im columns
+//     fill the MMA's n dimension;
+//   * a warp owns its rings for the whole l loop, so there is no cluster, no distributed
+//     shared memory and no cross-warp sum; each output element is written once.
+// It runs at 0.35-0.54x the time of the design above at those shapes, batch 1 included
+// (PERF.md), so every f64 pair call takes it.
 //
 // K2, the pair analysis (anal_pair_mma_kernel, below). For one column m it is a matrix
 // product over the rings, A[l, map] = sum_j lambda_l(j) Q[j, map]: the recursion produces
@@ -112,15 +135,16 @@
 // recursion, as the TPU kernels ran it, loses the small angles near the poles (cos theta
 // and 2 cos theta round to within 1e-7 of 1 and 2): at lmax 2048 on the 3073-ring QE grid
 // its spin-1 synthesis is off by 5.4e-4 rms and 9.6e-3 of max against f64, and by up to
-// 4e-2 on single polar rings. The H100 has native FP64. K1, K3 and K4 accumulate in the
-// data type; K2 accumulates in f64 on the tensor cores and rounds each output once to the
-// data type. HEALPix's polar rings (theta = 4.0e-4 at nside 2048) seed far below f64's range;
+// 4e-2 on single polar rings. The H100 has native FP64. K3, K4 and K1 on f32 data
+// accumulate in the data type; K1 on f64 data accumulates in f64 on the tensor cores, and
+// K2 too, rounding each output once to the data type (no TF32 anywhere). HEALPix's polar rings (theta = 4.0e-4 at nside 2048) seed far below f64's range;
 // the exponent count k of the scaled recursion carries them, north and south alike.
 //
-// Layout of the work. Synthesis: one thread per (ring, m) of RPT rings keeps the recursion
-// states and the outputs of a batch tile in registers; threads lie along m so that a row
-// C[b, l, m..m+31] is one coalesced copy into shared memory, which all warps of the block
-// read.
+// Layout of the work. Synthesis (synth_pair_kernel): one thread per (ring, m) of RPT rings
+// keeps the recursion states and the outputs of a batch tile in registers; threads lie
+// along m so that a row C[b, l, m..m+31] is one coalesced copy into shared memory, which all
+// warps of the block read. synth_pair_mma_kernel: a block holds one m, a warp its rings,
+// the outputs of a batch tile in the MMA's accumulator fragments.
 // Analysis: the sum over rings is a cross-thread reduction, made deterministic (no float
 // atomics). K2: the tensor-core products in a fixed order, the warps' partials summed in
 // warp order, the blocks' in rank order. K4: the warps of a block reduce through shared
@@ -1398,11 +1422,9 @@ int launch_synth_pair(const void* Cp, const void* Cm, void* Fp, void* Fm, Tables
 // exceeds the narrow shape's batch tile runs the wide one (legendre_kernels.synth_shape
 // mirrors the choice). Measured on the H100 (PERF.md): 8 warps with the most rings a
 // thread that stay unspilled; f32 pair data at batch 8 is faster as one tile of 8 maps x
-// 2 rings than as two of 4 x 3; f64 pair data keeps one ring a thread (two spill).
+// 2 rings than as two of 4 x 3. f64 pair data run synth_pair_mma_kernel.
 #define PLK_S_PAIR32 4, 3, 8, 1
 #define PLK_S_PAIR32_WIDE 8, 2, 8, 1
-#define PLK_S_PAIR64 4, 1, 8, 1
-#define PLK_S_PAIR64_WIDE 4, 1, 8, 1
 #define PLK_S_PLAIN32 4, 6, 8, 1
 #define PLK_S_PLAIN32_WIDE 8, 4, 8, 1
 #define PLK_S_PLAIN64 4, 6, 8, 1
@@ -1435,17 +1457,16 @@ extern "C" {
 int plk_anal_tile(int f64) { return f64 ? tile_code(PLK_A_PLAIN64) : tile_code(PLK_A_PLAIN32); }
 
 // (batch tile << 24) | (rings per thread << 16) | (warps << 8) | blocks an SM of the
-// synthesis kernel that a call of the kind and data type runs, narrow or wide, for the
-// wrapper's check of its mirror
+// synth_pair_kernel shape that a call of the kind and data type runs, narrow or wide, for
+// the wrapper's check of its mirror; -1 for f64 pair data, which run synth_pair_mma_kernel
 int plk_synth_shape(int plain, int f64, int wide) {
   if (plain)
     return f64 ? (wide ? shape_code(PLK_S_PLAIN64_WIDE) : shape_code(PLK_S_PLAIN64))
                : (wide ? shape_code(PLK_S_PLAIN32_WIDE) : shape_code(PLK_S_PLAIN32));
-  return f64 ? (wide ? shape_code(PLK_S_PAIR64_WIDE) : shape_code(PLK_S_PAIR64))
-             : (wide ? shape_code(PLK_S_PAIR32_WIDE) : shape_code(PLK_S_PAIR32));
+  return f64 ? -1 : (wide ? shape_code(PLK_S_PAIR32_WIDE) : shape_code(PLK_S_PAIR32));
 }
 
-// Pair modes; the synthesis takes its wide shape above the narrow batch tile.
+// Pair modes on f32 data; the synthesis takes its wide shape above the narrow batch tile.
 int plk_synth_pair_f32(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_TABLE_ARGS,
                        const void* x, int B, int L, int M, int R, int mode, int device,
                        void* stream) {
@@ -1455,17 +1476,6 @@ int plk_synth_pair_f32(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_T
                                                        device, stream);
   return launch_synth_pair<float, PLK_S_PAIR32>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P, x,
                                                 B, L, M, R, mode, device, stream);
-}
-
-int plk_synth_pair_f64(const void* Cp, const void* Cm, void* Fp, void* Fm, PLK_TABLE_ARGS,
-                       const void* x, int B, int L, int M, int R, int mode, int device,
-                       void* stream) {
-  if (B > batch_tile(PLK_S_PAIR64))
-    return launch_synth_pair<double, PLK_S_PAIR64_WIDE>(Cp, Cm, Fp, Fm, PLK_TABLES_M,
-                                                        PLK_TABLES_P, x, B, L, M, R, mode,
-                                                        device, stream);
-  return launch_synth_pair<double, PLK_S_PAIR64>(Cp, Cm, Fp, Fm, PLK_TABLES_M, PLK_TABLES_P,
-                                                 x, B, L, M, R, mode, device, stream);
 }
 
 // K1 on f64 data on the FP64 tensor cores: batch tiles of bt maps (4 or 8), nb blocks of

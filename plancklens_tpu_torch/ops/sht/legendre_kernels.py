@@ -58,9 +58,9 @@ ANAL_TILE = {('plain', 'f32'): (4, 64), ('plain', 'f64'): (2, 64)}
 # (batch tile, rings per thread, warps, blocks meant for an SM) of the synthesis kernels,
 # a narrow and a wide shape by kind of grid and data type: csrc/legendre_pair.cu's PLK_S_*
 # block shapes, checked against the library at load. A call whose batch exceeds the
-# narrow batch tile runs the wide shape (`synth_shape`).
+# narrow batch tile runs the wide shape (`synth_shape`). f64 pair data run K1's MMA design
+# (below), which has no entry here.
 SYNTH_SHAPES = {('pair', 'f32'): ((4, 3, 8, 1), (8, 2, 8, 1)),
-                ('pair', 'f64'): ((4, 1, 8, 1), (4, 1, 8, 1)),
                 ('plain', 'f32'): ((4, 6, 8, 1), (8, 4, 8, 1)),
                 ('plain', 'f64'): ((4, 6, 8, 1), (8, 3, 8, 1))}
 # K1 on f64 data in the pair modes (`synth_pair_mma_kernel`) runs its accumulate on the
@@ -70,7 +70,6 @@ SYNTH_SHAPES = {('pair', 'f32'): ((4, 3, 8, 1), (8, 2, 8, 1)),
 # rows of a chunk make its two 8-row parity classes (PAIR_LC below).
 SYNTH_MMA_WARPS = 4
 SYNTH_MMA_TILES = (4, 8)
-SYNTH_MMA_MODES = (0, 1, 2)
 # No crossover by batch: the MMA design beat synth_pair_kernel at every batch timed, batch 1
 # included (lmax 2048, 2049 rings, f64: spin 0 4.481 against 9.361 ms at batch 1, 4.346
 # against 9.445 at batch 2, 4.646 against 9.369 at batch 4; the spin-2 pair 8.368 against
@@ -232,12 +231,12 @@ def synth_mma_smem(mode, bt):
 def synth_plan(dt, mode, nrings, M, B):
     """The design and launch shape of a synthesis call of B maps ('f32' or 'f64') in `mode`
     (pair modes 0-2, K1; 3 the plain mode, K3) on `nrings` rings with M columns: a
-    SynthPlan. f64 pair calls in SYNTH_MMA_MODES run K1 on the FP64 tensor cores (`mma` True): batch tiles of 4 maps up to batch 4, else 8, blocks
+    SynthPlan. f64 pair calls run K1 on the FP64 tensor cores (`mma` True): batch tiles of 4 maps up to batch 4, else 8, blocks
     of SYNTH_MMA_WARPS warps of `synth_mma_rings` northern rings, `blocks_per_m` of them for
     each (m, batch tile). Every other call runs `synth_pair_kernel` at `synth_shape`'s block
     shape (`shape`; `rings_per_warp` then its rings per thread times 1)."""
     kind = 'plain' if mode == 3 else 'pair'
-    if kind == 'pair' and dt == 'f64' and mode in SYNTH_MMA_MODES:
+    if kind == 'pair' and dt == 'f64':
         bt = SYNTH_MMA_TILES[0] if B <= SYNTH_MMA_TILES[0] else SYNTH_MMA_TILES[-1]
         rpw = synth_mma_rings(mode, bt)
         nb = -(-((nrings + 1) // 2) // (SYNTH_MMA_WARPS * rpw))
@@ -393,13 +392,14 @@ def _load():
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         # the pair entry points take two table sets, K2's also its launch shape (warps,
-        # batch tile, cluster, rings a block); the plain ones one set, K4's also (workspace,
-        # segments); all end with (device, stream)
-        for name, extra in (('plk_synth_pair', []), ('plk_anal_pair', [i] * 4)):
-            for suffix in DTYPES:
-                fn = getattr(lib, '%s_%s' % (name, suffix))
-                fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 5 + extra + [i, p]
-                fn.restype = i
+        # batch tile, cluster, rings a block), K1's on f64 data its (batch tile, blocks a
+        # column); the plain ones one set, K4's also (workspace, segments); all end with
+        # (device, stream)
+        for name, extra in (('plk_synth_pair_f32', []), ('plk_synth_pair_mma_f64', [i] * 2),
+                            ('plk_anal_pair_f32', [i] * 4), ('plk_anal_pair_f64', [i] * 4)):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 5 + extra + [i, p]
+            fn.restype = i
         for name, extra in (('plk_synth', []), ('plk_anal', [p, i])):
             for suffix in DTYPES:
                 fn = getattr(lib, '%s_%s' % (name, suffix))
@@ -416,8 +416,6 @@ def _load():
                                        % (kind, suffix, ('narrow', 'wide')[wide],
                                           tuple(got >> k & 0xff for k in (24, 16, 8, 0)),
                                           shape))
-        lib.plk_synth_pair_mma_f64.argtypes = [p] * 4 + [p] * 12 + [p] + [i] * 7 + [i, p]
-        lib.plk_synth_pair_mma_f64.restype = i
         lib.plk_synth_pair_mma_shape.argtypes = lib.plk_synth_pair_mma_smem.argtypes = [i, i]
         lib.plk_synth_pair_mma_shape.restype = lib.plk_synth_pair_mma_smem.restype = i
         for mode, bt in itertools.product((0, 1, 2), SYNTH_MMA_TILES):

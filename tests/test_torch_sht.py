@@ -463,8 +463,11 @@ def test_synth_shapes_mirror_the_source_and_fit():
 def test_synth_batch_tile_choice(B):
     """The launcher's choice of block shape by batch, mirrored: f32 pair data (K1 on the
     main path) and plain grids run batch 1-8 as one batch tile, so the f64 recursion runs
-    once per (ring, m) at batch 4 and 8; f64 pair data has one shape of 4 maps."""
-    tiles = {'pair': {'f32': 1, 'f64': -(-B // 4)}, 'plain': {'f32': 1, 'f64': 1}}
+    once per (ring, m) at batch 4 and 8; f64 pair data run K1's MMA design, with no
+    synth_pair_kernel shape (the source defines none)."""
+    assert ('pair', 'f64') not in lk.SYNTH_SHAPES
+    assert not [d for d in _source_defines('PLK_S_PAIR64')[0]]
+    tiles = {'pair': {'f32': 1}, 'plain': {'f32': 1, 'f64': 1}}
     for (kind, dt), (narrow, wide) in lk.SYNTH_SHAPES.items():
         got = lk.synth_shape(kind, dt, B)
         assert got == (narrow if B <= narrow[0] else wide)
