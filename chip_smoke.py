@@ -1287,7 +1287,7 @@ def main():
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()]
         h2d, d2h = sum('HtoD' in n for n in names), sum('DtoH' in n for n in names)
-        k1 = sum('synth_pair_kernel' in n for n in names)
+        k1 = sum('synth_pair_kernel' in n or 'synth_pair_mma_kernel' in n for n in names)
         k2, k2s = (sum(k in n for n in names) for k in ('anal_pair_mma_kernel',
                                                           'anal_pair_sum_kernel'))
         phase(6, '(6a) Cinv%s at lmax %d (lmax_dense %d), f64, batch 2, the anisofilt mask, '

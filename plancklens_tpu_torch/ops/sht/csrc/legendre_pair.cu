@@ -25,11 +25,11 @@
 // f64) by FP64 at ~11 ms; the kernels take a few times that (PERF.md has the times).
 //
 // What bounds synth_pair_kernel (K1 on f32 data, K3), and what its design does about it.
-// Each thread owns
-// (ring, m) points and writes each output element once, so nothing is reduced across
-// threads; a step is the recursion of RPT rings and the multiply-adds of BT maps, and its
-// time is latency and instruction issue: one block of 8 warps fills an SM (150 to 250
-// registers a thread), so the independent work inside a thread is what hides latency.
+// Each thread owns (ring, m) points and writes each output element once, so nothing is
+// reduced across threads; a step is the recursion of RPT rings and the multiply-adds of BT
+// maps, and its time is latency and instruction issue: one block of 8 warps fills an SM
+// (150 to 250 registers a thread), so the independent work inside a thread is what hides
+// latency.
 //   * grid (ring tile, batch tile, m-tile) with the m-tile slowest: the ~132 blocks in
 //     flight share one m-tile's coefficient and table columns (a few MB) through L2, so
 //     C and the tables come from HBM about once a call; the low-m tiles, whose l loop is
@@ -137,8 +137,9 @@
 // its spin-1 synthesis is off by 5.4e-4 rms and 9.6e-3 of max against f64, and by up to
 // 4e-2 on single polar rings. The H100 has native FP64. K3, K4 and K1 on f32 data
 // accumulate in the data type; K1 on f64 data accumulates in f64 on the tensor cores, and
-// K2 too, rounding each output once to the data type (no TF32 anywhere). HEALPix's polar rings (theta = 4.0e-4 at nside 2048) seed far below f64's range;
-// the exponent count k of the scaled recursion carries them, north and south alike.
+// K2 too, rounding each output once to the data type (no TF32 anywhere). HEALPix's polar
+// rings (theta = 4.0e-4 at nside 2048) seed far below f64's range; the exponent count k of
+// the scaled recursion carries them, north and south alike.
 //
 // Layout of the work. Synthesis (synth_pair_kernel): one thread per (ring, m) of RPT rings
 // keeps the recursion states and the outputs of a batch tile in registers; threads lie
@@ -1038,7 +1039,9 @@ template <int MODE, int BT> __host__ __device__ constexpr int smma_smem() {
          2 * pair_recs<MODE>() * 3 * PLC * 8;
 }
 
-template <int BT, int MODE, int MINB = smma_minb<MODE, BT>()>
+// (MINB = smma_minb<MODE, BT>(); the mode is the last template argument, as in the other
+// kernels, which the profile readers rely on)
+template <int BT, int MINB, int MODE>
 __global__ void __launch_bounds__(SNW * 32, MINB)
 synth_pair_mma_kernel(const double2* __restrict__ Cp, const double2* __restrict__ Cm,
                       double2* __restrict__ Fp, double2* __restrict__ Fm, Tables tm,
@@ -1088,11 +1091,15 @@ synth_pair_mma_kernel(const double2* __restrict__ Cp, const double2* __restrict_
 #pragma unroll
   for (int rt = 0; rt < NRT0; ++rt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) ae[rt][nt][0] = ae[rt][nt][1] = ao[rt][nt][0] = ao[rt][nt][1] = 0.;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ae[rt][nt][i] = ao[rt][nt][i] = 0.;
 #pragma unroll
   for (int rt = 0; rt < NRT1; ++rt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[rt][nt][0] = acc[rt][nt][1] = acc[rt][nt][2] = acc[rt][nt][3] = 0.;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[rt][nt][i] = 0.;
 
   // rows lc .. lc + PLC - 1 of the batch tile's coefficients and of the tables into buffer
   // cb (rows past lmax and maps past B repeat the last: they meet zero lambda rows or feed
@@ -1394,7 +1401,7 @@ int launch_synth_pair_mma(const void* Cp, const void* Cm, void* Fp, void* Fm, Ta
   const int btiles = (B + BT - 1) / BT;
   if (nb < 1 || (long long)nb * SNW * smma_rpw<MODE, BT>() < nh || btiles > 65535 || M > 65535)
     return (int)cudaErrorInvalidValue;
-  auto kern = synth_pair_mma_kernel<BT, MODE>;
+  auto kern = synth_pair_mma_kernel<BT, smma_minb<MODE, BT>(), MODE>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(nb, btiles, M), SNW * 32, smem, static_cast<cudaStream_t>(stream)>>>(

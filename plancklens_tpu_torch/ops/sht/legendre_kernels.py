@@ -74,7 +74,6 @@ SYNTH_MMA_TILES = (4, 8)
 # included (lmax 2048, 2049 rings, f64: spin 0 4.481 against 9.361 ms at batch 1, 4.346
 # against 9.445 at batch 2, 4.646 against 9.369 at batch 4; the spin-2 pair 8.368 against
 # 22.864 at batch 1; NVIDIA H100 80GB HBM3, 700 W).
-SYNTH_LCS = 16                          # l steps of a staged chunk of synth_pair_kernel
 # Blocks wanted for K4's split ring sum, in waves of one block an SM: the blocks differ in
 # length by the l range of their m-tile, and the short ones fill the tail of many waves.
 WAVES = 4
@@ -231,10 +230,10 @@ def synth_mma_smem(mode, bt):
 def synth_plan(dt, mode, nrings, M, B):
     """The design and launch shape of a synthesis call of B maps ('f32' or 'f64') in `mode`
     (pair modes 0-2, K1; 3 the plain mode, K3) on `nrings` rings with M columns: a
-    SynthPlan. f64 pair calls run K1 on the FP64 tensor cores (`mma` True): batch tiles of 4 maps up to batch 4, else 8, blocks
-    of SYNTH_MMA_WARPS warps of `synth_mma_rings` northern rings, `blocks_per_m` of them for
-    each (m, batch tile). Every other call runs `synth_pair_kernel` at `synth_shape`'s block
-    shape (`shape`; `rings_per_warp` then its rings per thread times 1)."""
+    SynthPlan. f64 pair calls run K1 on the FP64 tensor cores (`mma` True): batch tiles of
+    4 maps up to batch 4, else 8, blocks of SYNTH_MMA_WARPS warps of `synth_mma_rings`
+    northern rings, `blocks_per_m` of them for each (m, batch tile). Every other call runs
+    `synth_pair_kernel` at `synth_shape`'s block shape (`shape`; the MMA fields None)."""
     kind = 'plain' if mode == 3 else 'pair'
     if kind == 'pair' and dt == 'f64':
         bt = SYNTH_MMA_TILES[0] if B <= SYNTH_MMA_TILES[0] else SYNTH_MMA_TILES[-1]
@@ -242,13 +241,8 @@ def synth_plan(dt, mode, nrings, M, B):
         nb = -(-((nrings + 1) // 2) // (SYNTH_MMA_WARPS * rpw))
         return SynthPlan(True, bt, rpw, SYNTH_MMA_WARPS, nb, nb * -(-B // bt) * M,
                          synth_mma_smem(mode, bt), None)
-    bt, rpt, nws, minb = shape = synth_shape(kind, dt, B)
-    rows = nrings if kind == 'plain' else (nrings + 1) // 2
-    nin, nt = (2, 6) if mode == 1 else (1, 6) if mode == 2 else (1, 3)
-    esize = 8 if dt == 'f32' else 16
-    nb = -(-rows // (nws * rpt))
-    return SynthPlan(False, bt, rpt, nws, nb, nb * -(-B // bt) * -(-M // 32),
-                     2 * SYNTH_LCS * 32 * (nin * bt * esize + nt * 8), shape)
+    shape = synth_shape(kind, dt, B)
+    return SynthPlan(False, shape[0], None, None, None, None, None, shape)
 
 
 def synth_pair_plan(Cp, Cm, spin, nrings):

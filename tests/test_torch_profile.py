@@ -66,6 +66,10 @@ def _k(name, cat, ts, dur, corr):
 
 @pytest.mark.parametrize('name,cat,group', [
     ('void synth_pair_kernel<float, 4, 4, 1>(float2 const*)', 'kernel', 'K1 synth_pair'),
+    ('void (anonymous namespace)::synth_pair_mma_kernel<4, 4, 1>(double2 const*)', 'kernel',
+     'K1 synth_pair'),
+    ('void (anonymous namespace)::synth_pair_mma_kernel<8, 2, 0>(double2 const*)', 'kernel',
+     'K1 synth_pair'),
     ('void anal_pair_kernel<float, 4, 1, 2>(float2 const*)', 'kernel', 'K2 anal_pair'),
     ('void (anonymous namespace)::anal_pair_mma_kernel<double, 8, 4, 1>(double2 const*)',
      'kernel', 'K2 anal_pair'),

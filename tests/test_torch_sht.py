@@ -490,7 +490,8 @@ def test_synth_plan(dt, mode, B):
     4 maps up to batch 4 and of 8 above; the blocks cover every northern ring, none empty,
     and fit a block's 227 KB of shared memory and the SM's registers and shared memory at
     the blocks meant for it. f32 pair data and the plain mode (K3) keep today's
-    synth_pair_kernel shapes. The warps of a block are the source's SNW."""
+    synth_pair_kernel shapes (their shared memory: `test_synth_shapes_mirror_the_source_and_
+    fit`). The warps of a block are the source's SNW."""
     nrings, M = 2049, 2049
     nh = (nrings + 1) // 2
     plan = lk.synth_plan(dt, mode, nrings, M, B)
@@ -500,7 +501,7 @@ def test_synth_plan(dt, mode, B):
         narrow, wide = FMA_SHAPES[kind, dt]
         assert lk.SYNTH_SHAPES[kind, dt] == (narrow, wide)
         assert plan.shape == lk.synth_shape(kind, dt, B) == (narrow if B <= narrow[0] else wide)
-        assert plan.smem_bytes <= lk.SMEM_BYTES
+        assert plan.batch_tile == plan.shape[0]
         return
     with open(lk.SOURCE) as f:
         snw = int(re.search(r'constexpr int SNW = (\d+);', f.read()).group(1))
