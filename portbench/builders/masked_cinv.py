@@ -53,15 +53,46 @@ def _logged(solver, kind, log):
     solver.solve_wf = solve_wf
 
 
+def failed_sims(idxs, runs, solver):
+    """The sims of `idxs` whose solve stopped at the solver's iteration limit above its
+    criterion: `runs` [(iterations, relative residual a row)] of the step's solves, in
+    order, each row the next sim of idxs."""
+    rows = [(it, r) for it, rel in runs for r in torch.as_tensor(rel).reshape(-1).tolist()]
+    return {int(i) for i, (it, r) in zip(idxs, rows)
+            if it >= solver.iter_max and r > solver.eps_min}
+
+
+def chain_libs(cfg, traffic, inp, ivfs_raw, qdt, device):
+    """The parfile's libraries over a raw filter: IVFFtl (l >= lmin) -> IVFShuffle (ds with
+    the data sim, ss with the previous sim) -> QELib -> QeClLib (split-half mean field of
+    the warm-up sims on dd)."""
+    from plancklens_tpu_torch.models.filt import IVFFtl, IVFShuffle
+    from plancklens_tpu_torch.models.qest import QELib
+    from plancklens_tpu_torch.models.qecl import QeClLib
+    lmax, lq = cfg['lmax_ivf'], cfg['lmax_qlm']
+    cut = (np.arange(lmax + 1) >= cfg['lmin_ivf']) * 1.
+    ivfs = IVFFtl(ivfs_raw, cut, cut, cut)
+    ivfs_d = IVFShuffle(ivfs, lambda i: -1)
+    ivfs_s = IVFShuffle(ivfs, lambda i: i - 1)
+    cachers = [StepCacher() for _ in range(6)]
+    qlms = [QELib(ivfs, i2, inp.cl_weight, lmax, lq, cacher=c,
+                  dtype=None if qdt == torch.float64 else qdt, device=device)
+            for i2, c in zip((ivfs, ivfs_d, ivfs_s), cachers)]
+    warm = np.arange(traffic['warm_sims'])
+    qcls = [QeClLib(q, q, mf, lmax_qlm=lq, cacher=c)
+            for q, mf, c in zip(qlms, (warm, [], []), cachers[3:])]
+    return dict(DEVICE=torch.device(device), ivfs=ivfs, ivfs_raw=ivfs_raw,
+                qlms_dd=qlms[0], qlms_ds=qlms[1], qlms_ss=qlms[2],
+                qcls_dd=qcls[0], qcls_ds=qcls[1], qcls_ss=qcls[2],
+                mc_sims_mf_dd=warm, cachers=cachers)
+
+
 def build(cfg, traffic, inp, device, cache_dir, control=None):
     from plancklens_tpu_torch.ops.sht import SHT, gl_geometry
     from plancklens_tpu_torch.utils import alm as ualm
     from plancklens_tpu_torch.utils.cachers import cacher_npy
     from plancklens_tpu_torch.models.cinv import CinvT, CinvP, IVFCinv
-    from plancklens_tpu_torch.models.filt import IVFFtl, IVFShuffle
-    from plancklens_tpu_torch.models.qest import QELib
-    from plancklens_tpu_torch.models.qecl import QeClLib
-    lmax, lq = cfg['lmax_ivf'], cfg['lmax_qlm']
+    lmax = cfg['lmax_ivf']
     fdt = getattr(torch, cfg['filter_dtype'] if control != 'f32' else 'float32')
     qdt = getattr(torch, cfg['qe_dtype'] if control not in ('f32', 'qe_f32') else 'float32')
     geom = gl_geometry(cfg['grid_lmax'])
@@ -78,19 +109,7 @@ def build(cfg, traffic, inp, device, cache_dir, control=None):
     _logged(cinv_t, 't', log)
     _logged(cinv_p, 'p', log)
     sims = MapSims(inp, SHT(geom, lmax, dtype=fdt, device=device), ualm.almxfl, lmax)
-    ivfs_raw = IVFCinv(cinv_t, cinv_p, sims, inp.cls)
-    ls = np.arange(lmax + 1)
-    cut = (ls >= cfg['lmin_ivf']) * 1.
-    ivfs = IVFFtl(ivfs_raw, cut, cut, cut)
-    ivfs_d = IVFShuffle(ivfs, lambda i: -1)
-    ivfs_s = IVFShuffle(ivfs, lambda i: i - 1)
-    cachers = [StepCacher() for _ in range(6)]
-    qlms = [QELib(ivfs, i2, inp.cl_weight, lmax, lq, cacher=c,
-                  dtype=None if qdt == torch.float64 else qdt, device=device)
-            for i2, c in zip((ivfs, ivfs_d, ivfs_s), cachers)]
-    warm = np.arange(traffic['warm_sims'])
-    qcls = [QeClLib(q, q, mf, lmax_qlm=lq, cacher=c)
-            for q, mf, c in zip(qlms, (warm, [], []), cachers[3:])]
+    libs = chain_libs(cfg, traffic, inp, IVFCinv(cinv_t, cinv_p, sims, inp.cls), qdt, device)
 
     def end_step(idxs):
         """The step's maps and the sims whose solve stopped at its iteration limit above
@@ -98,15 +117,10 @@ def build(cfg, traffic, inp, device, cache_dir, control=None):
         maps, sims.maps = sims.maps, {}
         failed = set()
         for kind, solver in (('t', cinv_t), ('p', cinv_p)):
-            runs = [(it, rel) for k, it, rel in log if k == kind]
-            for i, (it, rel) in zip(idxs, runs):
-                if it >= solver.iter_max and float(rel.max()) > solver.eps_min:
-                    failed.add(int(i))
+            failed |= failed_sims(idxs, [(it, rel) for k, it, rel in log if k == kind],
+                                  solver)
         solves = list(log)
         log.clear()
         return dict(maps=maps, solves=solves, failed=failed)
-    return SimpleNamespace(DEVICE=torch.device(device), ivfs=ivfs, ivfs_raw=ivfs_raw,
-                           qlms_dd=qlms[0], qlms_ds=qlms[1], qlms_ss=qlms[2],
-                           qcls_dd=qcls[0], qcls_ds=qcls[1], qcls_ss=qcls[2],
-                           mc_sims_mf_dd=warm, cachers=cachers, end_step=end_step,
-                           solvers={'t': cinv_t, 'p': cinv_p}, log=log)
+    return SimpleNamespace(**libs, end_step=end_step, solvers={'t': cinv_t, 'p': cinv_p},
+                           log=log)

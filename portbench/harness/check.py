@@ -11,6 +11,9 @@ Numbers compared (each the largest over the step's sims, keys and legs):
   qlm_rel     gradient and curl of every key on the dd, ds and ss legs
   mf_rel      the split-half mean fields
   qcl_rel     the dd (mean field subtracted), ds and ss spectra
+
+This is the comparison of the configurations that name no `reference`; one that does
+brings its own `compare` (portbench/reference/<reference>.py), built from the parts here.
 """
 import numpy as np
 import torch
@@ -62,34 +65,55 @@ def compare(cfg, prog, ref):
     idxs = prog['idxs']
     nums, detail = {}, {}
     if 'raw' in prog:
-        raw = prog['raw']
-
-        def teb(ii):
-            return tuple(torch.stack([raw[i][f] for i in ii]) for f in range(3))
-        t, q, u = ref.maps(idxs)
-        pm = prog['maps']
-        nums['maps_rel'] = max(
-            rel(torch.stack([pm[('t', i)] for i in idxs]), t),
-            rel(torch.stack([pm[('p', i)][0] for i in idxs]), q),
-            rel(torch.stack([pm[('p', i)][1] for i in idxs]), u))
-        et, ee, eb = teb(idxs)
+        t, q, u = maps_rel(prog, ref, nums)
+        et, ee, eb = raw_teb(prog)(idxs)
         rt = ref.residual_t(t, et)
         rp = ref.residual_p(q, u, ee, eb)
         detail['cg_resid_t_by_sim'] = [float(x) for x in rt]
         detail['cg_resid_p_by_sim'] = [float(x) for x in rp]
-        nums['cg_resid_t'] = _fmax(rt)
-        nums['cg_resid_p'] = _fmax(rp)
-        cur = ref.cut(teb(idxs))
-        data = ref.cut(teb([-1]))
-        prev = ref.cut(teb([i - 1 for i in idxs]))
-        warm = ref.cut(teb(prog['warm']))
+        nums['cg_resid_t'] = fmax(rt)
+        nums['cg_resid_p'] = fmax(rp)
+        legs = raw_legs(prog, ref)
     else:
         cur = ref.filtered(idxs)
         nums['ivf_rel'] = max(rel(p, r) for p, r in zip(prog['filt'], cur))
-        data = ref.filtered([-1])
-        prev = ref.filtered([i - 1 for i in idxs])
-        warm = ref.filtered(prog['warm'])
-    qlm, mf = ref.estimators(cur, data, prev, warm)
+        legs = (cur, ref.filtered([-1]), ref.filtered([i - 1 for i in idxs]),
+                ref.filtered(prog['warm']))
+    estimator_checks(prog, ref, legs, nums, detail)
+    return nums, detail
+
+
+def raw_teb(prog):
+    """(t, e, b) stacks of the program's filtered alms (before the l >= lmin cut) of a
+    list of sims."""
+    raw = prog['raw']
+    return lambda ii: tuple(torch.stack([raw[i][f] for i in ii]) for f in range(3))
+
+
+def maps_rel(prog, ref, nums):
+    """nums['maps_rel'] of the sampled sims' T, Q, U maps; returns the reference's maps."""
+    idxs = prog['idxs']
+    t, q, u = ref.maps(idxs)
+    pm = prog['maps']
+    nums['maps_rel'] = max(
+        rel(torch.stack([pm[('t', i)] for i in idxs]), t),
+        rel(torch.stack([pm[('p', i)][0] for i in idxs]), q),
+        rel(torch.stack([pm[('p', i)][1] for i in idxs]), u))
+    return t, q, u
+
+
+def raw_legs(prog, ref):
+    """The estimators' inputs of a masked chain: the program's filtered alms of the
+    sampled sims, the data sim, the sims before them and the warm sims, cut at lmin."""
+    teb, idxs = raw_teb(prog), prog['idxs']
+    return (ref.cut(teb(idxs)), ref.cut(teb([-1])), ref.cut(teb([i - 1 for i in idxs])),
+            ref.cut(teb(prog['warm'])))
+
+
+def estimator_checks(prog, ref, legs, nums, detail):
+    """qlm_rel, mf_rel and qcl_rel of the reference's estimators and spectra on `legs`
+    (the sampled sims, the data sim, the sims before them, the warm sims)."""
+    qlm, mf = ref.estimators(*legs)
     cls = ref.spectra(qlm, mf)
     for (k, leg), (g, c) in qlm.items():
         pg, pc = prog['qlm'][(k, leg)]
@@ -99,9 +123,8 @@ def compare(cfg, prog, ref):
         detail['mf_rel.%s' % k] = max(rel(prog['mf'][k][0], a), rel(prog['mf'][k][1], b))
     for name in ('qlm_rel', 'mf_rel', 'qcl_rel'):
         nums[name] = max(v for kk, v in detail.items() if kk.startswith(name + '.'))
-    return nums, detail
 
 
-def _fmax(x):
+def fmax(x):
     x = x.detach().cpu().numpy()
     return float(np.max(x)) if np.all(np.isfinite(x)) else float('inf')

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..inputs import ARCMIN, Grid, lm_of_index
-from .qe import QE, alm2cl
+from .qe import QE, alm2cl, qe_terms
 from .sht import SHT, _CPLX
 
 _RS = {}
@@ -40,7 +40,10 @@ def _cli(cl):
 
 class Reference:
     """The reference of one configuration and run (`inp`: the run's inputs), in `dtype`
-    (`tf32`: products of f32 data on the TF32 tensor cores)."""
+    (`tf32`: products of f32 data on the TF32 tensor cores). `qe_terms` gives the
+    estimators' terms by key: a subclass brings its own for keys that qe.py lacks."""
+
+    qe_terms = staticmethod(qe_terms)
 
     def __init__(self, cfg, inp, device, dtype=torch.float64, tf32=False):
         self.cfg, self.inp, self.device = cfg, inp, torch.device(device)
@@ -48,7 +51,8 @@ class Reference:
         self.lmax, self.lq = cfg['lmax_ivf'], cfg['lmax_qlm']
         qgrid = Grid((2 * self.lmax + self.lq) // 2)
         self.qes = {k: QE(k, inp.cl_weight, self.lmax, self.lq,
-                          lambda L: sht(qgrid, L, dtype, tf32, device), device)
+                          lambda L: sht(qgrid, L, dtype, tf32, device), device,
+                          terms=self.qe_terms)
                     for k in cfg['qe_keys']}
 
     # ------------------------------------------------------------ isotropic filter

@@ -38,10 +38,12 @@ def qe_terms(key, cls, lmax):
 
 class QE:
     """Estimators of band limit lmax_qlm from filtered alms of band limit lmax, on the
-    Gauss-Legendre grid exact for the products (rings and longitudes from `grid_of`)."""
+    Gauss-Legendre grid exact for the products (rings and longitudes from `grid_of`).
+    `terms(key, cls, lmax)` gives the key's terms (qe_terms by default; a reference module
+    brings its own for keys that qe_terms lacks)."""
 
-    def __init__(self, key, cls, lmax, lmax_qlm, sht_of, device):
-        self.terms = qe_terms(key, cls, lmax)
+    def __init__(self, key, cls, lmax, lmax_qlm, sht_of, device, terms=qe_terms):
+        self.terms = terms(key, cls, lmax)
         self.lmax, self.lmax_qlm = lmax, lmax_qlm
         self.sht_leg = sht_of(lmax)
         self.sht_out = sht_of(lmax_qlm)

@@ -6,9 +6,11 @@ Reads the cell from BENCHMARK.json at the root of the checkout, its configuratio
 portbench/configs/<config>.json and its traffic from portbench/traffic/<traffic>.json,
 builds the configuration's chain from the program's libraries
 (portbench/builders/<builder>.py), warms it up, runs whole steps for `--seconds`, then
-checks the sampled step against the plain reference (portbench/reference) and prints one
-JSON line last. With --trace 1 the window runs under torch.profiler and the line carries
-the per-layer metrics (portbench/metrics/<metric>.py) instead of the end-to-end ones.
+checks the sampled step against the configuration's plain reference and comparison
+(portbench/reference/<reference>.py, or the chain's reference and harness/check.py's
+comparison where the configuration names none) and prints one JSON line last. With
+--trace 1 the window runs under torch.profiler and the line carries the per-layer metrics
+(portbench/metrics/<metric>.py) instead of the end-to-end ones.
 Needs a CUDA device; without one it exits with code 2 and prints no result.
 """
 import time
@@ -68,6 +70,17 @@ def load_metric(name):
     return mod
 
 
+def load_reference(cfg):
+    """(Reference, compare) of a configuration: those of portbench/reference/<name>.py where
+    it names a `reference`, else the chain's reference and harness/check.py's comparison."""
+    if 'reference' in cfg:
+        mod = importlib.import_module('portbench.reference.' + cfg['reference'])
+        return mod.Reference, mod.compare
+    from portbench.harness.check import compare
+    from portbench.reference.chain import Reference
+    return Reference, compare
+
+
 def forbidden_modules():
     return sorted({n.split('.')[0] for n in sys.modules} & set(FORBIDDEN))
 
@@ -89,9 +102,8 @@ def run(args, device):
     import torch
     from portbench.harness import trace as tr
     from portbench.harness.chain import Chain
-    from portbench.harness.check import program_products, compare
+    from portbench.harness.check import program_products
     from portbench.inputs import Inputs
-    from portbench.reference.chain import Reference
 
     cuda = torch.device(device).type == 'cuda'
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -165,6 +177,7 @@ def run(args, device):
     del chain, par
     if cuda:
         torch.cuda.empty_cache()
+    Reference, compare = load_reference(cfg)
     ref = Reference(cfg, inp, device)
     nums, detail = compare(cfg, prog, ref)
     sync()
@@ -213,7 +226,7 @@ def control_products(cfg, inp, prog, device):
     """The control of an f32 configuration: the reference itself, its products of f32
     data run on the TF32 tensor cores, in the program's place."""
     import torch
-    from portbench.reference.chain import Reference
+    Reference, _ = load_reference(cfg)
     ref = Reference(cfg, inp, device, dtype=torch.float32, tf32=True)
     idxs = prog['idxs']
     cur = ref.filtered(idxs)

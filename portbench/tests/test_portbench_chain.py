@@ -17,6 +17,11 @@ TINY = {
                               dict()),
     'ideal_l2048.mc_chain': (dict(lmax_ivf=24, lmax_qlm=40, lmin_ivf=2),
                              dict(sims_per_step=4, warm_sims=4)),
+    'masked_jtp_l2048.gmv_chain': (dict(lmax_ivf=24, lmax_qlm=24, grid_lmax=24, lmin_ivf=3,
+                                        cinv_tp=dict(marge_monopole=True, marge_dipole=True,
+                                                     lmax_dense=6, eps_min=1e-5,
+                                                     iter_max=400)),
+                                   dict()),
 }
 
 
@@ -38,16 +43,19 @@ def test_sound_run_is_correct(cell):
 
 
 @pytest.mark.parametrize('cell,control', [('masked_l2048.mc_chain', 'qe_f32'),
-                                          ('ideal_l2048.mc_chain', 'tf32')])
+                                          ('ideal_l2048.mc_chain', 'tf32'),
+                                          ('masked_jtp_l2048.gmv_chain', 'f32'),
+                                          ('masked_jtp_l2048.gmv_chain', 'qe_f32')])
 def test_control_is_not_correct(cell, control):
     assert not run_cpu(cell, control=control)['correct']
 
 
 def _unchanged_state(monkeypatch, cell):
-    if cell.startswith('masked'):
+    if cell.startswith('masked'):       # CinvTP calls pcg, IVFCinv's batches pcg_frozen
         from plancklens_tpu_torch.ops import cg
-        monkeypatch.setattr(cg, 'pcg', lambda f, p, b, x0, *a, **k:
-                            (torch.zeros_like(b), 0, torch.zeros(b.shape[0])))
+        for name in ('pcg', 'pcg_frozen'):
+            monkeypatch.setattr(cg, name, lambda f, p, b, x0, *a, **k:
+                                (torch.zeros_like(b), 0, torch.zeros(b.shape[0])))
     else:
         from plancklens_tpu_torch.models.filt import IVFSepTP
         monkeypatch.setattr(IVFSepTP, '_filt', lambda self, alm, f, b: alm)
